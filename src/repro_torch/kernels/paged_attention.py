@@ -1,0 +1,388 @@
+"""Fused paged attention for decode and chunked prefill: the CUDA
+kernels' wrappers and their plain PyTorch versions.
+
+Port of ``repro.kernels.paged_attention``.  One kernel source
+(``csrc/paged_attention.cu``) carries both variants:
+
+* :func:`paged_attention_fused` — exact QK^T.  Per (batch row, kv head)
+  the GQA query rows (``_rows_layout``) attend to the pages the block
+  table names: logits ``q·k/√hd`` masked to ``t <= lengths[b] + r % sc``
+  with ``NEG_INF``, an online softmax, and ``acc / max(denom, 1e-30)``.
+  Its plain version is ``paged_gather`` + ``chunk_decode_attention``.
+* :func:`paged_attention_fused_sc` — the same with the paper's
+  stochastic MUL for QK^T: per-row max-abs scales, fx16 operands, and
+  Threefry words from the QUERY TOKEN's key at counter
+  ``c0 = (t_abs·n_heads + head)·hd + d``, so a logit's bits depend only
+  on (request key, query position, kv position, head, d).
+  :func:`sc_qk_logits_host` is the one-token plain twin of those logits.
+
+For CUDA tensors the wrappers launch the kernel or raise; for CPU
+tensors they run the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.sc_fused import encode_fx16
+from repro_torch.kernels.sc_mul import (
+    LANE_BITS,
+    NSLICES,
+    horner_step,
+    popcount32,
+)
+from repro_torch.sc import ctr_rng
+
+NEG_INF = -1e30  # matches models/attention.py
+_DENOM_GUARD = 1e-30  # the output's divide guard
+_SCALE_GUARD = 1e-30  # matches sc/encoding.py's max-abs clamp
+_MASK32 = 0xFFFFFFFF
+# elements per Threefry call in the plain SC logits (bounds its memory)
+_PLAIN_CHUNK = 1 << 20
+
+
+def _scale(hd: int) -> float:
+    """``1 / sqrt(hd)`` in float32, as the reference constructs it."""
+    hd32 = torch.tensor(float(hd), dtype=torch.float32)
+    return float(1.0 / torch.sqrt(hd32))
+
+
+def split_keys4(keys):
+    """Per-token raw ``(..., 2)`` keys -> ``(..., 4)`` operand key words:
+    split each token key, the query stream takes the first half and the
+    key stream the second (the fused SC matmul's x/y split)."""
+    split = ctr_rng.split(keys)  # (..., 2, 2)
+    return torch.cat([split[..., 0, :], split[..., 1, :]], dim=-1)
+
+
+def _rows_layout(q, kvh: int):
+    """(b, sc, h, hd) queries -> (b, kvh, g*sc, hd) kernel rows.
+
+    Row ``r`` of a (batch, kv-head) slice holds query head
+    ``kvh_index * g + r // sc`` at chunk offset ``r % sc``.
+    """
+    b, sc, h, hd = q.shape
+    g = h // kvh
+    qg = q.reshape(b, sc, kvh, g, hd).permute(0, 2, 3, 1, 4)
+    return qg.reshape(b, kvh, g * sc, hd)
+
+
+def _rows_unlayout(out, *, sc: int, h: int):
+    """Inverse of :func:`_rows_layout`."""
+    b, kvh, rows, hd = out.shape
+    g = rows // sc
+    out = out.reshape(b, kvh, g, sc, hd).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sc, h, hd)
+
+
+def _check(q, k_pages, v_pages, block_table, lengths):
+    b, sc, h, hd = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("k/v pages must both be (P, block_size, kvh, hd)")
+    kvh = k_pages.shape[2]
+    if k_pages.shape[3] != hd or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} vs pages {k_pages.shape}")
+    if not q.dtype == k_pages.dtype == v_pages.dtype:
+        raise ValueError("q and the k/v pages must share one dtype")
+    if block_table.dim() != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table must be ({b}, nb)")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be ({b},)")
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_fused(q, k_pages, v_pages, block_table, lengths):
+    """Fused paged attention, deterministic QK^T.
+
+    q: (b, sc, h, hd) post-rope queries (chunk token i of row r sits at
+    absolute position ``lengths[r] + i``, K/V already scattered);
+    k/v_pages: (P, bs, kvh, hd) block pools; block_table: (b, nb);
+    lengths: (b,) pre-chunk fill.  Returns (b, sc, h, hd) in q's dtype.
+    """
+    _check(q, k_pages, v_pages, block_table, lengths)
+    if not q.is_cuda:
+        return paged_attention_fused_plain(
+            q, k_pages, v_pages, block_table, lengths
+        )
+    out = _launch(q, k_pages, v_pages, block_table, lengths, None)
+    cuda_lib.launches["paged_attention_fused"] += 1
+    return out
+
+
+def paged_attention_fused_sc(
+    keys,
+    q,
+    k_pages,
+    v_pages,
+    block_table,
+    lengths,
+    *,
+    nbit: int,
+    operand_bits: int = 10,
+    quantize: bool = True,
+):
+    """Fused paged attention with the SC-sampled QK^T.
+
+    keys: (b, sc, 2) raw per-token keys, each already folded from its
+    request key and absolute position upstream.  Other operands as
+    :func:`paged_attention_fused`.
+    """
+    _check(q, k_pages, v_pages, block_table, lengths)
+    if nbit % LANE_BITS or nbit <= 0:
+        raise ValueError("SC attention packs 32 cells per word")
+    if keys.shape != q.shape[:2] + (2,):
+        raise ValueError(f"keys must be {tuple(q.shape[:2]) + (2,)}")
+    kw = dict(nbit=nbit, operand_bits=operand_bits, quantize=quantize)
+    if not q.is_cuda:
+        return paged_attention_fused_sc_plain(
+            keys, q, k_pages, v_pages, block_table, lengths, **kw
+        )
+    keys4 = split_keys4(ctr_rng.raw_key(keys)).contiguous()
+    out = _launch(q, k_pages, v_pages, block_table, lengths, keys4, **kw)
+    cuda_lib.launches["paged_attention_fused_sc"] += 1
+    return out
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = cuda_lib.load("paged_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paged_attention.argtypes = [p] * 7 + [i] * 14 + [p]
+        lib.paged_attention.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _launch(
+    q,
+    k_pages,
+    v_pages,
+    block_table,
+    lengths,
+    keys4,
+    *,
+    nbit=32,
+    operand_bits=10,
+    quantize=True,
+):
+    dev = q.device
+    tensors = (k_pages, v_pages, block_table, lengths)
+    if keys4 is not None:
+        tensors += (keys4,)
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all operands must lie on q's CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype} is not float32 or bfloat16")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("block_table and lengths must be int32")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("k/v pages must be contiguous")
+    b, sc, h, hd = q.shape
+    kvh, bs = k_pages.shape[2], k_pages.shape[1]
+    nb = block_table.shape[1]
+    g = h // kvh
+    rows = g * sc
+    qr = _rows_layout(q, kvh).contiguous()
+    bt = block_table.contiguous()
+    ln = lengths.contiguous()
+    out = torch.empty((b, kvh, rows, hd), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.paged_attention(
+            qr.data_ptr(),
+            k_pages.data_ptr(),
+            v_pages.data_ptr(),
+            bt.data_ptr(),
+            ln.data_ptr(),
+            None if keys4 is None else keys4.data_ptr(),
+            out.data_ptr(),
+            b,
+            kvh,
+            rows,
+            hd,
+            bs,
+            nb,
+            sc,
+            h,
+            g,
+            nbit,
+            1 << operand_bits,
+            int(quantize),
+            int(q.dtype == torch.bfloat16),
+            int(keys4 is not None),
+            cuda_lib.stream_ptr(dev),
+        )
+    cuda_lib.check(lib, code, "paged_attention")
+    return _rows_unlayout(out, sc=sc, h=h).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_fused_plain(q, k_pages, v_pages, block_table, lengths):
+    """:func:`paged_attention_fused`'s function in ordinary tensor ops:
+    the gathered cache view through ``chunk_decode_attention``."""
+    from repro_torch.models import attention
+
+    return attention.chunk_decode_attention(
+        q,
+        attention.paged_gather(k_pages, block_table),
+        attention.paged_gather(v_pages, block_table),
+        lengths,
+    )
+
+
+def _sc_counts(keys4, fxq, fxk, c0, *, nbit: int):
+    """Pop-count core of the SC logits (int64 words masked to 32 bits).
+
+    keys4: (bq, 4) operand key words; fxq: (bq, hd) and fxk: (bs, hd)
+    fx16 words; c0: (bq, bs, hd) product counters.  Returns (bq, bs, hd)
+    int64 pop-count totals.
+    """
+    nwords = nbit // LANE_BITS
+    keys = keys4.to(torch.int64)
+    kq0, kq1, kk0, kk1 = (keys[:, i, None, None, None] for i in range(4))
+    c0_4 = c0[..., None]
+    pq4 = fxq[:, None, :, None]
+    pk4 = fxk[None, :, :, None]
+    counts = torch.zeros(c0.shape, dtype=torch.int64, device=c0.device)
+    wc = max(1, min(nwords, _PLAIN_CHUNK // max(c0.numel(), 1)))
+    for w0 in range(0, nwords, wc):
+        widx = torch.arange(
+            w0, min(nwords, w0 + wc), dtype=torch.int64, device=c0.device
+        )
+        shape = c0.shape + (len(widx),)
+        tq = torch.zeros(shape, dtype=torch.int64, device=c0.device)
+        tk = torch.zeros_like(tq)
+        for s in range(NSLICES):  # LSB -> MSB Horner ladder
+            c1 = s * nwords + widx
+            uq = ctr_rng.threefry2x32(kq0, kq1, c0_4, c1)[0]
+            tq = horner_step(tq, uq, pq4, s)
+            uk = ctr_rng.threefry2x32(kk0, kk1, c0_4, c1)[0]
+            tk = horner_step(tk, uk, pk4, s)
+        counts += popcount32(tq & tk).sum(dim=-1)
+    return counts
+
+
+def _sc_logits(q_blk, k_blk, keys4, c0, *, nbit, levels, quantize):
+    """SC-sampled QK^T logits from exact q (bq, hd) / k (bs, hd) rows, in
+    the reference's f32 order ``((total / nbit) * sq) * sk * scale``."""
+    q_blk = q_blk.to(torch.float32)
+    k_blk = k_blk.to(torch.float32)
+    scq = torch.clamp_min(q_blk.abs().amax(dim=1), _SCALE_GUARD)
+    sck = torch.clamp_min(k_blk.abs().amax(dim=1), _SCALE_GUARD)
+    fxq = encode_fx16(q_blk.abs() / scq[:, None], levels, quantize)
+    fxk = encode_fx16(k_blk.abs() / sck[:, None], levels, quantize)
+    sgq = torch.sign(q_blk).to(torch.int64)
+    sgk = torch.sign(k_blk).to(torch.int64)
+    counts = _sc_counts(keys4, fxq, fxk, c0, nbit=nbit)
+    signed = sgq[:, None, :] * sgk[None, :, :] * counts
+    total = signed.sum(dim=-1).to(torch.float32)  # (bq, bs)
+    est = total / nbit * scq[:, None] * sck[None, :]
+    return est * _scale(q_blk.shape[-1])
+
+
+def _counters(t_abs, heads, n_heads: int, hd: int):
+    """``c0 = (t_abs·n_heads + head)·hd + d`` for (rows, T, hd)."""
+    d = torch.arange(hd, dtype=torch.int64, device=t_abs.device)
+    c0 = t_abs[None, :, None] * n_heads + heads[:, None, None]
+    return (c0 * hd + d[None, None, :]) & _MASK32
+
+
+def paged_attention_fused_sc_plain(
+    keys,
+    q,
+    k_pages,
+    v_pages,
+    block_table,
+    lengths,
+    *,
+    nbit: int,
+    operand_bits: int = 10,
+    quantize: bool = True,
+):
+    """:func:`paged_attention_fused_sc`'s function in ordinary tensor ops:
+    SC logits over each row's whole gathered view, masked, softmax, PV."""
+    from repro_torch.models import attention
+
+    b, sc, h, hd = q.shape
+    kvh = k_pages.shape[2]
+    g = h // kvh
+    rows = g * sc
+    kc = attention.paged_gather(k_pages, block_table).to(torch.float32)
+    vc = attention.paged_gather(v_pages, block_table).to(torch.float32)
+    t_len = kc.shape[1]
+    qr = _rows_layout(q, kvh).to(torch.float32)
+    keys4 = split_keys4(ctr_rng.raw_key(keys))  # (b, sc, 4)
+    rowk = keys4[:, None].expand(b, g, sc, 4).reshape(b, rows, 4)
+    dev = q.device
+    t_abs = torch.arange(t_len, dtype=torch.int64, device=dev)
+    r = torch.arange(rows, dtype=torch.int64, device=dev)
+    logits = torch.empty((b, kvh, rows, t_len), device=dev)
+    for kh in range(kvh):
+        c0 = _counters(t_abs, kh * g + r // sc, h, hd)
+        for bi in range(b):
+            logits[bi, kh] = _sc_logits(
+                qr[bi, kh],
+                kc[bi, :, kh],
+                rowk[bi],
+                c0,
+                nbit=nbit,
+                levels=1 << operand_bits,
+                quantize=quantize,
+            )
+    q_pos = lengths.to(torch.int64)[:, None] + r[None, :] % sc  # (b, rows)
+    live = t_abs[None, None, :] <= q_pos[:, :, None]
+    logits = torch.where(live[:, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrt,btkd->bkrd", w, vc)
+    return _rows_unlayout(out, sc=sc, h=h).to(q.dtype)
+
+
+def sc_qk_logits_host(
+    key,
+    q_row,
+    k_rows,
+    t_abs,
+    head: int,
+    n_heads: int,
+    *,
+    nbit: int,
+    operand_bits: int = 10,
+    quantize: bool = True,
+):
+    """Plain twin of the kernel's SC QK^T for ONE query token.
+
+    key: raw (2,) token key; q_row: (hd,) post-rope query; k_rows:
+    (T, hd) cache rows at absolute positions ``t_abs`` (T,); ``head`` is
+    the query's flat head index.  Returns the (T,) pre-mask logits, bit
+    for bit the kernel's.
+    """
+    hd = q_row.shape[-1]
+    keys4 = split_keys4(ctr_rng.raw_key(key)[None])  # (1, 4)
+    t_abs = torch.as_tensor(t_abs, dtype=torch.int64, device=q_row.device)
+    heads = torch.tensor([head], dtype=torch.int64, device=q_row.device)
+    c0 = _counters(t_abs, heads, n_heads, hd)
+    logits = _sc_logits(
+        q_row[None],
+        k_rows,
+        keys4,
+        c0,
+        nbit=nbit,
+        levels=1 << operand_bits,
+        quantize=quantize,
+    )
+    return logits[0]

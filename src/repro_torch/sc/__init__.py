@@ -1,0 +1,21 @@
+"""repro_torch.sc — the SC multiplication substrate (port of ``repro.sc``).
+
+One operation interface, ``sc_dot(key, x, w, cfg)`` and its per-row-key
+variant ``sc_dot_rows``, with the backends behind a registry.  This
+slice ports ``exact`` and the fused bit-exact engine ``pallas_fused``
+(CUDA kernel ``csrc/sc_fused.cu``); ``fast_backend`` upgrades
+``pallas_bitexact`` to it, as in the reference.
+"""
+
+from repro_torch.sc import backends as _backends  # noqa: F401  (registers)
+from repro_torch.sc import ctr_rng, encoding  # noqa: F401
+from repro_torch.sc.config import ScConfig  # noqa: F401
+from repro_torch.sc.registry import (  # noqa: F401
+    available_backends,
+    fast_backend,
+    get_backend,
+    register_backend,
+    register_rows_backend,
+    sc_dot,
+    sc_dot_rows,
+)

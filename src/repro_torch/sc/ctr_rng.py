@@ -1,0 +1,139 @@
+"""Counter-based RNG shared by the bit-exact SC engines (Threefry-2x32).
+
+Port of ``repro.sc.ctr_rng``.  The stream is pinned explicitly:
+
+    word(key, c0, c1) = Threefry-2x32(key, (c0, c1))[0]
+
+with the counter layout of :func:`product_counters`:
+
+    c0 = flat product index  (i·K + k)·N + j
+    c1 = s·nwords + w        (Horner slice s, word w)
+
+Values are 32-bit words, but torch's ``uint32`` has no ``+ - << >> ~``
+on the CPU and ``int32 >>`` is an arithmetic shift, so every function
+here computes in ``int64`` tensors masked to ``0xFFFFFFFF``.  The CUDA
+kernels (``csrc/sc_device.cuh``) compute the same words in native
+``uint32_t``.
+
+The JAX key chain reduces to this one function (jax 0.9.0 with
+``jax_threefry_partitionable=True``):
+
+* ``PRNGKey(s)``      = raw ``[0, s]``            (:func:`prng_key`)
+* ``fold_in(k, d)``   = ``threefry2x32(k, (0, d))``  (:func:`fold_in`)
+* ``split(k, n)[i]``  = ``threefry2x32(k, (0, i))``  (:func:`split`)
+
+so every per-request, per-position, per-layer and per-site key of the
+reference reproduces here.  Keys are explicit ``(..., 2)`` ``uint32``
+tensors; there is no global RNG state.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+# Threefry-2x32 constants (Salmon et al., SC'11): 20 rounds = 5 groups of
+# 4, rotation schedule alternating between the two quartets, key words
+# re-injected after every group with the round-group counter.
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _u64(v, device=None) -> torch.Tensor:
+    """A 32-bit word (int, uint32 or int64 tensor) as an int64 tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int64)
+    return torch.tensor(int(v) & MASK32, dtype=torch.int64, device=device)
+
+
+def threefry2x32(k0, k1, c0, c1):
+    """Threefry-2x32 (20 rounds); returns ``(x0, x1)`` as int64 words.
+
+    Arguments are ints or tensors holding 32-bit words (``uint32`` or
+    ``int64``); they broadcast against each other.  Results are int64
+    tensors with values in ``[0, 2**32)``.
+    """
+    dev = next(
+        (a.device for a in (c0, c1, k0, k1) if isinstance(a, torch.Tensor)),
+        None,
+    )
+    k0, k1, c0, c1 = (_u64(a, dev) for a in (k0, k1, c0, c1))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0, x1 = torch.broadcast_tensors(c0 + k0, c1 + k1)
+    x0 = x0.bitwise_and(MASK32)
+    x1 = x1.bitwise_and(MASK32)
+    for group in range(5):
+        for rot in _ROTATIONS[group % 2]:
+            x0.add_(x1).bitwise_and_(MASK32)
+            x1 = (x1 << rot).bitwise_or_(x1 >> (32 - rot))
+            x1.bitwise_and_(MASK32).bitwise_xor_(x0)
+        x0.add_(ks[(group + 1) % 3]).bitwise_and_(MASK32)
+        x1.add_(ks[(group + 2) % 3] + (group + 1)).bitwise_and_(MASK32)
+    return x0, x1
+
+
+def uniform_words(key2, c0, c1):
+    """One iid-uniform 32-bit word per counter pair (first lane)."""
+    return threefry2x32(key2[..., 0], key2[..., 1], c0, c1)[0]
+
+
+def raw_key(key) -> torch.Tensor:
+    """Normalize a key to its raw ``(..., 2)`` ``uint32`` tensor."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.as_tensor(key, dtype=torch.int64)
+    if key.dtype != torch.uint32:
+        key = key.to(torch.int64).bitwise_and(MASK32).to(torch.uint32)
+    return key
+
+
+def _as_key(x0, x1) -> torch.Tensor:
+    return torch.stack([x0, x1], dim=-1).to(torch.uint32)
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for ``0 <= seed < 2**32``: ``[0, s]``."""
+    if not 0 <= seed <= MASK32:
+        raise ValueError(f"seed must fit in 32 bits, got {seed}")
+    return torch.tensor([0, seed], dtype=torch.uint32, device=device)
+
+
+def fold_in(key, data) -> torch.Tensor:
+    """``jax.random.fold_in``: ``threefry2x32(key, (0, data))``.
+
+    ``key`` is ``(..., 2)``; ``data`` an int or a tensor broadcasting
+    against ``key.shape[:-1]``.
+    """
+    key = raw_key(key)
+    x0, x1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
+    return _as_key(x0, x1)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(num, 2)`` keys, ``threefry2x32(key,
+    (0, i))`` for ``i < num``; batched keys give ``(..., num, 2)``."""
+    key = raw_key(key)
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    x0, x1 = threefry2x32(key[..., 0, None], key[..., 1, None], 0, idx)
+    return _as_key(x0, x1)
+
+
+def product_counters(n_products: int, nwords: int, device=None):
+    """The pinned (c0, c1) layout of one operand's per-product stream:
+    ``c0`` of shape ``(n_products, 1, 1)`` and ``c1`` of shape
+    ``(1, NSLICES, nwords)`` (``s·nwords + w``)."""
+    from repro_torch.kernels.sc_mul import NSLICES
+
+    c0 = torch.arange(n_products, dtype=torch.int64, device=device)
+    s = torch.arange(NSLICES, dtype=torch.int64, device=device)
+    w = torch.arange(nwords, dtype=torch.int64, device=device)
+    c1 = s[:, None] * nwords + w[None, :]
+    return c0[:, None, None], c1[None]
+
+
+def operand_stream(key2, n_products: int, nwords: int):
+    """Host-side materialization: ``(n_products, NSLICES, nwords)`` int64
+    words — the stream the packed engine consumes."""
+    key2 = raw_key(key2)
+    c0, c1 = product_counters(n_products, nwords, key2.device)
+    return uniform_words(key2, c0, c1)

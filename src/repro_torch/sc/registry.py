@@ -1,0 +1,148 @@
+"""Backend registry + the dispatch entry points ``sc_dot`` /
+``sc_dot_rows``.
+
+Port of ``repro.sc.registry`` for inference: every backend registers
+under a name and ``sc_dot(key, x, w, cfg)`` runs ``cfg.backend``.  The
+straight-through gradient of the reference (its ``custom_vjp``) comes
+with the training slice; these entry points carry no gradient.
+
+Backends of the reference that this slice does not port raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch import obs
+from repro_torch.sc.config import ScConfig
+
+_BACKENDS: dict = {}
+
+# Optional batched per-row-key implementations: name -> fn(keys, x2d, w,
+# cfg) with keys (M, 2).  Backends without one fall back to a loop of
+# single-row calls in ``sc_dot_rows``.
+_ROW_BACKENDS: dict = {}
+
+# name -> bit-identical faster backend (``fast_backend``).
+_FAST_ALIASES: dict = {"pallas_bitexact": "pallas_fused"}
+
+# reference backends not ported yet -> where the port will bring them
+_UNPORTED: dict = {
+    "moment": "ROADMAP queue 1 item 6",
+    "bitexact": "ROADMAP queue 1 item 6",
+    "pallas_moment": "ROADMAP queue 1 item 6 / queue 2 item 5",
+    "pallas_bitexact": (
+        "ROADMAP queue 2 item 4 (the packed sc_mul kernel); "
+        "sc.fast_backend upgrades it to pallas_fused"
+    ),
+    "array": "ROADMAP queue 1 item 8",
+}
+
+
+def register_backend(name: str):
+    """Decorator: register ``fn(key, x2d, w, cfg) -> y2d`` under ``name``
+    (x2d (M, K), w (K, N) float32 -> (M, N) float32)."""
+
+    def deco(fn):
+        _BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
+def register_rows_backend(name: str):
+    """Decorator: register a batched per-row-key path
+    ``fn(keys, x2d, w, cfg)`` for backend ``name``; row i must depend on
+    ``keys[i]`` / ``x[i]`` only."""
+
+    def deco(fn):
+        _ROW_BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
+def get_backend(name: str):
+    """Resolve a backend name to its function."""
+    fn = _BACKENDS.get(name)
+    if fn is not None:
+        return fn
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"SC backend {name!r} is not ported yet: {_UNPORTED[name]}"
+        )
+    raise ValueError(
+        f"unknown SC backend {name!r}; registered: {sorted(_BACKENDS)}"
+    )
+
+
+def available_backends() -> tuple:
+    """Sorted names of every selectable backend."""
+    return tuple(sorted(_BACKENDS))
+
+
+def fast_backend(name: str, nbit: int | None = None) -> str:
+    """Resolve ``name`` to its bit-identical fast path, if one exists:
+    ``pallas_bitexact`` -> ``pallas_fused`` when ``nbit`` packs whole
+    32-bit words; every other name returns unchanged."""
+    fast = _FAST_ALIASES.get(name)
+    if fast is None:
+        return name
+    if nbit is not None and nbit % 32 != 0:
+        return name
+    return fast
+
+
+def _dispatch_scope(entry: str, backend: str, m: int, k: int, n: int):
+    """Telemetry for one dispatch: a counter on the default registry and
+    a span on the installed tracer, both off by default."""
+    reg = obs.default_registry()
+    if reg.enabled:
+        c = reg.counter("sc_dispatch_total", "sc_dot/sc_dot_rows dispatches")
+        c.inc(backend=backend, entry=entry)
+    tr = obs.current_tracer()
+    if tr is None or not tr.enabled:
+        return contextlib.nullcontext()
+    return tr.span("sc.dispatch", entry=entry, backend=backend, m=m, k=k, n=n)
+
+
+def sc_dot(key, x, w, cfg: ScConfig = ScConfig()):
+    """``x @ w`` through the configured SC backend.
+
+    key: raw ``(2,)`` uint32 key (``exact`` ignores it); x: (..., K)
+    float32, leading dims flatten to rows; w: (K, N) float32.  Returns
+    (..., N) float32.
+    """
+    fn = get_backend(cfg.backend)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    n = w.shape[-1]
+    with _dispatch_scope("sc_dot", cfg.backend, x2.shape[0], x2.shape[1], n):
+        y = fn(key, x2, w, cfg)
+    return y.reshape(*lead, n)
+
+
+def sc_dot_rows(keys, x, w, cfg: ScConfig = ScConfig()):
+    """``x @ w`` with PER-ROW keys: row i draws from ``keys[i]`` alone.
+
+    keys: (..., 2) raw uint32 keys matching ``x``'s leading dims.  Row
+    i's output (bits AND encoding scale) is a function of
+    ``(keys[i], x[i], w)`` only and equals ``sc_dot(keys[i], x[i:i+1],
+    w, cfg)``.
+    """
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    k2 = keys.reshape(-1, keys.shape[-1])
+    m, k = x2.shape
+    with _dispatch_scope("sc_dot_rows", cfg.backend, m, k, w.shape[-1]):
+        fn = _ROW_BACKENDS.get(cfg.backend)
+        if fn is not None:
+            y = fn(k2, x2, w, cfg)
+        else:
+            base = get_backend(cfg.backend)
+            rows = [base(k2[i], x2[i : i + 1], w, cfg) for i in range(m)]
+            y = torch.cat(rows, dim=0) if rows else x2 @ w
+    return y.reshape(*lead, w.shape[-1])

@@ -12,3 +12,6 @@ def key():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running statistical test")
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: runs a repro_torch CUDA kernel; skips without a GPU")

@@ -1,0 +1,163 @@
+"""PyTorch port vs JAX reference: fused paged attention.
+
+The plain versions of both CUDA kernels (``paged_attention_fused`` and
+``paged_attention_fused_sc``) against the Pallas kernels in interpret
+mode, on the same numpy-seeded pools and shuffled block tables.
+
+Tolerances: the attention outputs are float math with another
+summation order (a full softmax against the kernel's online softmax),
+so they are held to rtol = atol = 1e-5 in float32.  The SC logits
+themselves are integer pop-count totals scaled in the reference's f32
+order, so ``sc_qk_logits_host`` is held bit-exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import paged_attention as jpa
+from repro.models import attention as jattn
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.models import attention as tattn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in parallel worker processes; torch's intra-op
+    thread pool would oversubscribe the cores the JAX reference runs on
+    (the plain versions' small ops run no slower on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+_NBIT = 64
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _case(seed, *, b, sc, h, kvh, hd, bs, nb):
+    """Random pool + shuffled block tables + per-token keys + lengths
+    that reach block boundaries and length 0."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * nb + 2
+    kp = rng.normal(size=(n_pages, bs, kvh, hd)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, bs, kvh, hd)).astype(np.float32)
+    bt = rng.permutation(n_pages)[: b * nb].reshape(b, nb).astype(np.int32)
+    q = rng.normal(size=(b, sc, h, hd)).astype(np.float32)
+    maxlen = bs * nb - sc
+    lengths = np.array([0, bs, maxlen][:b], np.int32)
+    keys = rng.integers(0, 2**32, (b, sc, 2), dtype=np.uint64)
+    return q, kp, vp, bt, lengths, keys.astype(np.uint32)
+
+
+@pytest.mark.parametrize("bs,sc", [(4, 1), (8, 3), (4, 3)])
+def test_fused_plain_matches_pallas_kernel(bs, sc):
+    q, kp, vp, bt, ln, _ = _case(bs + sc, b=3, sc=sc, h=4, kvh=2, hd=8,
+                                 bs=bs, nb=3)
+    # block_q=4 pads the 2*sc GQA rows of each kv head when sc = 3
+    want = jpa.paged_attention_fused(
+        *map(jnp.asarray, (q, kp, vp, bt, ln)), block_q=4
+    )
+    got = tpa.paged_attention_fused(*map(_t, (q, kp, vp, bt, ln)))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("bs,sc", [(4, 1), (8, 3)])
+def test_fused_sc_plain_matches_pallas_kernel(bs, sc):
+    q, kp, vp, bt, ln, keys = _case(10 + bs, b=2, sc=sc, h=4, kvh=2, hd=8,
+                                    bs=bs, nb=3)
+    want = jpa.paged_attention_fused_sc(
+        *map(jnp.asarray, (keys, q, kp, vp, bt, ln)), nbit=_NBIT, block_q=4
+    )
+    got = tpa.paged_attention_fused_sc(
+        *map(_t, (keys, q, kp, vp, bt, ln)), nbit=_NBIT
+    )
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5
+    )
+
+
+def test_sc_logits_host_twin_bit_exact():
+    q, kp, _, bt, _, keys = _case(21, b=2, sc=3, h=4, kvh=2, hd=8, bs=4,
+                                  nb=3)
+    gathered = np.asarray(jattn.paged_gather(jnp.asarray(kp), bt))
+    t_abs = np.arange(gathered.shape[1])
+    for r, i, head in [(0, 0, 0), (1, 2, 3)]:
+        kh = head // 2
+        want = jpa.sc_qk_logits_host(
+            jnp.asarray(keys[r, i]), jnp.asarray(q[r, i, head]),
+            jnp.asarray(gathered[r, :, kh]), t_abs, head, 4, nbit=_NBIT,
+        )
+        got = tpa.sc_qk_logits_host(
+            _t(keys[r, i]), _t(q[r, i, head]), _t(gathered[r, :, kh]),
+            _t(t_abs), head, 4, nbit=_NBIT,
+        )
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_split_keys4_and_rows_layout_match_reference():
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 2**32, (2, 3, 2), dtype=np.uint64)
+    keys = keys.astype(np.uint32)
+    np.testing.assert_array_equal(
+        tpa.split_keys4(_t(keys)).numpy(),
+        np.asarray(jpa.split_keys4(jnp.asarray(keys))),
+    )
+    q = rng.normal(size=(2, 3, 6, 4)).astype(np.float32)
+    rows = tpa._rows_layout(_t(q), 2)
+    np.testing.assert_array_equal(
+        rows.numpy(), np.asarray(jpa._rows_layout(jnp.asarray(q), 2))
+    )
+    back = tpa._rows_unlayout(rows, sc=3, h=6)
+    np.testing.assert_array_equal(back.numpy(), q)
+
+
+def test_chunk_decode_and_paged_helpers_match_reference():
+    q, kp, vp, bt, ln, _ = _case(31, b=2, sc=3, h=4, kvh=2, hd=8, bs=4,
+                                 nb=3)
+    jk = jattn.paged_gather(jnp.asarray(kp), jnp.asarray(bt))
+    tk = tattn.paged_gather(_t(kp), _t(bt))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    jv = jattn.paged_gather(jnp.asarray(vp), jnp.asarray(bt))
+    want = jattn.chunk_decode_attention(jnp.asarray(q), jk, jv,
+                                        jnp.asarray(ln))
+    got = tattn.chunk_decode_attention(_t(q), tk, _t(np.asarray(jv)), _t(ln))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    # scatter (in place in the port) writes the same live slots
+    new = np.random.default_rng(2).normal(size=(2, 3, 2, 8))
+    new = new.astype(np.float32)
+    nv = np.array([3, 1], np.int32)
+    want = jattn.paged_scatter(jnp.asarray(kp), jnp.asarray(bt),
+                               jnp.asarray(new), jnp.asarray(ln),
+                               jnp.asarray(nv))
+    got = tattn.paged_scatter(_t(kp), _t(bt), _t(new), _t(ln), _t(nv))
+    np.testing.assert_array_equal(got.numpy()[1:], np.asarray(want)[1:])
+    pages = {"k": _t(kp)[None].clone(), "v": _t(vp)[None].clone()}
+    jpages = {"k": jnp.asarray(kp)[None], "v": jnp.asarray(vp)[None]}
+    want = jattn.paged_copy_blocks(jpages, [1, 2], [3, 0])
+    got = tattn.paged_copy_blocks(pages, [1, 2], [3, 0])
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]))
+
+
+def test_wrappers_validate_shapes_and_keys():
+    q, kp, vp, bt, ln, keys = _case(3, b=2, sc=1, h=4, kvh=2, hd=8, bs=4,
+                                    nb=2)
+    args = [_t(a) for a in (q, kp, vp, bt, ln)]
+    with pytest.raises(ValueError, match="dtype"):
+        tpa.paged_attention_fused(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="block_table"):
+        tpa.paged_attention_fused(*args[:3], args[3][:1], args[4])
+    with pytest.raises(ValueError, match="keys"):
+        tpa.paged_attention_fused_sc(_t(keys[:, :, :1]), *args, nbit=64)
+    with pytest.raises(ValueError, match="32 cells"):
+        tpa.paged_attention_fused_sc(_t(keys), *args, nbit=40)

@@ -1,0 +1,110 @@
+"""The PyTorch port's CUDA kernels on the card, against their plain
+versions (marker ``requires_cuda``; skipped without a GPU).
+
+These tests import only ``torch`` and ``repro_torch`` so they also run
+where JAX is not installed:
+
+    python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
+
+Classes: ``sc_fused`` totals bit-equal; attention outputs within 1e-5 in
+float32; a tiny model served on the card and on the CPU gives the same
+greedy tokens.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import sc_fused as kf
+from repro_torch.models import lm, params
+from repro_torch.serve import Request, ServeOptions, build_engine
+
+pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU tests cover the plain "
+                    "versions")
+    return torch.device("cuda")
+
+
+def _u32(rng, shape):
+    keys = rng.integers(0, 2**32, shape, dtype=np.uint64)
+    return torch.tensor(keys.astype(np.uint32))
+
+
+@pytest.mark.parametrize("row_keys", [True, False])
+def test_sc_fused_kernel_bit_equals_plain(cuda, row_keys):
+    rng = np.random.default_rng(0)
+    m, k, n = 3, 37, 300
+    keys = _u32(rng, (m, 4)).to(cuda)
+    x = torch.tensor(rng.uniform(-1, 1, (m, k)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(-1, 1, (k, n)), dtype=torch.float32)
+    x, w = x.to(cuda), w.to(cuda)
+    kw = dict(k_orig=k, n_orig=n + 5, nbit=128, levels=1024,
+              row_keys=row_keys)
+    before = cuda_lib.launches["sc_fused"]
+    got = kf.sc_fused_popcount(keys, x, w, **kw)
+    assert cuda_lib.launches["sc_fused"] == before + 1
+    want = kf.sc_fused_popcount_plain(keys, x, w, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sc", [1, 5])
+def test_paged_attention_kernels_match_plain(cuda, sc, dtype):
+    rng = np.random.default_rng(sc)
+    b, h, kvh, hd, bs, nb = 2, 6, 2, 64, 8, 3
+    n_pages = 1 + b * nb
+    kp = torch.tensor(rng.normal(size=(n_pages, bs, kvh, hd)), dtype=dtype)
+    vp = torch.tensor(rng.normal(size=(n_pages, bs, kvh, hd)), dtype=dtype)
+    q = torch.tensor(rng.normal(size=(b, sc, h, hd)), dtype=dtype)
+    bt = torch.tensor(rng.permutation(np.arange(1, n_pages)).reshape(b, nb),
+                      dtype=torch.int32)
+    ln = torch.tensor([0, bs * nb - sc], dtype=torch.int32)
+    keys = _u32(rng, (b, sc, 2))
+    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in (keys, q, kp, vp, bt, ln))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    got = pa.paged_attention_fused(q, kp, vp, bt, ln)
+    want = pa.paged_attention_fused_plain(q, kp, vp, bt, ln)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, nbit=64)
+    want = pa.paged_attention_fused_sc_plain(keys, q, kp, vp, bt, ln,
+                                             nbit=64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
+    keys = torch.zeros((2, 4), dtype=torch.uint32, device=cuda)
+    x = torch.zeros((2, 3), device=cuda)
+    w = torch.zeros((3, 4))  # on the CPU: mixed devices must raise
+    with pytest.raises(ValueError, match="device"):
+        kf.sc_fused_popcount(keys, x, w, k_orig=3, n_orig=4, nbit=64,
+                             levels=1024)
+
+
+def test_tiny_model_serves_same_tokens_on_card_and_cpu(cuda):
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        d_model=32, d_ff=64, vocab=128, param_dtype=torch.float32,
+        act_dtype=torch.float32, sc_backend="pallas_bitexact", sc_nbit=32,
+        paged_attn="fused_sc")
+    prompts = [[5, 9, 17, 3, 8, 11, 40], [40, 2, 8, 30]]
+    toks = {}
+    for dev in (cuda, torch.device("cpu")):
+        gen = torch.Generator().manual_seed(0)
+        p = params.init_params(lm.lm_param_specs(cfg), gen, dev,
+                               torch.float32)
+        eng = build_engine(p, cfg, ServeOptions(
+            paged=True, slots=2, max_len=32, block_size=8, prefill_chunk=4),
+            device=dev)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=4))
+        eng.run_until_drained()
+        toks[dev.type] = {r.rid: r.generated for r in eng.finished}
+    assert toks["cuda"] == toks["cpu"]
