@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's paged SC serving path on one GPU.
+"""Drive the PyTorch/CUDA port's paged SC serving path and its trainer
+on one GPU.
 
     python3 chip_smoke.py [--layers N]
 
@@ -6,13 +7,16 @@ Phases, each printing one JSON line (any failure raises, so the exit
 code is non-zero):
 
 1. environment (card name and power limit, torch / CUDA / nvcc versions)
-   and the build of every CUDA kernel of the path from ``src/``;
+   and the build of every CUDA kernel from ``src/`` (one ``nvcc`` per
+   source, all at once);
 2. each kernel against its plain PyTorch version on the card at the
-   main path's shapes (``sc_fused`` bit-equal; both paged-attention
-   kernels within 1e-5 in float32), with its median time, the plain
-   version's time, the least time the card could take (``bound_ms``),
-   and for the exact attention kernel PyTorch's
-   ``scaled_dot_product_attention`` on the gathered view as a yardstick;
+   main paths' shapes (``sc_fused`` bit-equal; both paged-attention
+   kernels within 1e-5 in float32; both moment kernels within 1e-5 of
+   max |out|, plus the in-kernel noise's mean and variance), with its
+   median time, the plain version's time, the least time the card could
+   take (``bound_ms``), and a PyTorch yardstick where one computes the
+   same function (``scaled_dot_product_attention``; three float32
+   ``torch.matmul`` calls plus the moment epilogue);
 3. serve phase A: qwen2-0.5b at full width, depth cut to ``--layers``
    (default 2), bf16, random weights from seed 0, ``pallas_bitexact``
    (the fused SC matmul kernel) with ``fused_sc`` attention at
@@ -21,21 +25,33 @@ code is non-zero):
    one request;
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
-6. the kernels line and the device line.
+6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
+   ``pallas_moment`` (the fused moment kernel) at nbit 1024 with
+   ``remat="full"``, batch 8 x seq 64, through
+   ``repro_torch.launch.train.main``: 4 steps, a checkpoint every 2, a
+   failure injected before the fourth (``--inject-failure-at 3``, a
+   0-based index) and recovered from the step-2 checkpoint; then an
+   uninterrupted run from the same seed, whose losses must equal the
+   first run's at every step; then one profiled step;
+7. the tiny trainer (paper-sc smoke, ``pallas_moment``) for 2 steps on
+   the card and on the CPU in this process: losses within 1e-4;
+8. the kernels line and the device line.
 
-Launch counts are reset just before phases A and B and read just after
-each; a kernel of a phase's path that did not launch fails the run.
-Without a CUDA device the script exits non-zero before printing any
-result.
+Launch counts are reset just before phases A, B and T and read just
+after each; a kernel of a phase's path that did not launch fails the
+run.  Without a CUDA device the script exits non-zero before printing
+any result.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +70,7 @@ ISSUE_PER_SM_CLOCK = 128
 ALU_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA H100 datasheet)
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (same datasheet)
+FP32_LANES_PER_SM = 128  # FP32 FMA lanes per Hopper SM (white paper)
 # One Threefry-2x32 call as csrc/sc_device.cuh writes it, counting only
 # what its first output word needs (the last round's rotate and xor of
 # x1 are dead): 19 funnel-shift rotates and 19 xors on the ALU pipe, plus
@@ -146,6 +163,8 @@ def environment():
     rates = {
         "alu": sms * ALU_PER_SM_CLOCK * mhz * 1e6,
         "issue": sms * ISSUE_PER_SM_CLOCK * mhz * 1e6,
+        # FP32 FMA on the CUDA cores: 128 lanes per SM, 2 flops each
+        "fp32": sms * FP32_LANES_PER_SM * 2 * mhz * 1e6,
     }
     emit("sass", **{n: sass_census(n) for n in cuda_lib.SOURCES})
     return f"{name}, {power}", rates
@@ -369,6 +388,125 @@ def _sdpa_ms(q, kp, vp, bt, ln, attention) -> float:
     return time_ms(run, 20)
 
 
+def _moment_operands(rng, m: int, k: int, n: int):
+    """Signed probabilities on the 10-bit grid (what ``pallas_moment``
+    hands the kernel) and standard-normal noise, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
+
+    def grid(shape):
+        v = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+        return torch.round(v * 1024) / 1024
+
+    z = torch.randn((m, n), generator=gen, device="cuda")
+    return grid((m, k)), grid((k, n)), z
+
+
+def _moment_bound(m: int, k: int, n: int, rates: dict, noise_in: bool):
+    """(bound ms, bound_by): 3 FMAs (6 flops) per operand pair on the
+    FP32 CUDA cores against x, w (and the noise) read once and the
+    output written once."""
+    flops = 6 * m * k * n
+    bytes_ = 4 * (m * k + k * n + (2 if noise_in else 1) * m * n)
+    t_ops, t_bytes = flops / rates["fp32"], bytes_ / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def check_sc_mac(rates: dict) -> dict:
+    """Kernels 5 and 6 at the trainer's shapes (M = batch 8 x seq 64 rows;
+    K = d_model 896, or d_ff 4864 for the MLP's output projection)."""
+    from repro_torch.kernels import sc_mac as km
+
+    rng = np.random.default_rng(3)
+    nbit = 1024
+    m = 512
+    rows = {}
+    for name, k, n in (
+        ("unembed", 896, 151936),
+        ("mlp_wi", 896, 9728),
+        ("mlp_wo", 4864, 896),
+        ("wq", 896, 896),
+        ("wk", 896, 128),
+    ):
+        x, w, z = _moment_operands(rng, m, k, n)
+        got = km.sc_mac_fused(x, w, z, nbit=nbit)
+        ref = km.sc_mac_fused_plain(x, w, z, nbit=nbit)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"sc_mac_fused {name}: rel err {err}")
+        ms = time_ms(lambda: km.sc_mac_fused(x, w, z, nbit=nbit), 10)
+        plain_ms = time_ms(
+            lambda: km.sc_mac_fused_plain(x, w, z, nbit=nbit), 10
+        )
+        xa, wa, xq, wq = x.abs(), w.abs(), x * x, w * w
+
+        def library():
+            mean = torch.matmul(x, w)
+            p = torch.matmul(xa, wa)
+            p2 = torch.matmul(xq, wq)
+            var = torch.clamp_min(p - p2, 0.0) * (1.0 / nbit)
+            return mean + z * torch.sqrt(var)
+
+        lib_ms = time_ms(library, 10)
+        bound, by = _moment_bound(m, k, n, rates, True)
+        rows[name] = dict(
+            shape=[m, k, n],
+            max_abs_err=err,
+            ms=ms,
+            plain_ms=plain_ms,
+            bound_ms=bound,
+            bound_by=by,
+            library_ms=lib_ms,
+            tflops=6 * m * k * n / ms / 1e9,
+        )
+        emit("kernel_check", kernel="sc_mac_fused", case=name, **rows[name])
+        del x, w, z, got, ref, xa, wa, xq, wq
+    torch.cuda.empty_cache()
+
+    # kernel 6 at the unembed shape: against its plain version, and its
+    # noise z = (out - mean) / sd must be standard normal
+    k, n = 896, 151936
+    x, w, _ = _moment_operands(rng, m, k, n)
+    seed = torch.tensor([20261017], dtype=torch.int32)
+    got = km.sc_mac_fused_prng(seed, x, w, nbit=nbit)
+    ref = km.sc_mac_fused_prng_plain(seed, x, w, nbit=nbit)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"sc_mac_fused_prng: rel err {err}")
+    del ref
+    mean = x @ w
+    sd = torch.sqrt(
+        torch.clamp_min(x.abs() @ w.abs() - (x * x) @ (w * w), 0.0) / nbit
+    )
+    live = sd > 0
+    zs = ((got - mean) / torch.where(live, sd, 1.0))[live].double()
+    mu, var = float(zs.mean()), float(zs.var())
+    del mean, sd, live, zs
+    if not (abs(mu) < 0.01 and abs(var - 1.0) < 0.02):
+        raise AssertionError(f"sc_mac_fused_prng noise: mean {mu} var {var}")
+    ms = time_ms(lambda: km.sc_mac_fused_prng(seed, x, w, nbit=nbit), 10)
+    plain_ms = time_ms(
+        lambda: km.sc_mac_fused_prng_plain(seed, x, w, nbit=nbit), 3
+    )
+    bound, by = _moment_bound(m, k, n, rates, False)
+    rows["prng"] = dict(
+        shape=[m, k, n],
+        max_abs_err=err,
+        noise_mean=mu,
+        noise_var=var,
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound,
+        bound_by=by,
+        library_ms=None,
+    )
+    emit("kernel_check", kernel="sc_mac_fused_prng", case="unembed",
+         **rows["prng"])
+    del x, w, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: serving
 # ---------------------------------------------------------------------------
@@ -465,6 +603,203 @@ def cross_device() -> None:
         raise AssertionError("greedy tokens differ between card and CPU")
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-7: training
+# ---------------------------------------------------------------------------
+
+
+def _train(args: list, ckpt_dir: str):
+    from repro_torch.launch import train as launch_train
+
+    return launch_train.main(args + ["--ckpt-dir", ckpt_dir])
+
+
+def _by_step(history) -> dict:
+    """Loss of each step as it last ran (replays overwrite)."""
+    return {r["step"]: r["loss"] for r in history["steps"]}
+
+
+def train_phase(layers: int, workdir: str) -> dict:
+    """Phase T: 4 steps with an injected failure and recovery, then the
+    same 4 steps uninterrupted; equal losses at every step."""
+    from repro_torch.kernels import cuda_lib
+
+    args = [
+        "--arch", "qwen2-0.5b", "--layers", str(layers), "--steps", "4",
+        "--batch", "8", "--seq", "64", "--sc-backend", "pallas_moment",
+        "--ckpt-every", "2", "--seed", "0",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    _, hist = _train(args + ["--inject-failure-at", "3"],
+                     os.path.join(workdir, "t_fail"))
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    emit(
+        "train_t",
+        steps=hist["steps"],
+        recoveries=hist["recoveries"],
+        launches=counts,
+        wall_s=wall,
+        max_memory_allocated=peak,
+    )
+    if counts.get("sc_mac_fused", 0) <= 0:
+        raise AssertionError("train_t: kernel sc_mac_fused never launched")
+    if hist["recoveries"] != [(2, 2)]:
+        raise AssertionError(f"train_t: recoveries {hist['recoveries']}")
+    if not all(math.isfinite(r["loss"]) for r in hist["steps"]):
+        raise AssertionError("train_t: a loss is not finite")
+
+    cuda_lib.reset_launches()
+    _, ref = _train(args, os.path.join(workdir, "t_ref"))
+    per_step = dict(cuda_lib.launches).get("sc_mac_fused", 0) / 4
+    got, want = _by_step(hist), _by_step(ref)
+    # the replayed step 3 must also equal its first run
+    first3 = hist["steps"][2]["loss"]
+    emit(
+        "train_t_uninterrupted",
+        losses=want,
+        recovered=got,
+        first_run_step3=first3,
+        sc_mac_launches_per_step=per_step,
+        bitwise_equal=got == want and first3 == want[3],
+    )
+    if got != want or first3 != want[3]:
+        raise AssertionError("train_t: recovered losses differ from the "
+                             "uninterrupted run's")
+    prof = profile_step(layers)
+    # the profiler slows the host; the idle share is taken against the
+    # unprofiled steps' median
+    step_ms = float(np.median([r["ms"] for r in ref["steps"][1:]]))
+    idle = None
+    if prof["device_ms"]:
+        idle = 1 - prof["device_ms"] / step_ms
+    emit("train_t_summary", median_step_ms=step_ms, idle_share=idle,
+         sc_mac_share=prof["by_class_ms"]["sc_mac"] / step_ms,
+         gemm_share=prof["by_class_ms"]["gemm"] / step_ms)
+    return dict(
+        counts=counts,
+        per_step=per_step,
+        steps=ref["steps"],
+        peak=peak,
+        profile=prof,
+    )
+
+
+def profile_step(layers: int) -> dict:
+    """One training step under ``torch.profiler``: device time by kernel
+    class (the moment kernel, GEMMs — the straight-through backward and
+    the attention einsums — and everything else)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData, make_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        TrainConfig,
+        make_train_step,
+        train_state_init,
+    )
+
+    cfg = get_config("qwen2-0.5b").replace(
+        n_layers=layers,
+        sc_backend="pallas_moment",
+        param_dtype=torch.float32,
+        act_dtype=torch.float32,
+    )
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    state = train_state_init(0, cfg, tcfg)
+    step = make_train_step(cfg, tcfg)
+    batch = make_batch(SyntheticLMData(cfg.vocab, 64, 8), 0)
+    state, _ = step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    classes = {"sc_mac": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key
+        low = name.lower()
+        if "sc_mac" in low:
+            cls = "sc_mac"
+        elif "gemm" in low or "cutlass" in low or "matmul" in low:
+            cls = "gemm"
+        else:
+            cls = "other"
+        classes[cls] += us / 1e3
+        top.append((us / 1e3, name[:60]))
+    top.sort(reverse=True)
+    busy = sum(classes.values())
+    out = dict(
+        profiled_wall_ms=wall_ms,
+        device_ms=busy if busy else None,
+        by_class_ms=classes,
+        top=[[round(t, 3), n] for t, n in top[:8]],
+        parts_ms=step_parts(state, cfg, tcfg),
+    )
+    emit("train_t_profile", **out)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_parts(state, cfg, tcfg) -> dict:
+    """CUDA-event times of the plain-torch parts of a step that touch the
+    whole vocabulary or every parameter: one unembed noise draw
+    (``ctr_rng.normal`` at 512 x vocab), one encode of the tied table,
+    and one AdamW update."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.sc import ScConfig, ctr_rng, encoding
+
+    key = ctr_rng.prng_key(1)
+    params = state["params"]
+    table_t = params["embed"]["table"].T
+    sc_cfg = ScConfig()
+    grads = params  # same shapes: the update's cost does not see values
+    return dict(
+        unembed_noise=time_ms(
+            lambda: ctr_rng.normal(key, (512, cfg.vocab), device="cuda"), 3
+        ),
+        unembed_encode=time_ms(lambda: encoding.encode(table_t, sc_cfg), 3),
+        adamw_update=time_ms(
+            lambda: adamw_update(grads, state["opt"], params, tcfg.optimizer),
+            3,
+        ),
+    )
+
+
+def train_cross_device(workdir: str) -> None:
+    """The tiny trainer on the card and on the CPU: losses within 1e-4."""
+    args = [
+        "--arch", "paper-sc", "--smoke", "--steps", "2", "--batch", "2",
+        "--seq", "16", "--sc-backend", "pallas_moment",
+    ]
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        _, hist = _train(args + ["--device", dev],
+                         os.path.join(workdir, f"x_{dev}"))
+        losses[dev] = hist["loss"]
+    rel = max(
+        abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])
+    )
+    emit("train_cross_device", cuda=losses["cuda"], cpu=losses["cpu"],
+         max_rel=rel)
+    if not rel <= 1e-4:
+        raise AssertionError(f"train losses differ card vs CPU: {rel}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2, help="depth (<= 24)")
@@ -480,6 +815,7 @@ def main(argv=None) -> int:
     card, rates = environment()
     fused = check_sc_fused(rates)
     attn = check_attention(rates)
+    mac = check_sc_mac(rates)
 
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeOptions
@@ -524,6 +860,10 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     cross_device()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        train = train_phase(args.layers, workdir)
+        train_cross_device(workdir)
 
     launches = {
         k: counts_a.get(k, 0) + counts_b.get(k, 0)
@@ -574,6 +914,36 @@ def main(argv=None) -> int:
             bound_by="operations",
             library_ms=None,
             shape="b=2 sc=1 h=14 kvh=2 hd=64 bs=16 nbit=1024 f32",
+        ),
+        dict(
+            name="sc_mac_fused",
+            route="cuda",
+            source="src/repro_torch/csrc/sc_mac.cu",
+            replaces="src/repro/kernels/sc_mac.py:101",
+            launches=train["counts"].get("sc_mac_fused", 0),
+            max_abs_err=mac["unembed"]["max_abs_err"],
+            ms=mac["unembed"]["ms"],
+            plain_ms=mac["unembed"]["plain_ms"],
+            bound_ms=mac["unembed"]["bound_ms"],
+            bound_by=mac["unembed"]["bound_by"],
+            library_ms=mac["unembed"]["library_ms"],
+            shape="M=512 K=896 N=151936 f32 (tied unembed); "
+            "max_abs_err relative to max |out|",
+        ),
+        dict(
+            name="sc_mac_fused_prng",
+            route="cuda",
+            source="src/repro_torch/csrc/sc_mac.cu",
+            replaces="src/repro/kernels/sc_mac.py:139",
+            launches=train["counts"].get("sc_mac_fused_prng", 0),
+            max_abs_err=mac["prng"]["max_abs_err"],
+            ms=mac["prng"]["ms"],
+            plain_ms=mac["prng"]["plain_ms"],
+            bound_ms=mac["prng"]["bound_ms"],
+            bound_by=mac["prng"]["bound_by"],
+            library_ms=None,
+            shape="M=512 K=896 N=151936 f32; no path of the package "
+            "runs it; max_abs_err relative to max |out|",
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

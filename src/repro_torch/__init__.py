@@ -2,9 +2,10 @@
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 module layout and public names (``sc``, ``kernels``, ``models``,
-``serve``, ``obs``, ``configs``) and is held against it by the
-``tests/test_torch_*.py`` parity tests.  It imports ``torch`` and never
-``jax`` or anything of ``repro``.
+``serve``, ``obs``, ``configs``, and for training ``optim``, ``train``,
+``data``, ``checkpoint``, ``ft``, ``launch``) and is held against it by
+the ``tests/test_torch_*.py`` parity tests.  It imports ``torch`` and
+never ``jax`` or anything of ``repro``.
 
 Every kernel the JAX package wrote in Pallas and that the ported path
 runs has a hand-written CUDA C++ kernel for Hopper (``sm_90a``) under

@@ -1,9 +1,10 @@
 """Model configuration schema (port of ``repro.configs.base``).
 
 The fields are the reference's, with torch dtypes, restricted to what the
-ported paged serving path reads.  The MoE, SSM and hybrid fields, the
-training-only attention fields and the deprecated ``sc_mode`` alias come
-with the slices that read them (ROADMAP queue 1 items 7 and 9).
+ported paths read: paged serving and full-sequence training (attention
+implementation and chunk, remat policy).  The MoE, SSM, hybrid and
+frontend fields come with the model-zoo slice (ROADMAP queue 1 item 7);
+the reference's deprecated ``sc_mode`` alias is not carried over.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     mlp_variant: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = True  # False -> separate unembedding matrix
+    attn_impl: str = "blockwise"  # blockwise | full (training path)
+    attn_chunk: int = 1024  # kv/q chunk for blockwise attention
     # paged decode attention path (kernels/paged_attention.py):
     # unfused (gather + chunk_decode_attention) | fused (one CUDA kernel,
     # same math) | fused_sc (fused, SC-sampled QK^T; needs rng keys)
@@ -42,6 +45,8 @@ class ModelConfig:
     # dtypes
     param_dtype: Any = torch.bfloat16
     act_dtype: Any = torch.bfloat16
+    # remat policy per layer in training: none | full
+    remat: str = "full"
 
     @property
     def resolved_head_dim(self) -> int:

@@ -1,6 +1,10 @@
-"""GQA attention over the paged KV cache: chunked decode and prefill.
+"""GQA attention: full and blockwise (online-softmax) attention over a
+whole sequence for training, and the paged KV cache for chunked decode
+and prefill.
 
-Port of the paged half of ``repro.models.attention``.  The paged decode
+Port of ``repro.models.attention`` minus the fixed-slot ring-buffer
+decode (``attention_block`` with a cache), which comes with the
+fixed-slot engine (ROADMAP queue 1 item 9).  The paged decode
 path (:func:`paged_attention_block`) routes through ``cfg.paged_attn``:
 ``"unfused"`` runs the reference gather -> :func:`chunk_decode_attention`
 sequence, ``"fused"`` / ``"fused_sc"`` dispatch to the CUDA kernels in
@@ -58,6 +62,105 @@ def _project_qkv(x, p, cfg, positions, key=None):
     q = layers.apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
     k = layers.apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, kv, hd)
+
+
+def _grouped(q, kv_heads: int):
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, kv_heads, h // kv_heads, hd)
+
+
+def full_attention(q, k, v, *, causal: bool = True):
+    """Reference O(S²) attention. q: (b,s,h,d), k/v: (b,t,kv,d)."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = _grouped(q, kv).to(torch.float32)  # (b,s,kv,g,d)
+    scale = paged_attention._scale(hd)
+    kf = k.to(torch.float32)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    if causal:
+        t = k.shape[1]
+        mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+        mask = torch.tril(mask, diagonal=t - s)
+        logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    vf = v.to(torch.float32)
+    out = torch.einsum("bkgst,btkd->bskgd", w, vf)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, chunk: int = 1024):
+    """Flash-style attention: query chunks outside, KV chunks inside, with
+    an online softmax (running max, denominator, accumulator).  Matches
+    :func:`full_attention` to float tolerance; the peak intermediate is
+    one (b, kv, g, cq, ckv) logits tile.  Queries are the LAST s
+    positions of the KV timeline.
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    t = k.shape[1]
+    ckv = min(chunk, t)
+    cq = min(chunk, s)
+    g = h // kv
+    scale = paged_attention._scale(hd)
+    qg = _grouped(q, kv).to(torch.float32).permute(0, 2, 3, 1, 4)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    q_off = t - s
+    outs = []
+    for q0 in range(0, s, cq):
+        qi = qg[:, :, :, q0 : q0 + cq]  # (b,kv,g,cq,d)
+        n_q = qi.shape[3]
+        q_idx = q0 + q_off + torch.arange(n_q, device=q.device)
+        m = torch.full((b, kv, g, n_q), NEG_INF, device=q.device)
+        denom = torch.zeros((b, kv, g, n_q), device=q.device)
+        acc = torch.zeros((b, kv, g, n_q, hd), device=q.device)
+        for t0 in range(0, t, ckv):
+            kc = kf[:, t0 : t0 + ckv]
+            vc = vf[:, t0 : t0 + ckv]
+            logits = torch.einsum("bkgsd,btkd->bkgst", qi, kc) * scale
+            if causal:
+                kv_idx = t0 + torch.arange(kc.shape[1], device=q.device)
+                mask = kv_idx[None, :] <= q_idx[:, None]
+                logits = torch.where(mask, logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            denom = denom * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgst,btkd->bkgsd", p, vc)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp_min(denom, 1e-30)[..., None])
+    out = torch.cat(outs, dim=3)  # (b,kv,g,s,d)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+    return out.to(q.dtype)
+
+
+def attention_block(x, p, cfg, positions, key=None, *, cache=None):
+    """Self-attention sub-block over a whole sequence (training, eval).
+    Returns ``(out, (k, v))``: causal attention through
+    ``cfg.attn_impl`` (``"blockwise"`` or ``"full"``), then the output
+    projection under the key folded with 7.
+    """
+    if cache is not None:
+        raise NotImplementedError(
+            "attention_block over a fixed-slot ring-buffer cache is not "
+            "ported yet (ROADMAP queue 1 item 9); the paged path is "
+            "paged_attention_block"
+        )
+    q, k, v = _project_qkv(x, p, cfg, positions, key)
+    if cfg.attn_impl == "full":
+        out = full_attention(q, k, v, causal=True)
+    elif cfg.attn_impl == "blockwise":
+        out = blockwise_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    else:
+        raise ValueError(
+            f"unknown cfg.attn_impl={cfg.attn_impl!r} "
+            "(expected 'blockwise' or 'full')"
+        )
+    b, s = out.shape[:2]
+    okey = layers.fold_keys(key, 7)
+    y = layers.dense(out.reshape(b, s, -1), p["wo"], cfg, okey)
+    return y, (k, v)
 
 
 def chunk_decode_attention(q, k_cache, v_cache, lengths):

@@ -6,6 +6,8 @@ Port of ``repro.models.layers``.  Every weight matmul goes through
 ``cfg.sc_backend != "exact"`` — under a NAMED SITE whose salt folds into
 the caller's key (the salts are part of the bit-reproducibility contract
 and equal the reference's).  Keys are explicit ``uint32`` tensors.
+Every function here is differentiable: stochastic matmuls carry the
+straight-through gradient of ``sc.sc_dot`` / ``sc.sc_dot_rows``.
 """
 
 from __future__ import annotations

@@ -1,16 +1,23 @@
-"""LM assembly for the paged serving path: parameter specs, the paged
-cache, and one chunked decode/prefill step.
+"""LM assembly: parameter specs, the full-sequence forward and loss for
+training, the paged cache, and one chunked decode/prefill step.
 
 Port of the dense branch of ``repro.models.lm``: N × (RMSNorm → GQA attn
 → RMSNorm → SwiGLU MLP), layers stacked on a leading axis and run by a
-Python loop (the reference's ``lax.scan``).  The MoE, SSM and hybrid
-families, the full-sequence ``forward`` / ``prefill`` / ``decode_step``
-and training come with later slices (ROADMAP queue 1 items 7 and 9).
+Python loop (the reference's ``lax.scan``), each layer under activation
+checkpointing when ``cfg.remat == "full"`` (the reference's
+``jax.checkpoint``).  The MoE, SSM and hybrid families and the
+fixed-slot ``prefill`` / ``decode_step`` come with later slices
+(ROADMAP queue 1 items 7 and 9).
+
+Recomputation is safe for the stochastic backends because their noise
+is a pure function of the per-layer, per-site key (``sc/ctr_rng.py``):
+the recomputed forward draws exactly the bits the first one drew.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, layers
@@ -23,7 +30,7 @@ def _require_dense(cfg) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family={cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 7); this slice serves the dense family"
+            "item 7); the port runs the dense family"
         )
 
 
@@ -79,6 +86,113 @@ def _layer(tree, idx: int):
     if isinstance(tree, dict):
         return {k: _layer(v, idx) for k, v in tree.items()}
     return tree[idx]
+
+
+# ---------------------------------------------------------------------------
+# Forward and loss over a full sequence (train / eval)
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(x, p, cfg, positions, key):
+    """One dense block (pre-norm residual)."""
+    akey = layers.fold_keys(key, 11)
+    h, _ = attention.attention_block(
+        layers.rms_norm(x, p["ln1"]), p["attn"], cfg, positions, akey
+    )
+    x = x + h
+    fkey = layers.fold_keys(key, 13)
+    return x + layers.mlp(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
+
+
+def _maybe_remat(fn, cfg):
+    """``fn`` under activation checkpointing when ``cfg.remat == "full"``:
+    the backward recomputes its forward instead of keeping its
+    activations."""
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat != "none":
+        raise ValueError(f"unknown cfg.remat={cfg.remat!r} (none | full)")
+    return fn
+
+
+def _embed_inputs(params, inputs, cfg, rng=None):
+    if inputs.dim() == 3:
+        raise NotImplementedError(
+            "embedding inputs need the modality frontend, not ported yet "
+            "(ROADMAP queue 1 item 7)"
+        )
+    return layers.embed(inputs, params["embed"]).to(cfg.act_dtype)
+
+
+def encode(params, inputs, cfg, *, rng=None):
+    """Backbone pass: tokens (b, s) -> final hidden states (b, s, d) after
+    the last norm.  Layer ``idx`` draws from ``fold_in(rng, idx)``."""
+    _require_dense(cfg)
+    x = _embed_inputs(params, inputs, cfg, rng)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def body(xc, lp, key):
+        return _apply_block(xc, lp, cfg, positions, key)
+
+    body = _maybe_remat(body, cfg)
+    for idx in range(cfg.n_layers):
+        key = layers.fold_keys(rng, idx)
+        x = body(x, _layer(params["blocks"], idx), key)
+    return layers.rms_norm(x, params["final_norm"])
+
+
+def forward(params, inputs, cfg, *, rng=None):
+    """Full logits (b, s, vocab).  Prefer :func:`lm_loss` for training:
+    it never holds the whole logits tensor."""
+    x = encode(params, inputs, cfg, rng=rng)
+    return _logits(x, params, cfg, rng)
+
+
+LOSS_SEQ_CHUNK = 1024
+
+
+def _chunk_nll(xi, li, params, cfg, key):
+    logits = _logits(xi, params, cfg, key)  # (b, c, vocab) f32
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, li[..., None].long())[..., 0].sum()
+
+
+def lm_loss(params, batch, cfg, *, rng=None):
+    """Causal next-token cross-entropy, sequence-chunked.
+
+    The unembed, log-softmax and gather run per sequence chunk of
+    ``LOSS_SEQ_CHUNK`` under activation checkpointing, so the backward
+    recomputes each chunk's logits instead of keeping them: peak memory
+    is O(chunk·vocab), not O(s·vocab).  Chunk ``i`` draws from
+    ``fold_in(rng, i)``.
+    """
+    x = encode(params, batch["inputs"], cfg, rng=rng)
+    labels = batch["labels"]
+    b, s, _ = x.shape
+    c = min(LOSS_SEQ_CHUNK, s)
+    if s % c:
+        c = s  # irregular lengths: single chunk
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(s // c):
+        key = layers.fold_keys(rng, i)
+        sl = slice(i * c, (i + 1) * c)
+        nll = checkpoint(
+            _chunk_nll,
+            x[:, sl],
+            labels[:, sl],
+            params,
+            cfg,
+            key,
+            use_reentrant=False,
+        )
+        total = total + nll
+    return total / (b * s)
+
+
+# ---------------------------------------------------------------------------
+# Paged serving
+# ---------------------------------------------------------------------------
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *, device=None):

@@ -6,7 +6,9 @@ materializes it from an explicit ``torch.Generator`` and
 :func:`params_from_numpy` carries the JAX package's parameter pytree
 (``jax.tree.map(np.asarray, params)``: same nesting, ``blocks`` stacked
 on a leading layer axis) into tensors, which is how the parity tests
-give both packages the same weights.  The logical axes ride along for
+give both packages the same weights — and the same full train state
+(``params``, ``opt.m`` / ``opt.v`` with their int8 ``{"q", "scale"}``
+leaves, the int32 ``opt.step``).  The logical axes ride along for
 the sharding slice; nothing reads them yet.
 """
 
@@ -49,6 +51,22 @@ def _leaves(tree, path=()):
         return
     for k in sorted(tree):
         yield from _leaves(tree[k], path + (k,))
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a dict tree in sorted-key order."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *matching)`` over the leaves of the dict tree ``tree``;
+    each of ``rest`` is walked along ``tree``'s keys, so its matching
+    node may itself be a subtree (an int8 optimizer state's
+    ``{"q", "scale"}``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _set(tree: dict, path: tuple, value) -> None:

@@ -1,10 +1,12 @@
 """repro_torch.sc — the SC multiplication substrate (port of ``repro.sc``).
 
 One operation interface, ``sc_dot(key, x, w, cfg)`` and its per-row-key
-variant ``sc_dot_rows``, with the backends behind a registry.  This
-slice ports ``exact`` and the fused bit-exact engine ``pallas_fused``
-(CUDA kernel ``csrc/sc_fused.cu``); ``fast_backend`` upgrades
-``pallas_bitexact`` to it, as in the reference.
+variant ``sc_dot_rows``, with the backends behind a registry and the
+straight-through gradient at the dispatch boundary.  Ported: ``exact``,
+``moment``, ``pallas_moment`` (CUDA kernel ``csrc/sc_mac.cu``) and the
+fused bit-exact engine ``pallas_fused`` (``csrc/sc_fused.cu``);
+``fast_backend`` upgrades ``pallas_bitexact`` to it, as in the
+reference.
 """
 
 from repro_torch.sc import backends as _backends  # noqa: F401  (registers)

@@ -1,12 +1,24 @@
-"""The registered SC matmul backends of this slice.
+"""The registered SC matmul backends.
 
-Port of the ``exact`` and ``pallas_fused`` backends of
-``repro.sc.backends`` (the fused engine's per-call and per-row-key
-paths, sharing ``_fused_engine`` as the reference does).  The moment and
-Monte-Carlo backends and the packed ``pallas_bitexact`` kernel come with
-later slices (``registry._UNPORTED``); ``pallas_bitexact`` configs reach
-``pallas_fused`` through ``fast_backend``, which is bit-identical by the
-reference's own contract.
+Port of ``repro.sc.backends``:
+
+* ``exact`` — a float32 matmul;
+* ``moment`` — the CLT moment-matched path in torch ops: three matmuls
+  and one ``jax.random.normal``-equal draw (``ctr_rng.normal``);
+* ``pallas_moment`` — the same law through the fused moment kernel
+  (``kernels/sc_mac.py``, CUDA ``csrc/sc_mac.cu``);
+* ``pallas_fused`` — the fused bit-exact engine, per call and per row
+  key, sharing ``_fused_engine`` as the reference does.
+
+The Monte-Carlo ``bitexact`` backend and the packed ``pallas_bitexact``
+kernel come with later slices (``registry._UNPORTED``);
+``pallas_bitexact`` configs reach ``pallas_fused`` through
+``fast_backend``, which is bit-identical by the reference's own
+contract.
+
+Moment law (``moment`` / ``pallas_moment``): the signed MAC output is
+Normal(mean, var) with ``mean = x@w`` and ``var = scale²·(p_x@p_w −
+p_x²@p_w²)/nbit`` on the encoded probabilities.
 """
 
 from __future__ import annotations
@@ -14,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import sc_fused as sc_fused_kernel
-from repro_torch.sc import ctr_rng
+from repro_torch.kernels import sc_mac as sc_mac_kernel
+from repro_torch.sc import ctr_rng, encoding
 from repro_torch.sc.config import ScConfig
 from repro_torch.sc.registry import register_backend, register_rows_backend
 
@@ -23,6 +36,48 @@ from repro_torch.sc.registry import register_backend, register_rows_backend
 def exact(key, x, w, cfg: ScConfig):
     del key
     return x.to(torch.float32) @ w.to(torch.float32)
+
+
+@register_backend("moment")
+def moment(key, x, w, cfg: ScConfig):
+    sx, px, scx = encoding.encode(x, cfg)
+    sw, pw, scw = encoding.encode(w, cfg)
+    mean = (sx * px) @ (sw * pw)
+    # Var of each product estimate = p(1-p)/nbit with p = p_x·p_w
+    sum_p = px @ pw
+    sum_p2 = (px * px) @ (pw * pw)
+    var = torch.clamp_min(sum_p - sum_p2, 0.0) / cfg.nbit
+    noise = ctr_rng.normal(key, mean.shape, device=x.device)
+    return (mean + noise * torch.sqrt(var)) * (scx * scw)
+
+
+# The reference moment kernel's default column tile (``ScConfig.block_n``
+# of ``repro.sc.config``): ``repro/sc/backends.py:95`` pads N to it
+# before drawing the noise, so it fixes which counter each element reads.
+_REF_BLOCK_N = 128
+
+
+def _moment_noise(key, m: int, n: int, device):
+    """The (m, n) corner of the reference's padded noise draw: it draws
+    ``normal(key, (M_pad, N_pad))`` with ``N_pad`` = n rounded up to a
+    multiple of ``min(_REF_BLOCK_N, n)``, so element (i, j) is flat
+    index ``i·N_pad + j`` (rows past m are never read)."""
+    tile = max(1, min(_REF_BLOCK_N, n))
+    n_pad = -(-n // tile) * tile
+    noise = ctr_rng.normal(key, (m, n_pad), device=device)
+    return noise if n_pad == n else noise[:, :n]
+
+
+@register_backend("pallas_moment")
+def pallas_moment(key, x, w, cfg: ScConfig):
+    """The moment law through the fused moment kernel (any M, N, K: the
+    kernel masks its ragged tiles, so only the noise follows the
+    reference's padding)."""
+    sx, px, scx = encoding.encode(x, cfg)
+    sw, pw, scw = encoding.encode(w, cfg)
+    noise = _moment_noise(key, x.shape[0], w.shape[1], x.device)
+    out = sc_mac_kernel.sc_mac_fused(sx * px, sw * pw, noise, nbit=cfg.nbit)
+    return out * (scx * scw)
 
 
 def _fused_engine(keys4, x, w, cfg: ScConfig, scx, scw, *, row_keys):

@@ -2,7 +2,9 @@
 
 Port of ``repro.sc.config.ScConfig`` without the Pallas-only fields
 (``interpret``, the moment kernel's tiles) and without the device-realism
-profile, which comes with the ``array`` backend's slice.
+profile, which comes with the ``array`` backend's slice.  The one tile
+size the results depend on, the moment noise's padded width, is a
+constant of ``sc/backends.py``.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ class ScConfig:
 
     Attributes:
         backend: name of a backend in the ``repro_torch.sc`` registry
-            (``exact`` or ``pallas_fused``; ``pallas_bitexact`` reaches
-            ``pallas_fused`` through :func:`~repro_torch.sc.fast_backend`).
+            (``exact``, ``moment``, ``pallas_moment`` or ``pallas_fused``;
+            ``pallas_bitexact`` reaches ``pallas_fused`` through
+            :func:`~repro_torch.sc.fast_backend`).
         nbit: stochastic bits per scalar product (a multiple of 32).
         operand_bits: resolution of the LUT/DTC operand grid (paper: 10).
         quantize: apply that operand-grid quantization.

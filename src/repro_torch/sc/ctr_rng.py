@@ -25,6 +25,24 @@ The JAX key chain reduces to this one function (jax 0.9.0 with
 so every per-request, per-position, per-layer and per-site key of the
 reference reproduces here.  Keys are explicit ``(..., 2)`` ``uint32``
 tensors; there is no global RNG state.
+
+The samplers the reference draws with reduce to the same function:
+
+* ``bits(k, shape, uint32)`` flattened row-major: element ``i`` is
+  ``x0 ^ x1`` of ``threefry2x32(k, (i >> 32, i & 0xFFFFFFFF))``
+  (:func:`random_bits`);
+* ``uniform(k, shape, f32, lo, hi)``: ``f = bitcast((bits >> 9) |
+  0x3F800000) - 1``, then ``max(lo, f·(hi - lo) + lo)`` in float32
+  (:func:`uniform`);
+* ``normal(k, shape, f32)``: ``√2·erfinv(uniform(k, shape,
+  nextafter(-1, 0), 1))`` (:func:`normal`) — equal to the reference up to
+  ``erfinv``'s rounding in the tails (a few 1e-6);
+* ``bernoulli(k, p, shape)`` = ``uniform(k, shape) < p`` and
+  ``randint(k, shape, lo, hi)`` from two ``bits`` draws of ``split(k)``.
+
+Each is a pure function of the key — never of a ``torch.Generator`` —
+so a forward pass recomputed under activation checkpointing draws the
+same noise.
 """
 
 from __future__ import annotations
@@ -137,3 +155,79 @@ def operand_stream(key2, n_products: int, nwords: int):
     key2 = raw_key(key2)
     c0, c1 = product_counters(n_products, nwords, key2.device)
     return uniform_words(key2, c0, c1)
+
+
+# ---------------------------------------------------------------------------
+# Samplers: jax.random's bits / uniform / normal / bernoulli / randint
+# ---------------------------------------------------------------------------
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def random_bits(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 words in
+    ``[0, 2**32)``: element ``i`` (row-major) is ``x0 ^ x1`` of
+    ``threefry2x32(key, (i >> 32, i))``."""
+    key = raw_key(key)
+    dev = key.device if device is None else torch.device(device)
+    k = key.to(device=dev, dtype=torch.int64)
+    i = torch.arange(_numel(shape), dtype=torch.int64, device=dev)
+    x0, x1 = threefry2x32(k[0], k[1], i >> 32, i & MASK32)
+    return (x0 ^ x1).reshape(tuple(shape))
+
+
+def _unit_floats(bits) -> torch.Tensor:
+    """Mantissa trick of ``jax.random.uniform``: floats in [0, 1)."""
+    fb = (bits >> 9) | 0x3F800000
+    return fb.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0, device=None):
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    floats = _unit_floats(random_bits(key, shape, device))
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    # XLA contracts ``floats * span + lo`` into one fused multiply-add:
+    # the float32 product is exact in float64, so one rounding of the
+    # float64 sum reproduces it
+    span = (hi - lo).double()
+    fused = (floats.double() * span + lo.double()).float()
+    return torch.maximum(lo, fused)
+
+
+_NORMAL_LO = -0.99999994  # float32 nextafter(-1, 0)
+_SQRT2 = 1.4142135  # float32 sqrt(2)
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``√2·erfinv(u)`` with
+    ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return torch.special.erfinv(u) * _SQRT2
+
+
+def bernoulli(key, p, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (float32 ``p``)."""
+    return uniform(key, shape, device=device) < torch.tensor(
+        p, dtype=torch.float32
+    )
+
+
+def randint(key, shape, minval: int, maxval: int, device=None):
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for
+    ``0 < maxval - minval < 2**31``: two words per value from
+    ``split(key)``, reduced modulo the span as the reference does."""
+    span = int(maxval) - int(minval)
+    if not 0 < span < 2**31:
+        raise ValueError(f"randint span {span} outside (0, 2**31)")
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    mult = ((1 << 16) % span) ** 2 % span
+    off = ((hi % span) * mult + lo % span) & MASK32
+    return (off % span + int(minval)).to(torch.int32)

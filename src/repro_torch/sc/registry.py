@@ -1,10 +1,14 @@
 """Backend registry + the dispatch entry points ``sc_dot`` /
 ``sc_dot_rows``.
 
-Port of ``repro.sc.registry`` for inference: every backend registers
-under a name and ``sc_dot(key, x, w, cfg)`` runs ``cfg.backend``.  The
-straight-through gradient of the reference (its ``custom_vjp``) comes
-with the training slice; these entry points carry no gradient.
+Port of ``repro.sc.registry``: every backend registers under a name and
+``sc_dot(key, x, w, cfg)`` runs ``cfg.backend``.  The straight-through
+gradient of the reference's ``custom_vjp`` lives at THIS boundary, as
+one ``torch.autograd.Function`` per entry point: the forward runs the
+backend without recording a graph, the backward is the exact-product
+jacobian (``gx = g @ wᵀ``, ``gw = x₂ᵀ @ g₂`` in float32, cast to the
+operands' dtypes), and the key gets no gradient.  So every backend,
+the CUDA kernels included, is trainable.
 
 Backends of the reference that this slice does not port raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
@@ -31,9 +35,7 @@ _FAST_ALIASES: dict = {"pallas_bitexact": "pallas_fused"}
 
 # reference backends not ported yet -> where the port will bring them
 _UNPORTED: dict = {
-    "moment": "ROADMAP queue 1 item 6",
     "bitexact": "ROADMAP queue 1 item 6",
-    "pallas_moment": "ROADMAP queue 1 item 6 / queue 2 item 5",
     "pallas_bitexact": (
         "ROADMAP queue 2 item 4 (the packed sc_mul kernel); "
         "sc.fast_backend upgrades it to pallas_fused"
@@ -109,13 +111,27 @@ def _dispatch_scope(entry: str, backend: str, m: int, k: int, n: int):
     return tr.span("sc.dispatch", entry=entry, backend=backend, m=m, k=k, n=n)
 
 
-def sc_dot(key, x, w, cfg: ScConfig = ScConfig()):
-    """``x @ w`` through the configured SC backend.
+class _StraightThrough(torch.autograd.Function):
+    """Forward: ``dispatch(key, x, w, cfg)`` (no graph); backward: the
+    exact-product jacobian of ``x @ w`` in float32, cast to the
+    operands' dtypes.  The key and the config get no gradient."""
 
-    key: raw ``(2,)`` uint32 key (``exact`` ignores it); x: (..., K)
-    float32, leading dims flatten to rows; w: (K, N) float32.  Returns
-    (..., N) float32.
-    """
+    @staticmethod
+    def forward(ctx, x, w, key, cfg, dispatch):
+        ctx.save_for_backward(x, w)
+        return dispatch(key, x, w, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        gx = (g @ w.to(torch.float32).T).to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        gw = (x2.T @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return gx, gw, None, None, None
+
+
+def _dispatch(key, x, w, cfg: ScConfig):
     fn = get_backend(cfg.backend)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -125,14 +141,18 @@ def sc_dot(key, x, w, cfg: ScConfig = ScConfig()):
     return y.reshape(*lead, n)
 
 
-def sc_dot_rows(keys, x, w, cfg: ScConfig = ScConfig()):
-    """``x @ w`` with PER-ROW keys: row i draws from ``keys[i]`` alone.
+def sc_dot(key, x, w, cfg: ScConfig = ScConfig()):
+    """``x @ w`` through the configured SC backend.
 
-    keys: (..., 2) raw uint32 keys matching ``x``'s leading dims.  Row
-    i's output (bits AND encoding scale) is a function of
-    ``(keys[i], x[i], w)`` only and equals ``sc_dot(keys[i], x[i:i+1],
-    w, cfg)``.
+    key: raw ``(2,)`` uint32 key (``exact`` ignores it); x: (..., K)
+    float32, leading dims flatten to rows; w: (K, N) float32.  Returns
+    (..., N) float32.  The gradient is straight-through whatever the
+    backend.
     """
+    return _StraightThrough.apply(x, w, key, cfg, _dispatch)
+
+
+def _dispatch_rows(keys, x, w, cfg: ScConfig):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     k2 = keys.reshape(-1, keys.shape[-1])
@@ -146,3 +166,15 @@ def sc_dot_rows(keys, x, w, cfg: ScConfig = ScConfig()):
             rows = [base(k2[i], x2[i : i + 1], w, cfg) for i in range(m)]
             y = torch.cat(rows, dim=0) if rows else x2 @ w
     return y.reshape(*lead, w.shape[-1])
+
+
+def sc_dot_rows(keys, x, w, cfg: ScConfig = ScConfig()):
+    """``x @ w`` with PER-ROW keys: row i draws from ``keys[i]`` alone.
+
+    keys: (..., 2) raw uint32 keys matching ``x``'s leading dims.  Row
+    i's output (bits AND encoding scale) is a function of
+    ``(keys[i], x[i], w)`` only and equals ``sc_dot(keys[i], x[i:i+1],
+    w, cfg)``.  The gradient is the same straight-through jacobian as
+    :func:`sc_dot`'s.
+    """
+    return _StraightThrough.apply(x, w, keys, cfg, _dispatch_rows)

@@ -7,8 +7,10 @@ where JAX is not installed:
     python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
 Classes: ``sc_fused`` totals bit-equal; attention outputs within 1e-5 in
-float32; a tiny model served on the card and on the CPU gives the same
-greedy tokens.
+float32; the moment kernels (``sc_mac_fused`` and its in-kernel-noise
+twin) within 1e-5 of max |out| of their plain versions (float32 sums in
+another order); a tiny model served on the card and on the CPU gives the
+same greedy tokens, and trains to the same losses within 1e-4.
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sc_fused as kf
+from repro_torch.kernels import sc_mac as km
+from repro_torch.launch import train as launch_train
 from repro_torch.models import lm, params
 from repro_torch.serve import Request, ServeOptions, build_engine
 
@@ -80,6 +84,41 @@ def test_paged_attention_kernels_match_plain(cuda, sc, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(5, 37, 300), (64, 896, 128), (130, 520, 7), (1, 16, 1),
+     (512, 4864, 896)],
+)
+def test_sc_mac_kernels_match_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m * n)
+    x = torch.tensor(rng.uniform(-1, 1, (m, k)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(-1, 1, (k, n)), dtype=torch.float32)
+    z = torch.tensor(rng.standard_normal((m, n)), dtype=torch.float32)
+    x, w, z = x.to(cuda), w.to(cuda), z.to(cuda)
+    before = cuda_lib.launches["sc_mac_fused"]
+    got = km.sc_mac_fused(x, w, z, nbit=256)
+    assert cuda_lib.launches["sc_mac_fused"] == before + 1
+    want = km.sc_mac_fused_plain(x, w, z, nbit=256)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    seed = torch.tensor([12345], dtype=torch.int32)
+    got = km.sc_mac_fused_prng(seed, x, w, nbit=256)
+    want = km.sc_mac_fused_prng_plain(seed, x, w, nbit=256)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_tiny_model_trains_to_the_same_losses_on_card_and_cpu(cuda, tmp_path):
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        _, hist = launch_train.main([
+            "--arch", "paper-sc", "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--sc-backend", "pallas_moment", "--device", dev,
+            "--ckpt-dir", str(tmp_path / dev)])
+        losses[dev] = hist["loss"]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
 def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
     keys = torch.zeros((2, 4), dtype=torch.uint32, device=cuda)
     x = torch.zeros((2, 3), device=cuda)
@@ -87,6 +126,8 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="device"):
         kf.sc_fused_popcount(keys, x, w, k_orig=3, n_orig=4, nbit=64,
                              levels=1024)
+    with pytest.raises(ValueError, match="device"):
+        km.sc_mac_fused(x, w, torch.zeros((2, 4), device=cuda))
 
 
 def test_tiny_model_serves_same_tokens_on_card_and_cpu(cuda):

@@ -272,9 +272,14 @@ def test_registry_upgrades_and_refuses_unported_backends():
     assert tsc.fast_backend("pallas_bitexact", 1024) == "pallas_fused"
     assert tsc.fast_backend("pallas_bitexact", 48) == "pallas_bitexact"
     assert tsc.fast_backend("exact") == "exact"
-    assert set(tsc.available_backends()) == {"exact", "pallas_fused"}
+    assert set(tsc.available_backends()) == {
+        "exact",
+        "moment",
+        "pallas_moment",
+        "pallas_fused",
+    }
     x, w = torch.ones((2, 3)), torch.ones((3, 2))
-    for name in ("pallas_bitexact", "moment", "bitexact", "pallas_moment"):
+    for name in ("pallas_bitexact", "bitexact"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsc.sc_dot(trng.prng_key(0), x, w, tsc.ScConfig(backend=name))
     with pytest.raises(ValueError, match="unknown"):

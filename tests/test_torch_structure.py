@@ -16,7 +16,9 @@ import torch
 import repro_torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import lm, params
+from repro_torch.launch import train as launch_train
 from repro_torch.serve import ServeOptions, build_engine
+from repro_torch.train import TrainConfig, train_state_init
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -45,7 +47,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in (PORT / "csrc").iterdir()}
-    assert {"sc_device.cuh", "sc_fused.cu", "paged_attention.cu"} <= names
+    assert {
+        "sc_device.cuh",
+        "sc_fused.cu",
+        "paged_attention.cu",
+        "sc_mac.cu",
+    } <= names
 
 
 def test_entry_points_default_to_the_card():
@@ -67,6 +74,13 @@ def test_entry_points_default_to_the_card():
     eng = build_engine(p, cfg, ServeOptions(paged=True), device="cpu")
     assert eng.pages["k"].device.type == "cpu"
     assert eng.pages["k"].dtype == torch.bfloat16
+    # the trainer's entry points
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_state_init(0, cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "paper-sc", "--smoke", "--steps", "1"])
+    state = train_state_init(0, cfg, TrainConfig(), device="cpu")
+    assert state["params"]["embed"]["table"].device.type == "cpu"
 
 
 def test_engine_refuses_params_on_another_device():
@@ -84,6 +98,8 @@ def test_unported_families_raise_not_implemented():
         lm.lm_param_specs(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init_paged_cache(cfg, 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.encode({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
 
 
 def test_full_width_config_matches_published_qwen2_0_5b():
