@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's paged SC serving path and its trainer
-on one GPU.
+"""Drive the PyTorch/CUDA port's paged SC serving path, its trainer,
+and its validation / faulty-device path on one GPU.
 
     python3 chip_smoke.py [--layers N]
 
@@ -10,7 +10,8 @@ code is non-zero):
    and the build of every CUDA kernel from ``src/`` (one ``nvcc`` per
    source, all at once);
 2. each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (``sc_fused`` bit-equal; both paged-attention
+   main paths' shapes (kernel 4 also at every size phase V launches;
+   ``sc_fused`` and ``sc_mul_popcount`` bit-equal; both paged-attention
    kernels within 1e-5 in float32; both moment kernels within 1e-5 of
    max |out|, plus the in-kernel noise's mean and variance), with its
    median time, the plain version's time, the least time the card could
@@ -35,12 +36,27 @@ code is non-zero):
    first run's at every step; then one profiled step;
 7. the tiny trainer (paper-sc smoke, ``pallas_moment``) for 2 steps on
    the card and on the CPU in this process: losses within 1e-4;
-8. the kernels line and the device line.
+8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
+   decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
+   kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
+   bit for bit to ``pallas_fused`` under the same key; the wq call once
+   more under ``torch.profiler`` (kernel 4's and the stream's device
+   time); then one ``array``-backend call per numerics size class
+   (packed kernel, binomial, moment);
+9. serve phase D: qwen2-0.5b at full width, depth ``--layers``, on the
+   ``harsh`` faulty device (``fault_profile``, so every matmul runs on
+   the ``array`` simulator) with ``fused_attention=True`` and
+   ``collect_arch_trace=True``: two greedy requests, the arch bill, the
+   bit-error census and one decode tick under ``torch.profiler`` (the
+   device noise, its powers, kernel 2, the idle share); then the SMOKE
+   model on the ``tiny`` device on the card and on the CPU: equal
+   tokens;
+10. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B and T and read just
-after each; a kernel of a phase's path that did not launch fails the
-run.  Without a CUDA device the script exits non-zero before printing
-any result.
+Launch counts are reset just before phases A, B, T, V and D and read
+just after each; a kernel of a phase's path that did not launch fails
+the run.  Without a CUDA device the script exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -114,6 +130,63 @@ def time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_trace(fn, ranges=()):
+    """Run ``fn`` once under ``torch.profiler``.  Returns (its result,
+    a dict): the host ms of the call (the profiler slows the host), the
+    device ms of all its kernels (``None`` where the trace shows no
+    device time), each kernel's (device ms, launches) by name, and, for
+    each ``record_function`` range named in ``ranges`` (the package's
+    own), the device ms of the kernels that start inside the range's
+    spans on the device timeline.  (The profiler's CPU-side attribution
+    is not used: in a 13-chunk ``pallas_bitexact`` call it attached
+    4,951 kernels 8,110 times.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, spans, starts = {}, {r: [] for r in ranges}, []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = ev.time_range
+        if ev.is_user_annotation:
+            if ev.name in spans:
+                spans[ev.name].append((t.start, t.end))
+            continue
+        ms, n = kernels.get(ev.name, (0.0, 0))
+        kernels[ev.name] = (ms + t.elapsed_us() / 1e3, n + 1)
+        starts.append((t.start, t.elapsed_us() / 1e3))
+    range_ms = {
+        r: sum(ms for t, ms in starts if any(a <= t < b for a, b in sp))
+        for r, sp in spans.items()
+    }
+    busy = sum(ms for ms, _ in kernels.values())
+    return out, dict(
+        wall_ms=wall_ms,
+        device_ms=busy if busy else None,
+        kernels=kernels,
+        ranges_ms=range_ms,
+    )
+
+
+def _top(trace: dict, n: int = 6) -> list:
+    """The ``n`` kernels of a trace with the most device time."""
+    rows = sorted(trace["kernels"].items(), key=lambda kv: -kv[1][0])
+    return [[round(ms, 3), cnt, name[:60]] for name, (ms, cnt) in rows[:n]]
+
+
+def kernel_ms(trace: dict, name: str) -> tuple:
+    """(device ms, launches) of the traced kernels whose names hold
+    ``name``."""
+    hits = [v for k, v in trace["kernels"].items() if name in k]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
 
 def environment():
@@ -507,6 +580,79 @@ def check_sc_mac(rates: dict) -> dict:
     return rows
 
 
+# Integer ops of the packed MUL per word pair: 16 ladder slices x 2
+# operands x (shift-and bit test, select) = 64 ALU ops, plus AND, POPC and
+# the add; the issue rate (128 lanes per SM clock) bounds them.
+SC_MUL_OPS_PER_WORD = 2 * 16 * 2 + 3
+
+
+def _u32_words(gen, shape):
+    w = torch.randint(0, 2**32, shape, generator=gen, device="cuda",
+                      dtype=torch.int64)
+    return w.to(torch.uint32)
+
+
+# Kernel 4's cases, W = 32 words (nbit 1024): the wk and wq decode rows
+# (one MUL per (k, n) product of a 1 x 896 row) whole, and every size
+# phase V launches: ``pallas_bitexact`` walks its stream in chunks of
+# 65,536 products, so a wq / wo row is 12 chunks and a 16,384 tail, a
+# wk / wv row one chunk and a 49,152 tail, and the ``array`` backend's
+# packed class launches 64 products.
+SC_MUL_CASES = (
+    ("wk", 896 * 128),
+    ("wq", 896 * 896),
+    ("chunk", 65536),
+    ("wk_tail", 49152),
+    ("wq_tail", 16384),
+    ("packed", 64),
+)
+
+
+def check_sc_mul(rates: dict) -> dict:
+    """Kernel 4 against its plain version at ``SC_MUL_CASES``."""
+    from repro_torch.kernels import sc_mul as kmul
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+    for name, m in SC_MUL_CASES:
+        w = 32
+        bias = _u32_words(gen, (2, m)).to(torch.int64) & 0xFFFF
+        px, py = bias.to(torch.uint32)
+        rx, ry = _u32_words(gen, (m, 16, w)), _u32_words(gen, (m, 16, w))
+        got = kmul.sc_mul_popcount(px, py, rx, ry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = kmul.sc_mul_popcount_plain(px, py, rx, ry)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - ref.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"sc_mul_popcount {name}: differs by {err}")
+        # 10 launches back to back per timed run, so the wrapper's host
+        # time overlaps the previous launch instead of adding to it
+        ms = time_ms(lambda: [kmul.sc_mul_popcount(px, py, rx, ry)
+                              for _ in range(10)], 10) / 10
+        bytes_ = 2 * m * 16 * w * 4 + 2 * m * 4 + m * 4
+        t_bytes = bytes_ / HBM_BYTES_PER_S
+        t_ops = m * w * SC_MUL_OPS_PER_WORD / rates["issue"]
+        rows[name] = dict(
+            shape=[m, 16, w],
+            max_abs_err=0.0,
+            ms=ms,
+            plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None,
+            bytes=bytes_,
+            tb_per_s=bytes_ / ms / 1e9,
+        )
+        emit("kernel_check", kernel="sc_mul_popcount", case=name,
+             **rows[name])
+        del px, py, rx, ry, got, ref, bias
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: serving
 # ---------------------------------------------------------------------------
@@ -520,28 +666,40 @@ def _qwen_params(cfg, device):
     return params.init_params(specs, gen, device, cfg.param_dtype)
 
 
-def serve(params, cfg, opts, prompts, max_new: int, device):
+def serve(params, cfg, opts, prompts, max_new: int, device,
+          traced_tick=None, ranges=(), **build):
+    """Serve ``prompts`` greedily to the end.  Returns (engine, tokens by
+    request, host ms per tick, trace): tick ``traced_tick`` runs under
+    the profiler (``device_trace`` with ``ranges``), else trace is None.
+    """
     from repro_torch.serve import Request, build_engine
 
-    eng = build_engine(params, cfg, opts, device=device)
+    eng = build_engine(params, cfg, opts, device=device, **build)
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))
-    tick_ms = []
+    tick_ms, trace = [], None
     while eng.scheduler.has_work():
+        if len(tick_ms) == traced_tick:
+            _, trace = device_trace(eng.step, ranges)
+            tick_ms.append(trace["wall_ms"])
+            continue
         t0 = time.perf_counter()
         eng.step()
         if device != "cpu":
             torch.cuda.synchronize()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
     toks = {r.rid: list(r.generated) for r in eng.finished}
-    return eng, toks, tick_ms
+    return eng, toks, tick_ms, trace
 
 
-def serve_phase(name, cfg, opts, prompts, max_new, params, expect):
+def serve_phase(name, cfg, opts, prompts, max_new, params, expect,
+                **build):
     from repro_torch.kernels import cuda_lib
 
+    torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    eng, toks, tick_ms = serve(params, cfg, opts, prompts, max_new, "cuda")
+    eng, toks, tick_ms, trace = serve(params, cfg, opts, prompts, max_new,
+                                      "cuda", **build)
     counts = dict(cuda_lib.launches)
     n_tok = sum(len(t) for t in toks.values())
     emit(
@@ -550,7 +708,9 @@ def serve_phase(name, cfg, opts, prompts, max_new, params, expect):
         ticks=eng.ticks,
         tick_ms=tick_ms,
         wall_s=sum(tick_ms) / 1e3,
+        traced_tick=build.get("traced_tick"),
         launches=counts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
     )
     for k in expect:
         if counts.get(k, 0) <= 0:
@@ -559,7 +719,7 @@ def serve_phase(name, cfg, opts, prompts, max_new, params, expect):
         raise AssertionError(f"{name}: {n_tok} tokens generated")
     if not all(0 <= t < cfg.vocab for ts in toks.values() for t in ts):
         raise AssertionError(f"{name}: token outside the vocabulary")
-    return counts, tick_ms
+    return counts, tick_ms, eng, trace
 
 
 def unembed_ms(params, cfg, rows: int) -> float:
@@ -597,10 +757,225 @@ def cross_device() -> None:
     toks = {}
     for device in ("cuda", "cpu"):
         params = _qwen_params(cfg, device)
-        _, toks[device], _ = serve(params, cfg, opts, prompts, 5, device)
+        _, toks[device], _, _ = serve(params, cfg, opts, prompts, 5, device)
     emit("cross_device", cuda=toks["cuda"], cpu=toks["cpu"])
     if toks["cuda"] != toks["cpu"]:
         raise AssertionError("greedy tokens differ between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9: validation (V) and serving on a faulty device (D)
+# ---------------------------------------------------------------------------
+
+
+def _synced_ms(fn):
+    """(result, host ms) of one call that ends in a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def validation_phase(params, cfg) -> dict:
+    """Phase V: ``pallas_bitexact`` (kernel 4) at qwen2-0.5b's layer-0
+    decode-row widths equals ``pallas_fused`` (kernel 1) bit for bit
+    under one key; then one ``array`` call per numerics size class."""
+    from repro_torch import arch, sc
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.sc import ctr_rng
+
+    blk = params["blocks"]["attn"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    row = torch.randn((1, cfg.d_model), generator=gen, device="cuda")
+    weights = {
+        name: blk[name][0].to(torch.float32)
+        for name in ("wk", "wv", "wq", "wo")
+    }
+    key = ctr_rng.prng_key(7).to("cuda")
+    bitexact = sc.ScConfig(backend="pallas_bitexact", nbit=1024)
+    out = {"matmuls": {}, "array": {}}
+    cuda_lib.reset_launches()
+    for name, w in weights.items():
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(cuda_lib.launches)
+        y, ms = _synced_ms(lambda: sc.sc_dot(key, row, w, bitexact))
+        peak = torch.cuda.max_memory_allocated()
+        yf, fused_ms = _synced_ms(
+            lambda: sc.sc_dot(key, row, w, bitexact.replace(
+                backend="pallas_fused")))
+        equal = bool(torch.equal(y, yf))
+        products = row.shape[1] * w.shape[1]
+        rec = dict(
+            shape=[1, *w.shape],
+            products=products,
+            equal_to_fused=equal,
+            ms=ms,
+            fused_ms=fused_ms,
+            max_memory_allocated=peak,
+            launches={k: v - before.get(k, 0)
+                      for k, v in cuda_lib.launches.items()},
+        )
+        out["matmuls"][name] = rec
+        emit("validate_v", matmul=name, **rec)
+        if not equal:
+            raise AssertionError(f"validate_v {name}: pallas_bitexact != "
+                                 "pallas_fused under one key")
+    # the wq call once more under the profiler: kernel 4's device time
+    # per call and per launch, and the stream's, read from the real call
+    _, tr = device_trace(
+        lambda: sc.sc_dot(key, row, weights["wq"], bitexact),
+        ranges=("pallas_bitexact.stream",),
+    )
+    k4_ms, k4_n = kernel_ms(tr, "sc_mul_kernel")
+    busy = tr["device_ms"]
+    stream = tr["ranges_ms"]["pallas_bitexact.stream"]
+    out["wq_trace"] = dict(
+        host_ms=tr["wall_ms"],
+        device_ms=busy,
+        sc_mul_ms=k4_ms,
+        sc_mul_launches=k4_n,
+        sc_mul_ms_per_launch=k4_ms / k4_n if k4_n else None,
+        stream_ms=stream,
+        stream_share=stream / busy if busy else None,
+        sc_mul_share=k4_ms / busy if busy else None,
+        top=_top(tr),
+    )
+    emit("validate_v_trace", **out["wq_trace"])
+    # the array backend's three numerics size classes at qwen widths
+    wi = params["blocks"]["ffn"]["wi"][0].to(torch.float32)
+    wq = weights["wq"]
+    classes = (
+        ("packed", row[:, :8], wq[:8, :8]),  # 64 products: kernel 4
+        ("binomial", row, wq),  # 802,816 products
+        ("moment", row, wi),  # 8,716,288 products
+    )
+    acfg = sc.ScConfig(backend="array", nbit=1024)
+    for name, x, w in classes:
+        before = dict(cuda_lib.launches)
+        with arch.collect() as records:
+            y, ms = _synced_ms(lambda: sc.sc_dot(key, x, w, acfg))
+        exact = x @ w
+        rel = float((y - exact).abs().max() / exact.abs().max())
+        rec = dict(
+            shape=[x.shape[0], *w.shape],
+            ms=ms,
+            max_rel_err_vs_exact=rel,
+            records=len(records),
+            cycles=records[0].report.cycles,
+            energy_nj=records[0].report.energy_nj,
+            launches={k: v - before.get(k, 0)
+                      for k, v in cuda_lib.launches.items()},
+        )
+        out["array"][name] = rec
+        emit("validate_v_array", size_class=name, **rec)
+        if not bool(torch.isfinite(y).all()) or len(records) != 1:
+            raise AssertionError(f"validate_v_array {name}")
+    if out["array"]["packed"]["launches"].get("sc_mul_popcount", 0) <= 0:
+        raise AssertionError("validate_v_array: the packed class did not "
+                             "launch sc_mul_popcount")
+    out["counts"] = dict(cuda_lib.launches)
+    emit("validate_v_launches", launches=out["counts"])
+    if out["counts"].get("sc_mul_popcount", 0) <= 0:
+        raise AssertionError("validate_v: sc_mul_popcount never launched")
+    return out
+
+
+def _census() -> dict:
+    from repro_torch import obs
+
+    reg = obs.default_registry()
+    return {
+        kind: reg.value("arch_bit_errors_total", kind=kind, shard="1") or 0
+        for kind in ("stuck0", "stuck1", "retention")
+    }
+
+
+# phase D's ticks 0 and 1 prefill, 2-4 decode; tick 3 runs traced
+D_TRACED_TICK = 3
+
+
+def faulty_serve_phase(params, cfg, prompts) -> dict:
+    """Phase D: serve on the ``harsh`` device through ``build_engine``
+    (an exact model moves onto ``array``), fused paged attention, the
+    arch bill and the bit-error census."""
+    from repro_torch import arch, obs
+    from repro_torch.serve import ServeOptions
+
+    obs.enable()
+    before = _census()
+    opts = ServeOptions(
+        paged=True, slots=2, block_size=16, prefill_chunk=8, max_len=64,
+        fault_profile="harsh", fused_attention=True,
+    )
+    counts, tick_ms, eng, tr = serve_phase(
+        "serve_d", cfg, opts, prompts, 4, params,
+        ("paged_attention_fused",), collect_arch_trace=True,
+        traced_tick=D_TRACED_TICK, ranges=("array.noise", "array.powers"),
+    )
+    census = {k: v - before[k] for k, v in _census().items()}
+    untraced = [t for i, t in enumerate(tick_ms) if i != D_TRACED_TICK]
+    rep = eng.arch_report()
+    records = len(eng.arch_collector.records)
+    eng.close()
+    if eng.cfg.sc_backend != "array" or rep is None or records == 0:
+        raise AssertionError("serve_d: the model did not run on array")
+    if not census["stuck0"] > 0:
+        raise AssertionError(f"serve_d: empty bit-error census {census}")
+    out = dict(
+        counts=counts,
+        arch_report=arch.report_dict(rep),
+        energy_nj=rep.energy_nj,
+        records=records,
+        request_costs=eng.arch_request_costs(),
+        bit_errors=census,
+        median_tick_ms=float(np.median(untraced)),
+    )
+    emit("serve_d_arch", **out)
+    # the traced decode tick: device time of the noise and powers ranges
+    # of ``_device_numerics`` and of kernel 2; the profiler slows the
+    # host, so the idle share is taken against the untraced decode ticks
+    decode_ms = float(np.median(untraced[2:]))
+    busy = tr["device_ms"]
+    attn_ms, attn_n = kernel_ms(tr, "paged_attn_kernel")
+    out["trace"] = dict(
+        tick=D_TRACED_TICK,
+        host_ms=tr["wall_ms"],
+        untraced_decode_tick_ms=decode_ms,
+        device_ms=busy,
+        idle_share=1 - busy / decode_ms if busy else None,
+        noise_ms=tr["ranges_ms"]["array.noise"],
+        powers_ms=tr["ranges_ms"]["array.powers"],
+        attention_ms=attn_ms,
+        attention_launches=attn_n,
+        top=_top(tr),
+    )
+    emit("serve_d_trace", **out["trace"])
+    return out
+
+
+def faulty_cross_device() -> None:
+    """The SMOKE model on the ``tiny`` device, served on the card and on
+    the CPU: the greedy tokens must be equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import ServeOptions
+
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        param_dtype=torch.float32, act_dtype=torch.float32
+    )
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab, n).tolist() for n in (7, 4)]
+    opts = ServeOptions(
+        paged=True, slots=2, max_len=32, block_size=8, prefill_chunk=4,
+        fault_profile="tiny",
+    )
+    toks = {}
+    for device in ("cuda", "cpu"):
+        params = _qwen_params(cfg, device)
+        _, toks[device], _, _ = serve(params, cfg, opts, prompts, 4, device)
+    emit("faulty_cross_device", cuda=toks["cuda"], cpu=toks["cpu"])
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError("faulty-device tokens differ card vs CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -692,8 +1067,6 @@ def profile_step(layers: int) -> dict:
     """One training step under ``torch.profiler``: device time by kernel
     class (the moment kernel, GEMMs — the straight-through backward and
     the attention einsums — and everything else)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData, make_batch
     from repro_torch.optim import AdamWConfig
@@ -714,23 +1087,15 @@ def profile_step(layers: int) -> dict:
     step = make_train_step(cfg, tcfg)
     batch = make_batch(SyntheticLMData(cfg.vocab, 64, 8), 0)
     state, _ = step(state, batch)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        state, m = step(state, batch)
+
+    def traced_step():
+        new_state, m = step(state, batch)
         float(m["loss"])
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        return new_state
+
+    state, tr = device_trace(traced_step)
     classes = {"sc_mac": 0.0, "gemm": 0.0, "other": 0.0}
-    top = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.key
+    for name, (ms, _) in tr["kernels"].items():
         low = name.lower()
         if "sc_mac" in low:
             cls = "sc_mac"
@@ -738,15 +1103,12 @@ def profile_step(layers: int) -> dict:
             cls = "gemm"
         else:
             cls = "other"
-        classes[cls] += us / 1e3
-        top.append((us / 1e3, name[:60]))
-    top.sort(reverse=True)
-    busy = sum(classes.values())
+        classes[cls] += ms
     out = dict(
-        profiled_wall_ms=wall_ms,
-        device_ms=busy if busy else None,
+        profiled_wall_ms=tr["wall_ms"],
+        device_ms=tr["device_ms"],
         by_class_ms=classes,
-        top=[[round(t, 3), n] for t, n in top[:8]],
+        top=_top(tr, 8),
         parts_ms=step_parts(state, cfg, tcfg),
     )
     emit("train_t_profile", **out)
@@ -816,6 +1178,7 @@ def main(argv=None) -> int:
     fused = check_sc_fused(rates)
     attn = check_attention(rates)
     mac = check_sc_mac(rates)
+    muls = check_sc_mul(rates)
 
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeOptions
@@ -832,7 +1195,7 @@ def main(argv=None) -> int:
     opts = ServeOptions(
         paged=True, slots=2, block_size=16, prefill_chunk=8, max_len=64
     )
-    counts_a, ticks_a = serve_phase(
+    counts_a, ticks_a, _, _ = serve_phase(
         "serve_a",
         cfg,
         opts,
@@ -848,7 +1211,7 @@ def main(argv=None) -> int:
         median_tick_ms=float(np.median(ticks_a)),
         unembed_share=un_ms / float(np.median(ticks_a)),
     )
-    counts_b, _ = serve_phase(
+    counts_b, _, _, _ = serve_phase(
         "serve_b",
         cfg,
         opts.replace(slots=1, fused_attention=True),
@@ -857,17 +1220,24 @@ def main(argv=None) -> int:
         params,
         ("sc_fused", "paged_attention_fused"),
     )
+    val = validation_phase(params, cfg)
+    faulty = faulty_serve_phase(
+        params, cfg.replace(sc_backend="exact", paged_attn="unfused"),
+        prompts,
+    )
     del params
     torch.cuda.empty_cache()
     cross_device()
+    faulty_cross_device()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = train_phase(args.layers, workdir)
         train_cross_device(workdir)
 
+    serving = (counts_a, counts_b, faulty["counts"])
     launches = {
-        k: counts_a.get(k, 0) + counts_b.get(k, 0)
-        for k in set(counts_a) | set(counts_b)
+        k: sum(c.get(k, 0) for c in serving)
+        for k in set().union(*serving)
     }
     mlp = fused["mlp_wi"]
     fa = attn["paged_attention_fused"][1]
@@ -914,6 +1284,22 @@ def main(argv=None) -> int:
             bound_by="operations",
             library_ms=None,
             shape="b=2 sc=1 h=14 kvh=2 hd=64 bs=16 nbit=1024 f32",
+        ),
+        dict(
+            name="sc_mul_popcount",
+            route="cuda",
+            source="src/repro_torch/csrc/sc_mul.cu",
+            replaces="src/repro/kernels/sc_mul.py:83",
+            launches=val["counts"].get("sc_mul_popcount", 0),
+            max_abs_err=max(r["max_abs_err"] for r in muls.values()),
+            ms=muls["chunk"]["ms"],
+            plain_ms=muls["chunk"]["plain_ms"],
+            bound_ms=muls["chunk"]["bound_ms"],
+            bound_by=muls["chunk"]["bound_by"],
+            library_ms=None,
+            shape="M=65536 MULs W=32 (nbit 1024): one chunk of "
+            "pallas_bitexact's stream walk, the size of most of phase "
+            "V's launches; launches from phase V",
         ),
         dict(
             name="sc_mac_fused",

@@ -28,7 +28,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("sc_fused", "paged_attention", "sc_mac")
+SOURCES = ("sc_fused", "paged_attention", "sc_mac", "sc_mul")
 HEADERS = ("sc_device.cuh",)
 NVCC_FLAGS = (
     "-gencode",

@@ -97,8 +97,15 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
             f"{cfg.sc_backend!r} is stochastic but key=None"
         )
     else:
+        # fast_backend upgrades pallas_bitexact to the bit-identical fused
+        # engine; the ambient device profile rides along (array realizes
+        # it, every other backend models the ideal device)
         backend = sc.fast_backend(cfg.sc_backend, cfg.sc_nbit)
-        sc_cfg = sc.ScConfig(backend=backend, nbit=cfg.sc_nbit)
+        sc_cfg = sc.ScConfig(
+            backend=backend,
+            nbit=cfg.sc_nbit,
+            device=sc.current_device_profile(),
+        )
         if key.dim() > 1:
             y = _dense_rows(key, x, w, sc_cfg)
         else:

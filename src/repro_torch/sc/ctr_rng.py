@@ -136,24 +136,28 @@ def split(key, num: int = 2) -> torch.Tensor:
     return _as_key(x0, x1)
 
 
-def product_counters(n_products: int, nwords: int, device=None):
+def product_counters(n_products: int, nwords: int, device=None, start=0):
     """The pinned (c0, c1) layout of one operand's per-product stream:
     ``c0`` of shape ``(n_products, 1, 1)`` and ``c1`` of shape
-    ``(1, NSLICES, nwords)`` (``s·nwords + w``)."""
+    ``(1, NSLICES, nwords)`` (``s·nwords + w``).  ``start`` offsets the
+    product index (mod 2^32), so a caller may walk the stream in
+    chunks."""
     from repro_torch.kernels.sc_mul import NSLICES
 
     c0 = torch.arange(n_products, dtype=torch.int64, device=device)
+    c0 = (c0 + start) & MASK32
     s = torch.arange(NSLICES, dtype=torch.int64, device=device)
     w = torch.arange(nwords, dtype=torch.int64, device=device)
     c1 = s[:, None] * nwords + w[None, :]
     return c0[:, None, None], c1[None]
 
 
-def operand_stream(key2, n_products: int, nwords: int):
-    """Host-side materialization: ``(n_products, NSLICES, nwords)`` int64
-    words — the stream the packed engine consumes."""
+def operand_stream(key2, n_products: int, nwords: int, start: int = 0):
+    """Materialization: ``(n_products, NSLICES, nwords)`` int64 words of
+    products ``start .. start + n_products - 1`` — the stream the packed
+    engine consumes.  Product p's words depend on p alone."""
     key2 = raw_key(key2)
-    c0, c1 = product_counters(n_products, nwords, key2.device)
+    c0, c1 = product_counters(n_products, nwords, key2.device, start)
     return uniform_words(key2, c0, c1)
 
 
@@ -175,10 +179,17 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
     ``threefry2x32(key, (i >> 32, i))``."""
     key = raw_key(key)
     dev = key.device if device is None else torch.device(device)
-    k = key.to(device=dev, dtype=torch.int64)
     i = torch.arange(_numel(shape), dtype=torch.int64, device=dev)
-    x0, x1 = threefry2x32(k[0], k[1], i >> 32, i & MASK32)
-    return (x0 ^ x1).reshape(tuple(shape))
+    return bits_at(key, i).reshape(tuple(shape))
+
+
+def bits_at(key, index) -> torch.Tensor:
+    """The words of :func:`random_bits` at the given row-major flat
+    indices (an int64 tensor) of the draw, on ``index``'s device: a
+    large draw can be walked in pieces without changing an element."""
+    k = raw_key(key).to(device=index.device, dtype=torch.int64)
+    x0, x1 = threefry2x32(k[0], k[1], index >> 32, index & MASK32)
+    return x0 ^ x1
 
 
 def _unit_floats(bits) -> torch.Tensor:
@@ -189,7 +200,11 @@ def _unit_floats(bits) -> torch.Tensor:
 
 def uniform(key, shape, minval=0.0, maxval=1.0, device=None):
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    floats = _unit_floats(random_bits(key, shape, device))
+    return _scaled_uniform(random_bits(key, shape, device), minval, maxval)
+
+
+def _scaled_uniform(bits, minval, maxval):
+    floats = _unit_floats(bits)
     lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
     # XLA contracts ``floats * span + lo`` into one fused multiply-add:
@@ -208,6 +223,13 @@ def normal(key, shape, device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``√2·erfinv(u)`` with
     ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
     u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return torch.special.erfinv(u) * _SQRT2
+
+
+def normal_at(key, index) -> torch.Tensor:
+    """The elements of :func:`normal` at the given row-major flat indices
+    (an int64 tensor) of the draw."""
+    u = _scaled_uniform(bits_at(key, index), _NORMAL_LO, 1.0)
     return torch.special.erfinv(u) * _SQRT2
 
 

@@ -10,13 +10,15 @@ jacobian (``gx = g @ wᵀ``, ``gw = x₂ᵀ @ g₂`` in float32, cast to the
 operands' dtypes), and the key gets no gradient.  So every backend,
 the CUDA kernels included, is trainable.
 
-Backends of the reference that this slice does not port raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The ``array`` backend (the architecture simulator,
+``repro_torch.arch.backend``) registers on first use, as in the
+reference, so ``repro_torch.sc`` imports nothing of ``arch``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 import torch
 
@@ -33,15 +35,9 @@ _ROW_BACKENDS: dict = {}
 # name -> bit-identical faster backend (``fast_backend``).
 _FAST_ALIASES: dict = {"pallas_bitexact": "pallas_fused"}
 
-# reference backends not ported yet -> where the port will bring them
-_UNPORTED: dict = {
-    "bitexact": "ROADMAP queue 1 item 6",
-    "pallas_bitexact": (
-        "ROADMAP queue 2 item 4 (the packed sc_mul kernel); "
-        "sc.fast_backend upgrades it to pallas_fused"
-    ),
-    "array": "ROADMAP queue 1 item 8",
-}
+# Backends living outside repro_torch.sc register on first use: name ->
+# module whose import performs the @register_backend call.
+_LAZY_BACKENDS: dict = {"array": "repro_torch.arch.backend"}
 
 
 def register_backend(name: str):
@@ -68,22 +64,21 @@ def register_rows_backend(name: str):
 
 
 def get_backend(name: str):
-    """Resolve a backend name to its function."""
+    """Resolve a backend name to its function (importing lazy entries)."""
+    if name not in _BACKENDS and name in _LAZY_BACKENDS:
+        importlib.import_module(_LAZY_BACKENDS[name])
     fn = _BACKENDS.get(name)
     if fn is not None:
         return fn
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"SC backend {name!r} is not ported yet: {_UNPORTED[name]}"
-        )
     raise ValueError(
-        f"unknown SC backend {name!r}; registered: {sorted(_BACKENDS)}"
+        f"unknown SC backend {name!r}; registered: "
+        f"{sorted(set(_BACKENDS) | set(_LAZY_BACKENDS))}"
     )
 
 
 def available_backends() -> tuple:
-    """Sorted names of every selectable backend."""
-    return tuple(sorted(_BACKENDS))
+    """Sorted names of every selectable backend (lazy ones included)."""
+    return tuple(sorted(set(_BACKENDS) | set(_LAZY_BACKENDS)))
 
 
 def fast_backend(name: str, nbit: int | None = None) -> str:

@@ -2,9 +2,13 @@
 
 Port of ``repro.serve.api``.  :class:`ServeOptions` keeps every knob of
 the reference under its name; :func:`build_engine` validates them and
-builds the paged engine on a device.  Knobs whose features this slice
-does not port raise ``NotImplementedError`` naming the ROADMAP item
-that brings them, rather than serving something else.
+builds the paged engine on a device.  A ``fault_profile`` serves on a
+non-ideal device: the profile is resolved, an exact model moves onto
+the ``array`` backend (the only one that realizes faults), and the
+engine enters ``sc.use_device_profile`` around each tick.  Knobs whose
+features the port does not have yet raise ``NotImplementedError``
+naming the ROADMAP item that brings them, rather than serving something
+else.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch import resolve_device
+from repro_torch.core import physics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +58,6 @@ class ServeOptions:
             ("prefix_cache", self.prefix_cache, 5),
             ("speculative", self.speculative, 5),
             ("rng_mode='content'", self.rng_mode == "content", 5),
-            ("fault_profile", bool(self.fault_profile), 8),
             ("mesh", self.mesh, 10),
             ("chaos", self.chaos, 9),
         ]
@@ -63,6 +67,18 @@ class ServeOptions:
                     f"ServeOptions {name} is not ported yet (ROADMAP "
                     f"queue 1 item {item})"
                 )
+        self.resolve_profile()  # raises ValueError on unknown names
+
+    def resolve_profile(self) -> physics.DeviceProfile | None:
+        """``fault_profile`` as a DeviceProfile (None when unset; an
+        explicit 'ideal' still threads through, so the bit-identity
+        contract is exercised end to end)."""
+        if not self.fault_profile:
+            return None
+        try:
+            return physics.resolve_profile(self.fault_profile)
+        except KeyError as e:
+            raise ValueError(str(e)) from None
 
 
 def build_engine(
@@ -70,6 +86,7 @@ def build_engine(
     cfg,
     options: ServeOptions | None = None,
     *,
+    collect_arch_trace: bool = False,
     device=None,
     metrics=None,
     tracer=None,
@@ -79,7 +96,10 @@ def build_engine(
     ``device`` (default: the card; raises when none is present unless
     ``device="cpu"``) holds the page pools and runs every step; the
     parameters must already lie there.  ``options.fused_attention``
-    applies ``cfg.paged_attn="fused"``, as in the reference.
+    applies ``cfg.paged_attn="fused"``, as in the reference; a non-ideal
+    ``options.fault_profile`` moves an exact model onto ``array``.
+    ``collect_arch_trace`` installs an arch trace collector when the
+    model runs on ``array`` (``engine.arch_report()``).
     """
     from repro_torch.serve import engine as engine_mod
 
@@ -98,6 +118,14 @@ def build_engine(
         )
     if options.fused_attention:
         cfg = cfg.replace(paged_attn="fused")
+    profile = options.resolve_profile()
+    if (
+        profile is not None
+        and not profile.is_ideal
+        and cfg.sc_backend in ("", "exact")
+    ):
+        # non-ideal devices exist only on the array backend
+        cfg = cfg.replace(sc_backend="array")
     scfg = engine_mod.PagedServeConfig(
         slots=options.slots,
         max_len=options.max_len,
@@ -107,6 +135,14 @@ def build_engine(
         num_blocks=options.num_blocks,
         prefill_chunk=options.prefill_chunk,
     )
-    return engine_mod.PagedServingEngine(
-        params, cfg, scfg, device=device, metrics=metrics, tracer=tracer
+    engine = engine_mod.PagedServingEngine(
+        params,
+        cfg,
+        scfg,
+        device=device,
+        collect_arch_trace=collect_arch_trace,
+        metrics=metrics,
+        tracer=tracer,
     )
+    engine.device_profile = profile
+    return engine

@@ -7,10 +7,22 @@ and per-request rng.  ``step()`` is a thin loop over
 rows whose pending context emptied.  The page pools live on the engine's
 device and ``decode_paged`` updates them in place.
 
-What this slice leaves to later ones raises at construction (see
+On a non-ideal device (``ServeOptions.fault_profile``) each tick runs
+under ``sc.use_device_profile(engine.device_profile)``, so every
+``ScConfig`` the model builds carries the profile.  With
+``collect_arch_trace=True`` and ``cfg.sc_backend == "array"`` the engine
+keeps an arch trace collector installed: every ``array`` call the ticks
+EXECUTE records its pulse-schedule cost, and ``arch_report()`` returns
+the aggregate cycles / energy / utilization.  This differs from the
+jitted reference, whose collector records once per COMPILED shape: the
+port bills the work it ran (each record's plan and price equal the
+reference's for that shape).  ``close()`` (or a raise mid-tick)
+detaches the collector.
+
+What the port does not have yet raises at construction (see
 ``serve/api.py``): prefix caching and speculative decoding (ROADMAP
-queue 1 item 5), the fixed-slot engine, drain/restore and fault
-profiles (item 9), and families other than dense (item 7).
+queue 1 item 5), the fixed-slot engine and drain/restore (item 9), and
+families other than dense (item 7).
 """
 
 from __future__ import annotations
@@ -20,7 +32,7 @@ import time
 
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, sc
 from repro_torch.models import attention, lm
 from repro_torch.sc import ctr_rng
 
@@ -91,6 +103,10 @@ class PagedServingEngine:
     tracer defaults to the always-off ``NULL_TRACER``.
     """
 
+    # Non-ideal device realized while this engine ticks (set by
+    # serve.api.build_engine from options.fault_profile; None = ideal).
+    device_profile = None
+
     def __init__(
         self,
         params,
@@ -98,6 +114,7 @@ class PagedServingEngine:
         scfg: PagedServeConfig,
         *,
         device,
+        collect_arch_trace: bool = False,
         metrics=None,
         tracer=None,
     ):
@@ -140,9 +157,16 @@ class PagedServingEngine:
             scfg,
             self.kv,
             base_key=ctr_rng.prng_key(scfg.seed),
+            on_finish=self._on_finish,
             metrics=self.metrics,
             tracer=self.tracer,
         )
+        self._arch_closed = False
+        self.arch_collector = None
+        if collect_arch_trace and cfg.sc_backend == "array":
+            from repro_torch import arch
+
+            self.arch_collector = arch.TraceCollector().install()
         # fused_sc attention draws per-token stochastic logits even when
         # the dense substrate is exact, so it needs per-request keys too
         self._stochastic_substrate = (
@@ -183,39 +207,84 @@ class PagedServingEngine:
     def submit(self, req: Request):
         self.scheduler.submit(req)
 
+    def _on_finish(self, req: Request):
+        if self.arch_collector is not None:
+            self.arch_collector.note_request(
+                req.rid, len(req.prompt) + len(req.generated)
+            )
+
+    # -- arch trace ----------------------------------------------------
+    def arch_report(self):
+        """Aggregate arch cost of every ``array`` call executed so far
+        (None when collection is off or nothing was recorded).  The
+        collector hears every array-backend call in the process while
+        installed, not only this engine's."""
+        collector = self.arch_collector
+        if collector is None or not collector.records:
+            return None
+        return collector.aggregate()
+
+    def arch_request_costs(self):
+        """Per-request cost attribution (None without a trace or without
+        finished requests): the aggregate prorated by each request's
+        token count — ``TraceCollector.cost_per_request``."""
+        collector = self.arch_collector
+        if collector is None or not collector.request_tokens:
+            return None
+        return collector.cost_per_request()
+
+    def close(self):
+        """Detach the arch trace collector (records stay readable).
+        Idempotent: only the first call touches the listener list."""
+        if getattr(self, "_arch_closed", True):
+            return
+        self._arch_closed = True
+        if self.arch_collector is not None:
+            self.arch_collector.uninstall()
+
+    def __del__(self):
+        # a dropped engine must not leave its collector listening
+        self.close()
+
     # ------------------------------------------------------------------
     def step(self):
         """One tick: scheduler plan → one chunked step → sample the rows
-        that consumed their pending context.  Returns False when idle."""
+        that consumed their pending context.  Returns False when idle.
+        A raise mid-tick detaches the arch collector."""
         try:
-            plan = self.scheduler.plan()
-            if plan is None:
-                return False
-            if not any(plan.n_valid):
-                raise RuntimeError(
-                    "scheduler produced a no-progress tick (every row "
-                    "deferred) — the block pool is mis-sized"
-                )
-            if plan.copies:
-                src = [s for s, _ in plan.copies]
-                dst = [d for _, d in plan.copies]
-                attention.paged_copy_blocks(self.pages, src, dst)
-            kind = "decode" if plan.sc == 1 else "prefill"
-            live = sum(1 for nv in plan.n_valid if nv)
-            self._m_ticks.inc(kind=kind)
-            with self.tracer.span(
-                "engine.tick",
-                tick=self.ticks,
-                kind=kind,
-                live=live,
-                width=plan.sc,
-            ):
-                self._run_plan(plan, live)
-            self.ticks += 1
-            return True
+            with sc.use_device_profile(self.device_profile):
+                return self._tick()
         except Exception:
             self._m_errors.inc()
+            self.close()
             raise
+
+    def _tick(self):
+        plan = self.scheduler.plan()
+        if plan is None:
+            return False
+        if not any(plan.n_valid):
+            raise RuntimeError(
+                "scheduler produced a no-progress tick (every row "
+                "deferred) — the block pool is mis-sized"
+            )
+        if plan.copies:
+            src = [s for s, _ in plan.copies]
+            dst = [d for _, d in plan.copies]
+            attention.paged_copy_blocks(self.pages, src, dst)
+        kind = "decode" if plan.sc == 1 else "prefill"
+        live = sum(1 for nv in plan.n_valid if nv)
+        self._m_ticks.inc(kind=kind)
+        with self.tracer.span(
+            "engine.tick",
+            tick=self.ticks,
+            kind=kind,
+            live=live,
+            width=plan.sc,
+        ):
+            self._run_plan(plan, live)
+        self.ticks += 1
+        return True
 
     def _tensor(self, rows, dtype=torch.int32):
         return torch.tensor(rows, dtype=dtype).to(self.device)

@@ -87,11 +87,18 @@ class Scheduler:
     """
 
     def __init__(
-        self, scfg, kv: PagedKVCache, base_key, metrics=None, tracer=None
+        self,
+        scfg,
+        kv: PagedKVCache,
+        base_key,
+        on_finish=None,
+        metrics=None,
+        tracer=None,
     ):
         self.scfg = scfg
         self.kv = kv
         self.base_key = base_key
+        self.on_finish = on_finish  # called with each finished Request
         self.waiting: deque = deque()
         self.rows: list = [None] * scfg.slots  # slot -> Sequence | None
         self.admit_stack: list = []  # admission order (LIFO)
@@ -318,3 +325,5 @@ class Scheduler:
             rid=seq.req.rid,
             generated=len(seq.req.generated),
         )
+        if self.on_finish is not None:
+            self.on_finish(seq.req)

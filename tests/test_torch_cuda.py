@@ -6,11 +6,14 @@ where JAX is not installed:
 
     python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
-Classes: ``sc_fused`` totals bit-equal; attention outputs within 1e-5 in
-float32; the moment kernels (``sc_mac_fused`` and its in-kernel-noise
-twin) within 1e-5 of max |out| of their plain versions (float32 sums in
-another order); a tiny model served on the card and on the CPU gives the
-same greedy tokens, and trains to the same losses within 1e-4.
+Classes: ``sc_fused`` and ``sc_mul_popcount`` totals bit-equal (and the
+``pallas_bitexact`` backend on the packed kernel equal to ``pallas_fused``
+and to the CPU); attention outputs within 1e-5 in float32; the moment
+kernels (``sc_mac_fused`` and its in-kernel-noise twin) within 1e-5 of
+max |out| of their plain versions (float32 sums in another order); a
+tiny model served on the card and on the CPU gives the same greedy
+tokens (also on the ``tiny`` faulty device), and trains to the same
+losses within 1e-4.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sc_fused as kf
 from repro_torch.kernels import sc_mac as km
+from repro_torch.kernels import sc_mul as kmul
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm, params
 from repro_torch.serve import Request, ServeOptions, build_engine
@@ -57,6 +61,39 @@ def test_sc_fused_kernel_bit_equals_plain(cuda, row_keys):
     assert cuda_lib.launches["sc_fused"] == before + 1
     want = kf.sc_fused_popcount_plain(keys, x, w, **kw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,w", [(13, 32), (1000, 1), (9, 4), (70, 40)])
+def test_sc_mul_kernel_bit_equals_plain(cuda, m, w):
+    rng = np.random.default_rng(m + w)
+    px = torch.tensor(rng.integers(0, 65536, m).astype(np.uint32))
+    py = torch.tensor(rng.integers(0, 65536, m).astype(np.uint32))
+    px[0], py[-1] = 0, 65535
+    rx, ry = _u32(rng, (m, 16, w)), _u32(rng, (m, 16, w))
+    px, py, rx, ry = (t.to(cuda) for t in (px, py, rx, ry))
+    before = cuda_lib.launches["sc_mul_popcount"]
+    got = kmul.sc_mul_popcount(px, py, rx, ry)
+    assert cuda_lib.launches["sc_mul_popcount"] == before + 1
+    want = kmul.sc_mul_popcount_plain(px, py, rx, ry)
+    assert torch.equal(got, want)
+
+
+def test_pallas_bitexact_on_the_card_equals_fused_and_cpu(cuda):
+    from repro_torch import sc
+    from repro_torch.sc import ctr_rng
+
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.uniform(-1, 1, (2, 37)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(-1, 1, (37, 50)), dtype=torch.float32)
+    cfg = sc.ScConfig(backend="pallas_bitexact", nbit=256)
+    key = ctr_rng.prng_key(11)
+    before = cuda_lib.launches["sc_mul_popcount"]
+    got = sc.sc_dot(key.to(cuda), x.to(cuda), w.to(cuda), cfg)
+    assert cuda_lib.launches["sc_mul_popcount"] > before
+    fused = sc.sc_dot(key.to(cuda), x.to(cuda), w.to(cuda),
+                      cfg.replace(backend="pallas_fused"))
+    assert torch.equal(got, fused)
+    assert torch.equal(got.cpu(), sc.sc_dot(key, x, w, cfg))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -147,5 +184,27 @@ def test_tiny_model_serves_same_tokens_on_card_and_cpu(cuda):
         for rid, prompt in enumerate(prompts):
             eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=4))
         eng.run_until_drained()
+        toks[dev.type] = {r.rid: r.generated for r in eng.finished}
+    assert toks["cuda"] == toks["cpu"]
+
+
+def test_tiny_model_on_a_faulty_device_serves_same_tokens_on_card_and_cpu(
+        cuda):
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        param_dtype=torch.float32, act_dtype=torch.float32)
+    prompts = [[5, 9, 17, 3, 8, 11, 40], [40, 2, 8, 30]]
+    toks = {}
+    for dev in (cuda, torch.device("cpu")):
+        gen = torch.Generator().manual_seed(0)
+        p = params.init_params(lm.lm_param_specs(cfg), gen, dev,
+                               torch.float32)
+        eng = build_engine(p, cfg, ServeOptions(
+            paged=True, slots=2, max_len=32, block_size=8, prefill_chunk=4,
+            fault_profile="tiny"), collect_arch_trace=True, device=dev)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=4))
+        eng.run_until_drained()
+        assert eng.arch_report().cycles > 0
+        eng.close()
         toks[dev.type] = {r.rid: r.generated for r in eng.finished}
     assert toks["cuda"] == toks["cpu"]

@@ -127,7 +127,6 @@ def test_serving_exact_fused_greedy_tokens_match_reference():
         dict(paged=True, prefix_cache=True),
         dict(paged=True, speculative=True),
         dict(paged=True, rng_mode="content"),
-        dict(paged=True, fault_profile="harsh"),
         dict(paged=True, mesh=True),
         dict(paged=True, chaos=True),
     ],

@@ -52,6 +52,7 @@ def test_kernel_sources_ship_with_the_package():
         "sc_fused.cu",
         "paged_attention.cu",
         "sc_mac.cu",
+        "sc_mul.cu",
     } <= names
 
 
