@@ -12,12 +12,17 @@ code is non-zero):
 2. each kernel against its plain PyTorch version on the card at the
    main paths' shapes (kernel 4 also at every size phase V launches;
    ``sc_fused`` and ``sc_mul_popcount`` bit-equal; both paged-attention
-   kernels within 1e-5 in float32; both moment kernels within 1e-5 of
-   max |out|, plus the in-kernel noise's mean and variance), with its
-   median time, the plain version's time, the least time the card could
-   take (``bound_ms``), and a PyTorch yardstick where one computes the
+   kernels within 1e-5 in float32; both moment kernels and the moment
+   kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
+   noise's mean and variance, and two launches of the moment kernel
+   bit-equal), with its median time, the plain version's time, the
+   least time the card could take (``bound_ms``; for the moment kernels
+   the faster of 3xTF32 on the tensor cores and FP32 FMAs, with the FP32
+   bound beside it), and a PyTorch yardstick where one computes the
    same function (``scaled_dot_product_attention``; three float32
-   ``torch.matmul`` calls plus the moment epilogue);
+   ``torch.matmul`` calls plus the moment epilogue, timed in turns with
+   the kernel); the SASS census must show the moment kernel's wgmma
+   (HGMMA) opcodes;
 3. serve phase A: qwen2-0.5b at full width, depth cut to ``--layers``
    (default 2), bf16, random weights from seed 0, ``pallas_bitexact``
    (the fused SC matmul kernel) with ``fused_sc`` attention at
@@ -65,6 +70,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,6 +93,10 @@ ALU_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA H100 datasheet)
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores (same datasheet)
 FP32_LANES_PER_SM = 128  # FP32 FMA lanes per Hopper SM (white paper)
+# Dense TF32 flops per SM clock on the tensor cores: the datasheet's 495
+# TFLOP/s over 132 SMs at ~1.83 GHz.  Taken at the card's max SM clock,
+# as the FP32 rate is, so the two routes of a bound share one clock.
+TF32_FLOPS_PER_SM_CLOCK = 2048
 # One Threefry-2x32 call as csrc/sc_device.cuh writes it, counting only
 # what its first output word needs (the last round's rotate and xor of
 # x1 are dead): 19 funnel-shift rotates and 19 xors on the ALU pipe, plus
@@ -238,8 +248,14 @@ def environment():
         "issue": sms * ISSUE_PER_SM_CLOCK * mhz * 1e6,
         # FP32 FMA on the CUDA cores: 128 lanes per SM, 2 flops each
         "fp32": sms * FP32_LANES_PER_SM * 2 * mhz * 1e6,
+        "tf32": sms * TF32_FLOPS_PER_SM_CLOCK * mhz * 1e6,
     }
-    emit("sass", **{n: sass_census(n) for n in cuda_lib.SOURCES})
+    census = {n: sass_census(n) for n in cuda_lib.SOURCES}
+    mma = tensor_core_ops(census["sc_mac"])
+    emit("sass", **{n: _top_ops(c) for n, c in census.items()},
+         sc_mac_tensor_core_ops=mma)
+    if not any(ops.get("HGMMA") for ops in mma.values()):
+        raise AssertionError("sc_mac: no HGMMA (wgmma) in its SASS")
     return f"{name}, {power}", rates
 
 
@@ -260,7 +276,11 @@ def sass_census(name: str) -> dict:
     for line in text.splitlines():
         line = line.strip()
         if line.startswith("Function :"):
-            fn = line.split(":", 1)[1].strip()[:48]
+            # drop the anonymous namespace's mangled prefix, so that the
+            # instantiations of one template keep apart
+            fn = line.split(":", 1)[1].strip()
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", fn)
+            fn = fn[:48]
             census[fn] = {}
         elif fn and line.startswith("/*") and "*/" in line:
             body = line.split("*/", 1)[1].strip()
@@ -271,8 +291,21 @@ def sass_census(name: str) -> dict:
                 op = body.split()[1]
             op = op.split(".")[0].rstrip(";")
             census[fn][op] = census[fn].get(op, 0) + 1
+    return census
+
+
+def _top_ops(census: dict, n: int = 8) -> dict:
     return {
-        fn: dict(sorted(ops.items(), key=lambda kv: -kv[1])[:8])
+        fn: dict(sorted(ops.items(), key=lambda kv: -kv[1])[:n])
+        for fn, ops in census.items()
+    }
+
+
+def tensor_core_ops(census: dict) -> dict:
+    """Tensor-core MMA opcodes (HGMMA: wgmma; HMMA: mma.sync) per kernel
+    of a census."""
+    return {
+        fn: {op: c for op, c in ops.items() if op in ("HGMMA", "HMMA")}
         for fn, ops in census.items()
     }
 
@@ -461,9 +494,11 @@ def _sdpa_ms(q, kp, vp, bt, ln, attention) -> float:
     return time_ms(run, 20)
 
 
-def _moment_operands(rng, m: int, k: int, n: int):
+def _moment_operands(rng, m: int, k: int, n: int, kmajor: bool = False):
     """Signed probabilities on the 10-bit grid (what ``pallas_moment``
-    hands the kernel) and standard-normal noise, made on the card."""
+    hands the kernel) and standard-normal noise, made on the card; w
+    row-major, or (``kmajor``) the transposed view of an (n, k) tensor,
+    as the tied unembed passes it."""
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
 
     def grid(shape):
@@ -471,46 +506,85 @@ def _moment_operands(rng, m: int, k: int, n: int):
         return torch.round(v * 1024) / 1024
 
     z = torch.randn((m, n), generator=gen, device="cuda")
-    return grid((m, k)), grid((k, n)), z
+    w = grid((n, k)).T if kmajor else grid((k, n))
+    return grid((m, k)), w, z
 
 
-def _moment_bound(m: int, k: int, n: int, rates: dict, noise_in: bool):
-    """(bound ms, bound_by): 3 FMAs (6 flops) per operand pair on the
-    FP32 CUDA cores against x, w (and the noise) read once and the
-    output written once."""
-    flops = 6 * m * k * n
+def _moment_bound(m: int, k: int, n: int, rates: dict, noise_in: bool,
+                  on_grid: bool) -> dict:
+    """The least time of the moment kernel's work over its float32-
+    accurate routes, never below x, w (and the noise) read once and the
+    output written once: 3xTF32 on the tensor cores (9 TF32 products per
+    operand pair, 18·M·K·N flops at ``rates["tf32"]``; 5 products where
+    the operands are on the grid and exact in TF32) or 3 FMAs per pair
+    on the FP32 cores (6·M·K·N flops at ``rates["fp32"]``).  Returns
+    bound_ms, bound_by, the route that sets it, and the FP32-core bound
+    beside it."""
     bytes_ = 4 * (m * k + k * n + (2 if noise_in else 1) * m * n)
-    t_ops, t_bytes = flops / rates["fp32"], bytes_ / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
-        else "bytes"
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_tf32 = 2 * (5 if on_grid else 9) * m * k * n / rates["tf32"]
+    t_fp32 = 6 * m * k * n / rates["fp32"]
+    t_ops = min(t_tf32, t_fp32)
+    return dict(
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_route="tf32x3" if t_tf32 <= t_fp32 else "fp32",
+        bound_fp32_ms=max(t_fp32, t_bytes) * 1e3,
+    )
+
+
+def paired_ms(lib_fn, kern_fn, reps: int) -> tuple:
+    """(library ms, kernel ms): medians of CUDA-event times taken in
+    turns (library, kernel, kernel, library), ``reps`` runs each turn."""
+    a1 = time_ms(lib_fn, reps)
+    k1 = time_ms(kern_fn, reps)
+    k2 = time_ms(kern_fn, reps)
+    a2 = time_ms(lib_fn, reps)
+    return float(np.median([a1, a2])), float(np.median([k1, k2]))
+
+
+# The trainer's moment-kernel shapes: M = batch 8 x seq 64 rows; K =
+# d_model 896, or d_ff 4864 for the MLP's output projection; the tied
+# unembed's w is the K-major view table.T, the others row-major.
+SC_MAC_SHAPES = (
+    ("unembed", 896, 151936, True),
+    ("mlp_wi", 896, 9728, False),
+    ("mlp_wo", 4864, 896, False),
+    ("wq", 896, 896, False),
+    ("wk", 896, 128, False),
+)
 
 
 def check_sc_mac(rates: dict) -> dict:
-    """Kernels 5 and 6 at the trainer's shapes (M = batch 8 x seq 64 rows;
-    K = d_model 896, or d_ff 4864 for the MLP's output projection)."""
+    """Kernels 5 and 6 (and kernel 5's split-K pass) at the trainer's
+    shapes, against their plain versions, each timed in turns with the
+    three-``torch.matmul`` call; kernel 5 on grid operands as
+    ``pallas_moment`` launches it (``on_grid``), and off the grid."""
     from repro_torch.kernels import sc_mac as km
 
     rng = np.random.default_rng(3)
     nbit = 1024
     m = 512
     rows = {}
-    for name, k, n in (
-        ("unembed", 896, 151936),
-        ("mlp_wi", 896, 9728),
-        ("mlp_wo", 4864, 896),
-        ("wq", 896, 896),
-        ("wk", 896, 128),
-    ):
-        x, w, z = _moment_operands(rng, m, k, n)
-        got = km.sc_mac_fused(x, w, z, nbit=nbit)
+    for name, k, n, kmajor in SC_MAC_SHAPES:
+        x, w, z = _moment_operands(rng, m, k, n, kmajor)
         ref = km.sc_mac_fused_plain(x, w, z, nbit=nbit)
-        err = float((got - ref).abs().max() / ref.abs().max())
-        if not err <= 1e-5:
-            raise AssertionError(f"sc_mac_fused {name}: rel err {err}")
-        ms = time_ms(lambda: km.sc_mac_fused(x, w, z, nbit=nbit), 10)
-        plain_ms = time_ms(
-            lambda: km.sc_mac_fused_plain(x, w, z, nbit=nbit), 10
+        scale = ref.abs().max()
+        got = km.sc_mac_fused(x, w, z, nbit=nbit, on_grid=True)
+        err = float((got - ref).abs().max() / scale)
+        again = km.sc_mac_fused(x, w, z, nbit=nbit, on_grid=True)
+        bit_equal = bool(torch.equal(got, again))
+        # the same inputs through the general (9-product) route
+        err_general = float(
+            (km.sc_mac_fused(x, w, z, nbit=nbit) - ref).abs().max() / scale
         )
+        del again
+        if not (err <= 1e-5 and err_general <= 1e-5):
+            raise AssertionError(
+                f"sc_mac_fused {name}: rel err {err} / {err_general}"
+            )
+        if not bit_equal:
+            raise AssertionError(f"sc_mac_fused {name}: two launches differ")
         xa, wa, xq, wq = x.abs(), w.abs(), x * x, w * w
 
         def library():
@@ -520,26 +594,51 @@ def check_sc_mac(rates: dict) -> dict:
             var = torch.clamp_min(p - p2, 0.0) * (1.0 / nbit)
             return mean + z * torch.sqrt(var)
 
-        lib_ms = time_ms(library, 10)
-        bound, by = _moment_bound(m, k, n, rates, True)
+        lib_ms, ms = paired_ms(
+            library,
+            lambda: km.sc_mac_fused(x, w, z, nbit=nbit, on_grid=True),
+            10,
+        )
+        _, ms_general = paired_ms(
+            library, lambda: km.sc_mac_fused(x, w, z, nbit=nbit), 5
+        )
+        plain_ms = time_ms(
+            lambda: km.sc_mac_fused_plain(x, w, z, nbit=nbit), 10
+        )
+        bound = _moment_bound(m, k, n, rates, True, True)
+        splits, kper = km.sc_mac_plan(m, n, k)
         rows[name] = dict(
             shape=[m, k, n],
+            w_layout="K-major view (table.T)" if kmajor else "row-major",
+            splits=splits,
+            k_per_split=kper,
             max_abs_err=err,
+            max_abs_err_general=err_general,
+            two_launches_bit_equal=bit_equal,
             ms=ms,
             plain_ms=plain_ms,
-            bound_ms=bound,
-            bound_by=by,
             library_ms=lib_ms,
-            tflops=6 * m * k * n / ms / 1e9,
+            vs_library=ms / lib_ms,
+            **bound,
+            of_bound=bound["bound_ms"] / ms,
+            ms_general=ms_general,
+            bound_general_ms=_moment_bound(m, k, n, rates, True,
+                                           False)["bound_ms"],
         )
         emit("kernel_check", kernel="sc_mac_fused", case=name, **rows[name])
+        if name == "mlp_wo":
+            rows["reduce"] = check_sc_mac_reduce(
+                km, x, w, z, splits, kper, nbit
+            )
+            check_sc_mac_cancel(km, m, k, n, nbit)
         del x, w, z, got, ref, xa, wa, xq, wq
     torch.cuda.empty_cache()
 
-    # kernel 6 at the unembed shape: against its plain version, and its
-    # noise z = (out - mean) / sd must be standard normal
+    # kernel 6 at the unembed shape (its one, general route): against its
+    # plain version, and its noise z = (out - mean) / sd must be standard
+    # normal
     k, n = 896, 151936
-    x, w, _ = _moment_operands(rng, m, k, n)
+    x, w, _ = _moment_operands(rng, m, k, n, True)
     seed = torch.tensor([20261017], dtype=torch.int32)
     got = km.sc_mac_fused_prng(seed, x, w, nbit=nbit)
     ref = km.sc_mac_fused_prng_plain(seed, x, w, nbit=nbit)
@@ -557,11 +656,12 @@ def check_sc_mac(rates: dict) -> dict:
     del mean, sd, live, zs
     if not (abs(mu) < 0.01 and abs(var - 1.0) < 0.02):
         raise AssertionError(f"sc_mac_fused_prng noise: mean {mu} var {var}")
-    ms = time_ms(lambda: km.sc_mac_fused_prng(seed, x, w, nbit=nbit), 10)
+    ms = time_ms(
+        lambda: km.sc_mac_fused_prng(seed, x, w, nbit=nbit), 10
+    )
     plain_ms = time_ms(
         lambda: km.sc_mac_fused_prng_plain(seed, x, w, nbit=nbit), 3
     )
-    bound, by = _moment_bound(m, k, n, rates, False)
     rows["prng"] = dict(
         shape=[m, k, n],
         max_abs_err=err,
@@ -569,8 +669,7 @@ def check_sc_mac(rates: dict) -> dict:
         noise_var=var,
         ms=ms,
         plain_ms=plain_ms,
-        bound_ms=bound,
-        bound_by=by,
+        **_moment_bound(m, k, n, rates, False, False),
         library_ms=None,
     )
     emit("kernel_check", kernel="sc_mac_fused_prng", case="unembed",
@@ -578,6 +677,82 @@ def check_sc_mac(rates: dict) -> dict:
     del x, w, got
     torch.cuda.empty_cache()
     return rows
+
+
+def check_sc_mac_cancel(km, m: int, k: int, n: int, nbit: int) -> None:
+    """Kernel 5 where p - p2 cancels: |x| = 1 against |w| = 1023/1024
+    (and the other way round), so every pair leaves 1023/1024^2 of the
+    variance and a lost low part of x^2 or w^2 moves the sd by ~25 %,
+    which the 1e-5-of-max-|out| contract cannot see (the mean sets it).
+    Unit noise minus zero noise isolates the sd; it must be within 1e-3
+    of sqrt(k·(1023/1024)/1024/nbit) (float32 ulps of the mean), on the
+    grid route and the general one; prints the worst relative error of
+    each (orientation, route)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    near = 1023 / 1024
+    want = math.sqrt(k * near / 1024 / nbit)
+    ones = torch.ones((m, n), device="cuda")
+    zeros = torch.zeros((m, n), device="cuda")
+
+    def signs(shape, mag):
+        b = torch.rand(shape, generator=gen, device="cuda") < 0.5
+        return torch.where(b, -mag, mag)
+
+    errs = {}
+    for side in ("x", "w"):
+        x = signs((m, k), near if side == "x" else 1.0)
+        w = signs((k, n), 1.0 if side == "x" else near)
+        for on_grid in (True, False):
+            sd = (km.sc_mac_fused(x, w, ones, nbit=nbit, on_grid=on_grid)
+                  - km.sc_mac_fused(x, w, zeros, nbit=nbit,
+                                    on_grid=on_grid))
+            err = float((sd / want - 1).abs().max())
+            errs[f"{side}_near_{'grid' if on_grid else 'general'}"] = err
+            if not err <= 1e-3:
+                raise AssertionError(
+                    f"sc_mac_fused cancel ({side} at 1023/1024, on_grid "
+                    f"{on_grid}): sd off by {err} of its law"
+                )
+    emit("kernel_check", kernel="sc_mac_fused", case="cancel",
+         shape=[m, k, n], sd=want, sd_rel_err=errs)
+
+
+def check_sc_mac_reduce(km, x, w, z, splits, kper, nbit) -> dict:
+    """Kernel 5's split-K pass at the partial sums its mlp_wo launch
+    makes (computed here with torch ops, one K range per split), against
+    its plain version; bytes bound (partials and noise read once, the
+    output written once)."""
+    k = x.shape[1]
+    parts = torch.stack([
+        torch.stack([
+            x[:, a:a + kper] @ w[a:a + kper],
+            x[:, a:a + kper].abs() @ w[a:a + kper].abs()
+            - (x[:, a:a + kper] ** 2) @ (w[a:a + kper] ** 2),
+        ])
+        for a in range(0, k, kper)
+    ])
+    if not splits > 1 or parts.shape[0] != splits:
+        raise AssertionError(f"sc_mac_reduce: mlp_wo plans {splits} splits")
+    got = km.sc_mac_reduce(parts, z, nbit=nbit)
+    ref = km.sc_mac_reduce_plain(parts, z, nbit=nbit)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"sc_mac_reduce: rel err {err}")
+    ms = time_ms(lambda: km.sc_mac_reduce(parts, z, nbit=nbit), 20)
+    plain_ms = time_ms(lambda: km.sc_mac_reduce_plain(parts, z, nbit=nbit),
+                       10)
+    bytes_ = 4 * (parts.numel() + 2 * z.numel())
+    row = dict(
+        shape=list(parts.shape),
+        max_abs_err=err,
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=None,
+    )
+    emit("kernel_check", kernel="sc_mac_reduce", case="mlp_wo", **row)
+    return row
 
 
 # Integer ops of the packed MUL per word pair: 16 ladder slices x 2
@@ -1020,8 +1195,9 @@ def train_phase(layers: int, workdir: str) -> dict:
         wall_s=wall,
         max_memory_allocated=peak,
     )
-    if counts.get("sc_mac_fused", 0) <= 0:
-        raise AssertionError("train_t: kernel sc_mac_fused never launched")
+    for kern in ("sc_mac_fused", "sc_mac_reduce"):
+        if counts.get(kern, 0) <= 0:
+            raise AssertionError(f"train_t: kernel {kern} never launched")
     if hist["recoveries"] != [(2, 2)]:
         raise AssertionError(f"train_t: recoveries {hist['recoveries']}")
     if not all(math.isfinite(r["loss"]) for r in hist["steps"]):
@@ -1030,6 +1206,7 @@ def train_phase(layers: int, workdir: str) -> dict:
     cuda_lib.reset_launches()
     _, ref = _train(args, os.path.join(workdir, "t_ref"))
     per_step = dict(cuda_lib.launches).get("sc_mac_fused", 0) / 4
+    reduce_per_step = dict(cuda_lib.launches).get("sc_mac_reduce", 0) / 4
     got, want = _by_step(hist), _by_step(ref)
     # the replayed step 3 must also equal its first run
     first3 = hist["steps"][2]["loss"]
@@ -1039,6 +1216,7 @@ def train_phase(layers: int, workdir: str) -> dict:
         recovered=got,
         first_run_step3=first3,
         sc_mac_launches_per_step=per_step,
+        sc_mac_reduce_launches_per_step=reduce_per_step,
         bitwise_equal=got == want and first3 == want[3],
     )
     if got != want or first3 != want[3]:
@@ -1052,6 +1230,7 @@ def train_phase(layers: int, workdir: str) -> dict:
     if prof["device_ms"]:
         idle = 1 - prof["device_ms"] / step_ms
     emit("train_t_summary", median_step_ms=step_ms, idle_share=idle,
+         sc_mac_ms_per_step=prof["by_class_ms"]["sc_mac"],
          sc_mac_share=prof["by_class_ms"]["sc_mac"] / step_ms,
          gemm_share=prof["by_class_ms"]["gemm"] / step_ms)
     return dict(
@@ -1312,8 +1491,26 @@ def main(argv=None) -> int:
             plain_ms=mac["unembed"]["plain_ms"],
             bound_ms=mac["unembed"]["bound_ms"],
             bound_by=mac["unembed"]["bound_by"],
+            bound_fp32_ms=mac["unembed"]["bound_fp32_ms"],
             library_ms=mac["unembed"]["library_ms"],
-            shape="M=512 K=896 N=151936 f32 (tied unembed); "
+            shape="M=512 K=896 N=151936 f32 on the operand grid, w the "
+            "K-major view table.T (tied unembed); max_abs_err relative to "
+            "max |out|; bound 3xTF32, 5 products a pair on the grid",
+        ),
+        dict(
+            name="sc_mac_reduce",
+            route="cuda",
+            source="src/repro_torch/csrc/sc_mac.cu",
+            replaces="src/repro/kernels/sc_mac.py:101",
+            launches=train["counts"].get("sc_mac_reduce", 0),
+            max_abs_err=mac["reduce"]["max_abs_err"],
+            ms=mac["reduce"]["ms"],
+            plain_ms=mac["reduce"]["plain_ms"],
+            bound_ms=mac["reduce"]["bound_ms"],
+            bound_by="bytes",
+            library_ms=None,
+            shape=f"partials {tuple(mac['reduce']['shape'])}: kernel 5's "
+            "split-K pass at mlp_wo (the TPU kernel's sequential K axis); "
             "max_abs_err relative to max |out|",
         ),
         dict(
@@ -1327,9 +1524,11 @@ def main(argv=None) -> int:
             plain_ms=mac["prng"]["plain_ms"],
             bound_ms=mac["prng"]["bound_ms"],
             bound_by=mac["prng"]["bound_by"],
+            bound_fp32_ms=mac["prng"]["bound_fp32_ms"],
             library_ms=None,
-            shape="M=512 K=896 N=151936 f32; no path of the package "
-            "runs it; max_abs_err relative to max |out|",
+            shape="M=512 K=896 N=151936 f32 on the operand grid, taken on "
+            "the general route (bound 9 products a pair); no path of the "
+            "package runs it; max_abs_err relative to max |out|",
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -103,11 +103,15 @@ def _moment_noise(key, m: int, n: int, device):
 def pallas_moment(key, x, w, cfg: ScConfig):
     """The moment law through the fused moment kernel (any M, N, K: the
     kernel masks its ragged tiles, so only the noise follows the
-    reference's padding)."""
+    reference's padding).  On the operand grid at ``operand_bits`` <= 10
+    every signed probability is exact in TF32 (``on_grid``)."""
     sx, px, scx = encoding.encode(x, cfg)
     sw, pw, scw = encoding.encode(w, cfg)
     noise = _moment_noise(key, x.shape[0], w.shape[1], x.device)
-    out = sc_mac_kernel.sc_mac_fused(sx * px, sw * pw, noise, nbit=cfg.nbit)
+    out = sc_mac_kernel.sc_mac_fused(
+        sx * px, sw * pw, noise, nbit=cfg.nbit,
+        on_grid=cfg.quantize and cfg.operand_bits <= 10,
+    )
     return out * (scx * scw)
 
 

@@ -9,12 +9,18 @@ where JAX is not installed:
 Classes: ``sc_fused`` and ``sc_mul_popcount`` totals bit-equal (and the
 ``pallas_bitexact`` backend on the packed kernel equal to ``pallas_fused``
 and to the CPU); attention outputs within 1e-5 in float32; the moment
-kernels (``sc_mac_fused`` and its in-kernel-noise twin) within 1e-5 of
-max |out| of their plain versions (float32 sums in another order); a
+kernels (``sc_mac_fused`` and its in-kernel-noise twin, 3xTF32 on the
+tensor cores) within 1e-5 of max |out| of their plain versions (float32
+sums in another order), on and off the operand grid, with the tied
+unembed's K-major weight taken without a copy, and bit-equal from launch
+to launch at a split-K shape (one ``sc_mac_fused`` and one
+``sc_mac_reduce`` count per call); a
 tiny model served on the card and on the CPU gives the same greedy
 tokens (also on the ``tiny`` faulty device), and trains to the same
 losses within 1e-4.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -143,6 +149,113 @@ def test_sc_mac_kernels_match_plain(cuda, m, k, n):
     want = km.sc_mac_fused_prng_plain(seed, x, w, nbit=256)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def _grid_operands(m, k, n, device, seed=0):
+    """Signed probabilities on the 10-bit operand grid (exact in TF32)."""
+    rng = np.random.default_rng(seed)
+
+    def grid(shape):
+        v = np.round(rng.uniform(-1, 1, shape) * 1024) / 1024
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    z = torch.tensor(rng.standard_normal((m, n)), dtype=torch.float32,
+                     device=device)
+    return grid((m, k)), grid((k, n)), z
+
+
+@pytest.mark.parametrize(
+    "m,k,n", [(5, 37, 300), (130, 520, 7), (64, 896, 128), (512, 896, 896)]
+)
+def test_sc_mac_kernel_on_grid_operands_matches_plain(cuda, m, k, n):
+    x, w, z = _grid_operands(m, k, n, cuda, m + n)
+    before = cuda_lib.launches["sc_mac_fused"]
+    got = km.sc_mac_fused(x, w, z, nbit=1024, on_grid=True)
+    assert cuda_lib.launches["sc_mac_fused"] == before + 1
+    want = km.sc_mac_fused_plain(x, w, z, nbit=1024)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_sc_mac_takes_the_tied_unembed_weight_without_a_copy(cuda):
+    x, table, z = _grid_operands(64, 896, 1000, cuda, 7)
+    table = table.T.contiguous()  # (vocab, d_model), as the embedding
+    w = table.T  # the K-major view models/layers.py:unembed passes
+    x4, w4, kmajor = km.tma_operands(x, w)
+    assert kmajor and w4.data_ptr() == table.data_ptr()
+    got = km.sc_mac_fused(x, w, z, nbit=1024, on_grid=True)
+    want = km.sc_mac_fused_plain(x, w.contiguous(), z, nbit=1024)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_sc_mac_split_k_is_deterministic_and_counted(cuda):
+    m, k, n = 512, 4864, 896  # mlp_wo: 56 tiles, split over K
+    splits, _ = km.sc_mac_plan(m, n, k)
+    assert splits > 1
+    x, w, z = _grid_operands(m, k, n, cuda, 3)
+    fused, red = (cuda_lib.launches[k_] for k_ in
+                  ("sc_mac_fused", "sc_mac_reduce"))
+    a = km.sc_mac_fused(x, w, z, nbit=1024, on_grid=True)
+    b = km.sc_mac_fused(x, w, z, nbit=1024, on_grid=True)
+    assert torch.equal(a, b)
+    assert cuda_lib.launches["sc_mac_fused"] == fused + 2
+    assert cuda_lib.launches["sc_mac_reduce"] == red + 2
+    seed = torch.tensor([5], dtype=torch.int32)
+    a = km.sc_mac_fused_prng(seed, x, w, nbit=1024)
+    assert torch.equal(a, km.sc_mac_fused_prng(seed, x, w, nbit=1024))
+    want = km.sc_mac_fused_prng_plain(seed, x, w, nbit=1024)
+    assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # tiles that fill the card still split a deep K, within the contract
+    x, w, z = _grid_operands(1024, 4864, 2048, cuda, 5)
+    assert km.sc_mac_plan(1024, 2048, 4864)[0] == 3
+    red = cuda_lib.launches["sc_mac_reduce"]
+    got = km.sc_mac_fused(x, w, z, nbit=1024)
+    assert cuda_lib.launches["sc_mac_reduce"] == red + 1
+    want = km.sc_mac_fused_plain(x, w, z, nbit=1024)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # a grid the tiles fill alone launches no reduction
+    x, w, z = _grid_operands(512, 64, 4224, cuda, 4)
+    assert km.sc_mac_plan(512, 4224, 64)[0] == 1
+    red = cuda_lib.launches["sc_mac_reduce"]
+    km.sc_mac_fused(x, w, z, nbit=1024, on_grid=True)
+    assert cuda_lib.launches["sc_mac_reduce"] == red
+
+
+@pytest.mark.parametrize("on_grid", [True, False])
+@pytest.mark.parametrize("x_side", [False, True])
+def test_sc_mac_keeps_the_variance_where_p_minus_p2_cancels(cuda, on_grid,
+                                                            x_side):
+    """|x| = 1 against |w| = 1023/1024 (or the other way round): every
+    pair leaves 1023/1024^2 of p - p2, so a lost low part of a square (x^2
+    in shared memory or w^2 in registers) shows in the sd, which unit
+    noise minus zero noise isolates (rtol 1e-3: float32 ulps of the mean).
+    K = 4864 at 2 output tiles takes the split-K route."""
+    m, k, n = 64, 4864, 256
+    rng = np.random.default_rng(11)
+
+    def signs(shape, mag):
+        v = np.where(rng.random(shape) < 0.5, -mag, mag).astype(np.float32)
+        return torch.tensor(v, device=cuda)
+
+    near = 1023 / 1024
+    x = signs((m, k), near if x_side else 1.0)
+    w = signs((k, n), 1.0 if x_side else near)
+    assert km.sc_mac_plan(m, n, k)[0] > 1
+    ones = torch.ones((m, n), device=cuda)
+    sd = (km.sc_mac_fused(x, w, ones, nbit=1024, on_grid=on_grid)
+          - km.sc_mac_fused(x, w, ones * 0, nbit=1024, on_grid=on_grid))
+    want = math.sqrt(k * near * (1 / 1024) / 1024)
+    torch.testing.assert_close(sd, torch.full_like(sd, want), rtol=1e-3,
+                               atol=0)
+
+
+def test_sc_mac_reduce_kernel_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    parts = torch.rand((5, 2, 70, 33), generator=gen, device=cuda)
+    z = torch.randn((70, 33), generator=gen, device=cuda)
+    for kw in (dict(noise=z), dict(seed=11)):
+        got = km.sc_mac_reduce(parts, nbit=64, **kw)
+        want = km.sc_mac_reduce_plain(parts, nbit=64, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_tiny_model_trains_to_the_same_losses_on_card_and_cpu(cuda, tmp_path):
