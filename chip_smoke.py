@@ -12,7 +12,13 @@ code is non-zero):
 2. each kernel against its plain PyTorch version on the card at the
    main paths' shapes (kernel 4 also at every size phase V launches;
    ``sc_fused`` and ``sc_mul_popcount`` bit-equal; both paged-attention
-   kernels within 1e-5 in float32; both moment kernels and the moment
+   kernels within 1e-5 in float32 and bit-equal over two launches at
+   phase A's decode and prefill shapes, over a 1,024-token cache and
+   with A's decode rows in that 64-page table, the SC one's logits pass
+   bit-equal to the plain logits, each with the device ms and kernels
+   of one traced call and the work of each of its passes counted on the
+   card, equal to the plan's count (at A's decode at least one logits
+   block an SM); both moment kernels and the moment
    kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
    noise's mean and variance, and two launches of the moment kernel
    bit-equal), with its median time, the plain version's time, the
@@ -26,7 +32,9 @@ code is non-zero):
 3. serve phase A: qwen2-0.5b at full width, depth cut to ``--layers``
    (default 2), bf16, random weights from seed 0, ``pallas_bitexact``
    (the fused SC matmul kernel) with ``fused_sc`` attention at
-   nbit 1024: two greedy requests through ``build_engine``;
+   nbit 1024: two greedy requests through ``build_engine``; decode
+   tick 3 under ``torch.profiler``: the SC attention kernels' device
+   time and launches, which must be the plan's per call;
 4. serve phase B: phase A's model with ``paged_attn="fused"``, one slot,
    one request;
 5. the tiny parity-test configuration served on the card and on the CPU
@@ -371,8 +379,19 @@ def check_sc_fused(rates: dict) -> dict:
     return rows
 
 
-def _attn_inputs(rng, sc: int, dtype=torch.float32):
-    b, h, kvh, hd, bs, nb = 2, 14, 2, 64, 16, 4
+# Kernels 2 and 3 at phase A's decode and prefill shapes, over a
+# 1,024-token cache, and phase A's decode rows in that 64-page table
+# (most of its positions masked): (name, sc, lengths, pages a row).
+ATTN_CASES = (
+    ("decode", 1, (15, 11), 4),
+    ("prefill", 8, (8, 0), 4),
+    ("long", 1, (1023, 700), 64),
+    ("sparse", 1, (15, 11), 64),
+)
+
+
+def _attn_inputs(rng, sc: int, lengths, nb: int, dtype=torch.float32):
+    b, h, kvh, hd, bs = 2, 14, 2, 64, 16
     n_pages = 1 + b * nb
     dev = "cuda"
     kp = torch.tensor(rng.normal(size=(n_pages, bs, kvh, hd)), dtype=dtype)
@@ -380,7 +399,6 @@ def _attn_inputs(rng, sc: int, dtype=torch.float32):
     q = torch.tensor(rng.normal(size=(b, sc, h, hd)), dtype=dtype)
     perm = rng.permutation(np.arange(1, n_pages))[: b * nb]
     bt = torch.tensor(perm.reshape(b, nb), dtype=torch.int32)
-    lengths = [15, 11] if sc == 1 else [8, 0]
     ln = torch.tensor(lengths, dtype=torch.int32)
     keys = rng.integers(0, 2**32, (b, sc, 2), dtype=np.uint64)
     keys = torch.tensor(keys.astype(np.uint32))
@@ -403,50 +421,116 @@ def _live_pairs(q, ln) -> int:
     return h * sum(int(n) + i + 1 for n in ln for i in range(sc))
 
 
+def _attn_trace(fn, launches: int) -> dict:
+    """One call under the profiler: the device ms and launches of the
+    attention kernels (``paged_attn_*``) and of everything it ran.  In
+    this script's process a trace has at times missed the call's first
+    kernel (the long SC call's logits pass, the split pass of the exact
+    one over the sparse table); traced in a process of its own
+    (``tools/paged_attention_bench.py``) the calls have always shown
+    every kernel.  So the call is traced up to three times, and where
+    no trace holds the plan's ``launches`` the device ms is None (not
+    measured), not the sum of what it holds."""
+    for attempt in range(1, 4):
+        _, tr = device_trace(fn)
+        ms, n = kernel_ms(tr, "paged_attn_")
+        if n == launches:
+            break
+    return dict(
+        device_ms=ms if n == launches else None,
+        device_launches=n,
+        traces=attempt,
+        all_device_ms=tr["device_ms"],
+        all_launches=sum(c for _, c in tr["kernels"].values()),
+        by_kernel={k[:40]: [round(v, 4), c] for k, (v, c) in
+                   tr["kernels"].items() if "paged_attn_" in k},
+    )
+
+
+def _attn_work(plan, lengths, count, case: str, name: str) -> dict:
+    """The work one call did on the card (``paged_attention_work``'s
+    counters) beside the plan's count of it, which it must equal; at
+    phase A's decode shape the SC logits must come from at least as many
+    blocks as the card has SMs."""
+    want = plan.live_blocks(lengths)
+    got = count()
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"{name} {case}: {got} on the card, "
+                                 f"{want} planned")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if case == "decode" and plan.logit_threads and not (
+            got["logit_blocks"] >= sms):
+        raise AssertionError(f"{name} decode: {got['logit_blocks']} "
+                             "logits-pass blocks did work")
+    return dict(card_work=got, plan_work=want)
+
+
 def check_attention(rates: dict) -> dict:
+    """Kernels 2 and 3 against their plain versions (float32, 1e-5) at
+    ``ATTN_CASES``: the wrapper's median CUDA-event ms, the device ms and
+    launches of one traced call, the bound, the plain version's time
+    (the SC one run once), SDPA on the gathered view beside kernel 2,
+    and the work of each pass counted on the card in one more call
+    (``paged_attention_work``), which must equal the plan's count;
+    two launches of each kernel bit-equal."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import attention
 
     rng = np.random.default_rng(2)
     nbit = 1024
     out = {"paged_attention_fused": {}, "paged_attention_fused_sc": {}}
-    for sc in (1, 8):
-        keys, q, kp, vp, bt, ln = _attn_inputs(rng, sc)
-        hd = q.shape[-1]
+    for case, sc, lengths, nb in ATTN_CASES:
+        keys, q, kp, vp, bt, ln = _attn_inputs(rng, sc, lengths, nb)
+        b, _, h, hd = q.shape
+        kvh, bs = kp.shape[2], kp.shape[1]
         bytes_ = _attn_bytes(q, kp, bt, ln)
         pairs = _live_pairs(q, ln)
+        shape = dict(case=case, sc=sc, lengths=list(lengths), nb=nb)
 
         # exact QK^T
-        got = pa.paged_attention_fused(q, kp, vp, bt, ln)
+        kern = (lambda: pa.paged_attention_fused(q, kp, vp, bt, ln))
+        got = kern()
         ref = pa.paged_attention_fused_plain(q, kp, vp, bt, ln)
         err = float((got - ref).abs().max())
         if not err <= 1e-5:
-            raise AssertionError(f"paged_attention_fused sc={sc}: {err}")
+            raise AssertionError(f"paged_attention_fused {case}: {err}")
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"paged_attention_fused {case}: launches "
+                                 "differ")
         plain_ms = time_ms(
             lambda: pa.paged_attention_fused_plain(q, kp, vp, bt, ln), 10
         )
-        ms = time_ms(lambda: pa.paged_attention_fused(q, kp, vp, bt, ln), 20)
+        ms = time_ms(kern, 20)
         flops = 4 * pairs * hd
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS
         bound = max(t_bytes, t_ops) * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
-        lib_ms = _sdpa_ms(q, kp, vp, bt, ln, attention)
+        plan = pa.paged_attention_plan(b, kvh, h // kvh * sc, sc, hd, nb, bs)
         rec = dict(
-            sc=sc,
+            **shape,
             max_abs_err=err,
             ms=ms,
             plain_ms=plain_ms,
             bound_ms=bound,
             bound_by=by,
-            library_ms=lib_ms,
+            library_ms=_sdpa_ms(q, kp, vp, bt, ln, attention),
             bytes=bytes_,
+            splits=plan.splits,
+            pages_per_split=plan.pages_per_split,
+            **_attn_work(plan, lengths,
+                         lambda: pa.paged_attention_work(q, kp, vp, bt, ln),
+                         case, "paged_attention_fused"),
+            **_attn_trace(kern, plan.launches),
         )
-        out["paged_attention_fused"][sc] = rec
+        out["paged_attention_fused"][case] = rec
         emit("kernel_check", kernel="paged_attention_fused", **rec)
 
         # SC-sampled QK^T
         kw = dict(nbit=nbit)
-        got = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, **kw)
+        kern = (lambda: pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln,
+                                                    **kw))
+        got = kern()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref = pa.paged_attention_fused_sc_plain(keys, q, kp, vp, bt, ln, **kw)
@@ -454,26 +538,47 @@ def check_attention(rates: dict) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = float((got - ref).abs().max())
         if not err <= 1e-5:
-            raise AssertionError(f"paged_attention_fused_sc sc={sc}: {err}")
-        ms = time_ms(
-            lambda: pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, **kw),
-            5,
-        )
+            raise AssertionError(f"paged_attention_fused_sc {case}: {err}")
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"paged_attention_fused_sc {case}: "
+                                 "launches differ")
+        logits = pa.sc_logits(keys, q, kp, bt, ln, **kw)
+        want = pa.sc_logits_plain(keys, q, kp, bt, ln, **kw)
+        if not torch.equal(logits, want):
+            raise AssertionError(f"sc logits {case}: not bit-equal")
+        ms = time_ms(kern, 5)
         bound_s = int_bound_s(pairs * hd, nbit, rates)
         bound = max(bound_s, bytes_ / HBM_BYTES_PER_S) * 1e3
+        plan = pa.paged_attention_plan(b, kvh, h // kvh * sc, sc, hd, nb, bs,
+                                       nbit)
         rec = dict(
-            sc=sc,
+            **shape,
             max_abs_err=err,
+            logits_bit_equal=True,
             ms=ms,
             plain_ms=plain_ms,
             bound_ms=bound,
             bound_by="operations",
             library_ms=None,
             sc_muls=pairs * hd,
+            splits=plan.splits,
+            pages_per_split=plan.pages_per_split,
+            **_attn_work(plan, lengths,
+                         lambda: pa.paged_attention_work(q, kp, vp, bt, ln,
+                                                         keys, **kw),
+                         case, "paged_attention_fused_sc"),
+            **_attn_trace(kern, plan.launches),
         )
-        out["paged_attention_fused_sc"][sc] = rec
+        out["paged_attention_fused_sc"][case] = rec
         emit("kernel_check", kernel="paged_attention_fused_sc", **rec)
     return out
+
+
+def _by_shape(recs: dict) -> dict:
+    """The kernels line's per-shape numbers of one attention kernel."""
+    keys = ("ms", "device_ms", "device_launches", "bound_ms", "plain_ms",
+            "library_ms", "max_abs_err", "card_work")
+    return {case: {k: r[k] for k in keys} for case, r in recs.items()}
 
 
 def _sdpa_ms(q, kp, vp, bt, ln, attention) -> float:
@@ -897,6 +1002,37 @@ def serve_phase(name, cfg, opts, prompts, max_new, params, expect,
     return counts, tick_ms, eng, trace
 
 
+A_TRACED_TICK = 3  # a decode tick of phase A (both requests decoding)
+
+
+def attention_trace(trace, cfg, opts, name: str) -> dict:
+    """The SC attention kernels of a traced decode tick: device ms and
+    launches, and the launches of one call (one call a layer), which
+    must be the plan's."""
+    from repro_torch.kernels import paged_attention as pa
+
+    ms, n = kernel_ms(trace, "paged_attn_")
+    kvh = cfg.n_kv_heads
+    plan = pa.paged_attention_plan(
+        opts.slots, kvh, cfg.n_heads // kvh, 1, cfg.resolved_head_dim,
+        -(-opts.max_len // opts.block_size), opts.block_size, cfg.sc_nbit,
+    )
+    rec = dict(
+        tick=A_TRACED_TICK,
+        host_ms=trace["wall_ms"],
+        device_ms=trace["device_ms"],
+        attention_ms=ms,
+        attention_launches=n,
+        launches_per_call=n / cfg.n_layers,
+        plan_launches=plan.launches,
+        top=_top(trace),
+    )
+    emit(name, **rec)
+    if n != plan.launches * cfg.n_layers:
+        raise AssertionError(f"{name}: {n} attention launches in the tick")
+    return rec
+
+
 def unembed_ms(params, cfg, rows: int) -> float:
     """One tied-unembed SC matmul at a tick's row count."""
     from repro_torch.models import layers
@@ -1112,7 +1248,7 @@ def faulty_serve_phase(params, cfg, prompts) -> dict:
     # host, so the idle share is taken against the untraced decode ticks
     decode_ms = float(np.median(untraced[2:]))
     busy = tr["device_ms"]
-    attn_ms, attn_n = kernel_ms(tr, "paged_attn_kernel")
+    attn_ms, attn_n = kernel_ms(tr, "paged_attn_")
     out["trace"] = dict(
         tick=D_TRACED_TICK,
         host_ms=tr["wall_ms"],
@@ -1123,6 +1259,7 @@ def faulty_serve_phase(params, cfg, prompts) -> dict:
         powers_ms=tr["ranges_ms"]["array.powers"],
         attention_ms=attn_ms,
         attention_launches=attn_n,
+        attention_launches_per_call=attn_n / eng.cfg.n_layers,
         top=_top(tr),
     )
     emit("serve_d_trace", **out["trace"])
@@ -1374,7 +1511,7 @@ def main(argv=None) -> int:
     opts = ServeOptions(
         paged=True, slots=2, block_size=16, prefill_chunk=8, max_len=64
     )
-    counts_a, ticks_a, _, _ = serve_phase(
+    counts_a, ticks_a, _, trace_a = serve_phase(
         "serve_a",
         cfg,
         opts,
@@ -1382,13 +1519,19 @@ def main(argv=None) -> int:
         4,
         params,
         ("sc_fused", "paged_attention_fused_sc"),
+        traced_tick=A_TRACED_TICK,
     )
+    attention_trace(trace_a, cfg, opts, "serve_a_trace")
+    # the untraced decode ticks (ticks 0 and 1 prefill the prompts)
+    decode_a = float(np.median(
+        [t for i, t in enumerate(ticks_a) if i >= 2 and i != A_TRACED_TICK]
+    ))
     un_ms = unembed_ms(params, cfg, opts.slots)
     emit(
         "serve_a_unembed",
         unembed_ms=un_ms,
-        median_tick_ms=float(np.median(ticks_a)),
-        unembed_share=un_ms / float(np.median(ticks_a)),
+        median_tick_ms=decode_a,
+        unembed_share=un_ms / decode_a,
     )
     counts_b, _, _, _ = serve_phase(
         "serve_b",
@@ -1419,8 +1562,8 @@ def main(argv=None) -> int:
         for k in set().union(*serving)
     }
     mlp = fused["mlp_wi"]
-    fa = attn["paged_attention_fused"][1]
-    fs = attn["paged_attention_fused_sc"][1]
+    fa = attn["paged_attention_fused"]["decode"]
+    fs = attn["paged_attention_fused_sc"]["decode"]
     kernels = [
         dict(
             name="sc_fused",
@@ -1444,11 +1587,18 @@ def main(argv=None) -> int:
             launches=launches.get("paged_attention_fused", 0),
             max_abs_err=fa["max_abs_err"],
             ms=fa["ms"],
+            device_ms=fa["device_ms"],
             plain_ms=fa["plain_ms"],
             bound_ms=fa["bound_ms"],
             bound_by=fa["bound_by"],
             library_ms=fa["library_ms"],
-            shape="b=2 sc=1 h=14 kvh=2 hd=64 bs=16 f32",
+            shape="b=2 sc=1 lengths 15/11 h=14 kvh=2 hd=64 bs=16 f32 "
+            "(phase A's decode); by_shape: decode, prefill (sc=8, 8/0), "
+            "long (sc=1, 1023/700, 64 pages) and sparse (sc=1, 15/11, "
+            "64 pages); ms is a wrapper call (CUDA events), device_ms its "
+            "kernels in one traced call, card_work the work its passes "
+            "counted on the card",
+            by_shape=_by_shape(attn["paged_attention_fused"]),
         ),
         dict(
             name="paged_attention_fused_sc",
@@ -1458,11 +1608,14 @@ def main(argv=None) -> int:
             launches=launches.get("paged_attention_fused_sc", 0),
             max_abs_err=fs["max_abs_err"],
             ms=fs["ms"],
+            device_ms=fs["device_ms"],
             plain_ms=fs["plain_ms"],
             bound_ms=fs["bound_ms"],
             bound_by="operations",
             library_ms=None,
-            shape="b=2 sc=1 h=14 kvh=2 hd=64 bs=16 nbit=1024 f32",
+            shape="b=2 sc=1 lengths 15/11 h=14 kvh=2 hd=64 bs=16 nbit=1024 "
+            "f32 (phase A's decode); by_shape as paged_attention_fused",
+            by_shape=_by_shape(attn["paged_attention_fused_sc"]),
         ),
         dict(
             name="sc_mul_popcount",

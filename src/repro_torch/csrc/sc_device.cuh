@@ -50,6 +50,26 @@ __device__ __forceinline__ uint32_t threefry2x32_x0(uint32_t k0, uint32_t k1,
   return x0;
 }
 
+// Threefry-2x32, 20 rounds, both output words: the key split of
+// ctr_rng.split (a key's i-th child is threefry2x32(key, (0, i))).
+__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
+                                              uint32_t c0, uint32_t c1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = c0 + k0;
+  uint32_t x1 = c1 + k1;
+  REPRO_TF_ROUND(13) REPRO_TF_ROUND(15) REPRO_TF_ROUND(26) REPRO_TF_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  REPRO_TF_ROUND(17) REPRO_TF_ROUND(29) REPRO_TF_ROUND(16) REPRO_TF_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  REPRO_TF_ROUND(13) REPRO_TF_ROUND(15) REPRO_TF_ROUND(26) REPRO_TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  REPRO_TF_ROUND(17) REPRO_TF_ROUND(29) REPRO_TF_ROUND(16) REPRO_TF_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  REPRO_TF_ROUND(13) REPRO_TF_ROUND(15) REPRO_TF_ROUND(26) REPRO_TF_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+  return make_uint2(x0, x1);
+}
+
 #undef REPRO_TF_ROUND
 
 // |probability| -> 16-bit bias word: optional clamped grid round
@@ -78,26 +98,34 @@ __device__ __forceinline__ uint32_t horner_step(uint32_t t, uint32_t u,
   return ((p >> s) & 1u) ? (u | t) : (u & t);
 }
 
-// Surviving cells of one SC MUL: nwords packed words per operand, each
-// drawn over 16 ladder slices from the operand's own key, counter
+// Surviving cells of word w of one SC MUL: the word is drawn over 16
+// ladder slices from each operand's own key at counter
 // (c0, s * nwords + w); the two ladders AND (two-pulse write) and
-// pop-count.  About 2 * 16 * nwords Threefry calls, ~80 integer
-// instructions each: this loop is what bounds every SC kernel.
+// pop-count.  2 * 16 Threefry calls, ~80 integer instructions each.
+__device__ __forceinline__ int32_t sc_mul_word(uint32_t kx0, uint32_t kx1,
+                                               uint32_t ky0, uint32_t ky1,
+                                               uint32_t c0, uint32_t px,
+                                               uint32_t py, int w,
+                                               int nwords) {
+  uint32_t tx = 0u, ty = 0u;
+#pragma unroll
+  for (int s = 0; s < kNSlices; ++s) {
+    const uint32_t c1 = static_cast<uint32_t>(s * nwords + w);
+    tx = horner_step(tx, threefry2x32_x0(kx0, kx1, c0, c1), px, s);
+    ty = horner_step(ty, threefry2x32_x0(ky0, ky1, c0, c1), py, s);
+  }
+  return __popc(tx & ty);
+}
+
+// Surviving cells of one SC MUL: its nwords packed words.  This loop is
+// what bounds every SC kernel.
 __device__ __forceinline__ int32_t sc_mul_count(uint32_t kx0, uint32_t kx1,
                                                 uint32_t ky0, uint32_t ky1,
                                                 uint32_t c0, uint32_t px,
                                                 uint32_t py, int nwords) {
   int32_t cnt = 0;
-  for (int w = 0; w < nwords; ++w) {
-    uint32_t tx = 0u, ty = 0u;
-#pragma unroll
-    for (int s = 0; s < kNSlices; ++s) {
-      const uint32_t c1 = static_cast<uint32_t>(s * nwords + w);
-      tx = horner_step(tx, threefry2x32_x0(kx0, kx1, c0, c1), px, s);
-      ty = horner_step(ty, threefry2x32_x0(ky0, ky1, c0, c1), py, s);
-    }
-    cnt += __popc(tx & ty);
-  }
+  for (int w = 0; w < nwords; ++w)
+    cnt += sc_mul_word(kx0, kx1, ky0, ky1, c0, px, py, w, nwords);
   return cnt;
 }
 

@@ -161,3 +161,147 @@ def test_wrappers_validate_shapes_and_keys():
         tpa.paged_attention_fused_sc(_t(keys[:, :, :1]), *args, nbit=64)
     with pytest.raises(ValueError, match="32 cells"):
         tpa.paged_attention_fused_sc(_t(keys), *args, nbit=40)
+
+
+# ---------------------------------------------------------------------------
+# The card's decomposition: the plan and the split-and-combine mirror
+# ---------------------------------------------------------------------------
+
+_PLAN_CASES = {
+    # name: (b, kvh, rows, sc, hd, nb, bs, nbit, lengths)
+    "phase_a_decode": (2, 2, 7, 1, 64, 4, 16, 1024, [15, 11]),
+    "phase_a_prefill": (2, 2, 56, 8, 64, 4, 16, 1024, [8, 0]),
+    "long_context": (2, 2, 7, 1, 64, 64, 16, 1024, [1023, 700]),
+    "ragged_chunk": (3, 2, 12, 3, 8, 3, 4, 64, [0, 4, 9]),
+    "many_tiles": (1, 2, 40, 5, 64, 40, 4, 0, [150]),
+    "past_the_table": (2, 2, 4, 2, 8, 3, 4, 0, [11, 30]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_CASES))
+def test_paged_attention_plan_splits_cover_each_rows_live_pages(name):
+    b, kvh, rows, sc, hd, nb, bs, nbit, lengths = _PLAN_CASES[name]
+    plan = tpa.paged_attention_plan(b, kvh, rows, sc, hd, nb, bs, nbit)
+    assert plan.splits * plan.pages_per_split >= nb
+    assert (plan.splits - 1) * plan.pages_per_split < nb
+    tiles = {}
+    for bi, length in enumerate(lengths):
+        for r in range(rows):
+            last = min(nb * bs - 1, length + r % sc) // bs
+            splits = plan.row_splits(length, r)
+            assert len(splits) <= plan.splits
+            # contiguous, non-empty, exactly the row's live pages
+            pages = [p for lo, hi in splits for p in range(lo, hi)]
+            assert pages == list(range(last + 1))
+            assert all(lo < hi for lo, hi in splits)
+            assert all(lo % plan.pages_per_split == 0 for lo, _ in splits)
+            key = (bi, r // tpa.ROW_TILE)
+            tiles[key] = max(tiles.get(key, 0), len(splits))
+    live = plan.live_blocks(lengths)
+    # a split block works when a row of its tile merges that split
+    assert live["split"] == kvh * sum(tiles.values())
+    want_logits = sum(
+        min(nb * bs, n + r % sc + 1) for n in lengths for r in range(rows)
+    )
+    assert live["logits"] == (kvh * want_logits if nbit else 0)
+    assert plan.launches == (nbit > 0) + 1 + (plan.splits > 1)
+
+
+def test_paged_attention_plan_fills_the_card():
+    """Phase A's decode tick (2 rows of 15 and 11 positions, 14 heads)
+    gives the SC logits pass 392 live logits, the first units in launch
+    order (so each lands in a block of its own); a 1,024-token cache
+    gives the softmax pass a block per 2 pages."""
+    plan = tpa.paged_attention_plan(2, 2, 7, 1, 64, 4, 16, 1024)
+    assert plan.live_blocks([15, 11])["logits"] == 392 >= tpa.NUM_SMS
+    assert plan.logit_threads == tpa.MAX_LOGIT_THREADS
+    plan = tpa.paged_attention_plan(2, 2, 7, 1, 64, 64, 16, 1024)
+    assert plan.pages_per_split == 2 and plan.splits == 32
+    assert plan.live_blocks([1023, 700])["split"] == 2 * (32 + 22)
+
+
+@pytest.mark.parametrize(
+    "hd,dtype,offset",
+    [(4, torch.bfloat16, 0), (6, torch.float32, 0), (8, torch.float32, 1)],
+)
+def test_kernel_launch_refuses_kv_rows_off_16_bytes(hd, dtype, offset):
+    """The split pass reads K/V rows in 16-byte loads: a row of hd
+    elements that is not a multiple of 16 bytes, or a pool that does not
+    start on 16 bytes, is refused before anything is built or launched
+    (the wrappers run the plain versions for CPU tensors, so the launch
+    helper is called directly)."""
+    b, sc, h, kvh, bs, nb = 1, 1, 2, 1, 4, 2
+    q = torch.zeros((b, sc, h, hd), dtype=dtype)
+    n = (b * nb + 1) * bs * kvh * hd
+    pool = torch.zeros(n + offset, dtype=dtype)[offset:]
+    kp = pool.view(b * nb + 1, bs, kvh, hd)
+    bt = torch.tensor([[1, 2]], dtype=torch.int32)
+    ln = torch.tensor([3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tpa._launch(q, kp, kp, bt, ln, None)
+
+
+_SPLIT_CASES = {
+    # name: (bs, sc, nb, lengths); b = len(lengths), h = 4, kvh = 2, hd = 8
+    "bs4_sc1": (4, 1, 3, None),
+    "bs8_sc3": (8, 3, 3, None),
+    "bs4_sc3": (4, 3, 3, None),
+    "many_pages": (4, 2, 40, [150, 77]),
+}
+
+
+@pytest.mark.parametrize("sc_logits", [False, True])
+@pytest.mark.parametrize("name", sorted(_SPLIT_CASES))
+def test_split_and_combine_plain_matches_pallas_kernels(name, sc_logits):
+    """The kernels' decomposition (per-split max, denominator and
+    accumulator over the plan's splits, merged in split order) against
+    the reference's Pallas kernels in interpret mode."""
+    bs, sc, nb, lengths = _SPLIT_CASES[name]
+    b = 3 if lengths is None else len(lengths)
+    q, kp, vp, bt, ln, keys = _case(40 + bs + sc, b=b, sc=sc, h=4, kvh=2,
+                                    hd=8, bs=bs, nb=nb)
+    if lengths is not None:
+        ln = np.array(lengths, np.int32)
+    plan = tpa.paged_attention_plan(b, 2, 2 * sc, sc, 8, nb, bs)
+    assert plan.splits > 1
+    if sc_logits:
+        want = jpa.paged_attention_fused_sc(
+            *map(jnp.asarray, (keys, q, kp, vp, bt, ln)), nbit=_NBIT,
+            block_q=4,
+        )
+        got = tpa.paged_attention_split_plain(
+            *map(_t, (q, kp, vp, bt, ln, keys)), nbit=_NBIT
+        )
+    else:
+        want = jpa.paged_attention_fused(
+            *map(jnp.asarray, (q, kp, vp, bt, ln)), block_q=4
+        )
+        got = tpa.paged_attention_split_plain(*map(_t, (q, kp, vp, bt, ln)))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5
+    )
+
+
+def test_sc_logits_plain_match_reference_logits_at_live_positions():
+    """The plain logits of a whole call (what the card's logits pass is
+    held to bit for bit) equal the reference's one-token twin at every
+    live (row, position), and are NEG_INF where the mask hides one."""
+    q, kp, _, bt, ln, keys = _case(23, b=3, sc=3, h=4, kvh=2, hd=8, bs=4,
+                                   nb=3)
+    got = tpa.sc_logits(*map(_t, (keys, q, kp, bt, ln)), nbit=_NBIT)
+    gathered = np.asarray(jattn.paged_gather(jnp.asarray(kp), bt))
+    t_len = gathered.shape[1]
+    for bi in range(3):
+        for r in range(6):  # rows layout: head kh*g + r // sc, offset r % sc
+            for kh in range(2):
+                head, i = kh * 2 + r // 3, r % 3
+                live = ln[bi] + i + 1
+                want = jpa.sc_qk_logits_host(
+                    jnp.asarray(keys[bi, i]), jnp.asarray(q[bi, i, head]),
+                    jnp.asarray(gathered[bi, :, kh]), np.arange(t_len),
+                    head, 4, nbit=_NBIT,
+                )
+                row = got[bi, kh, r].numpy()
+                np.testing.assert_array_equal(row[:live],
+                                              np.asarray(want)[:live])
+                assert (row[live:] == tpa.NEG_INF).all()

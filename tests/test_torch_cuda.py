@@ -8,7 +8,9 @@ where JAX is not installed:
 
 Classes: ``sc_fused`` and ``sc_mul_popcount`` totals bit-equal (and the
 ``pallas_bitexact`` backend on the packed kernel equal to ``pallas_fused``
-and to the CPU); attention outputs within 1e-5 in float32; the moment
+and to the CPU); the SC attention logits pass bit-equal to the plain
+logits, attention outputs within 1e-5 in float32 (also at a 64-page
+context) and bit-equal from launch to launch; the moment
 kernels (``sc_mac_fused`` and its in-kernel-noise twin, 3xTF32 on the
 tensor cores) within 1e-5 of max |out| of their plain versions (float32
 sums in another order), on and off the operand grid, with the tied
@@ -102,29 +104,113 @@ def test_pallas_bitexact_on_the_card_equals_fused_and_cpu(cuda):
     assert torch.equal(got.cpu(), sc.sc_dot(key, x, w, cfg))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sc", [1, 5])
-def test_paged_attention_kernels_match_plain(cuda, sc, dtype):
-    rng = np.random.default_rng(sc)
-    b, h, kvh, hd, bs, nb = 2, 6, 2, 64, 8, 3
+def _attn_case(rng, dtype, *, b, sc, h, kvh, hd, bs, nb, lengths):
     n_pages = 1 + b * nb
     kp = torch.tensor(rng.normal(size=(n_pages, bs, kvh, hd)), dtype=dtype)
     vp = torch.tensor(rng.normal(size=(n_pages, bs, kvh, hd)), dtype=dtype)
     q = torch.tensor(rng.normal(size=(b, sc, h, hd)), dtype=dtype)
     bt = torch.tensor(rng.permutation(np.arange(1, n_pages)).reshape(b, nb),
                       dtype=torch.int32)
-    ln = torch.tensor([0, bs * nb - sc], dtype=torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32)
     keys = _u32(rng, (b, sc, 2))
-    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in (keys, q, kp, vp, bt, ln))
+    return keys, q, kp, vp, bt, ln
+
+
+@pytest.mark.parametrize("nbit", [64, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sc", [1, 5])
+def test_paged_attention_kernels_match_plain(cuda, sc, dtype, nbit):
+    """Rows of length 0, of exactly one page, a chunk that crosses a
+    page boundary (ragged: its rows end on different pages), and one
+    that ends at the table's last position.  The SC logits pass equals
+    the plain logits bit for bit, masked entries included; two launches
+    of each kernel give the same bits."""
+    rng = np.random.default_rng(sc)
+    bs, nb = 8, 3
+    case = _attn_case(rng, dtype, b=4, sc=sc, h=6, kvh=2, hd=64, bs=bs,
+                      nb=nb, lengths=[0, bs - sc, 2 * bs - 2, bs * nb - sc])
+    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in case)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
+    _assert_work_as_planned(keys, q, kp, vp, bt, ln, nbit)
+    before = cuda_lib.launches["paged_attention_fused"]
     got = pa.paged_attention_fused(q, kp, vp, bt, ln)
+    assert cuda_lib.launches["paged_attention_fused"] == before + 1
     want = pa.paged_attention_fused_plain(q, kp, vp, bt, ln)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, pa.paged_attention_fused(q, kp, vp, bt, ln))
+    logits = pa.sc_logits(keys, q, kp, bt, ln, nbit=nbit)
+    assert torch.equal(
+        logits, pa.sc_logits_plain(keys, q, kp, bt, ln, nbit=nbit)
+    )
+    before = cuda_lib.launches["paged_attention_fused_sc"]
+    got = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, nbit=nbit)
+    assert cuda_lib.launches["paged_attention_fused_sc"] == before + 1
+    want = pa.paged_attention_fused_sc_plain(keys, q, kp, vp, bt, ln,
+                                             nbit=nbit)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, nbit=nbit)
+    assert torch.equal(got, again)
+
+
+def _assert_work_as_planned(keys, q, kp, vp, bt, ln, nbit):
+    """Each pass's work counted on the card equals the plan's count at
+    these lengths, for both kernels; each count is one launch."""
+    b, sc, h, hd = q.shape
+    kvh, bs, nb = kp.shape[2], kp.shape[1], bt.shape[1]
+    lengths = ln.tolist()
+    for k in (None, keys):
+        n = 0 if k is None else nbit
+        plan = pa.paged_attention_plan(b, kvh, h // kvh * sc, sc, hd, nb, bs,
+                                       n)
+        name = "paged_attention_fused" + ("" if k is None else "_sc")
+        before = cuda_lib.launches[name]
+        got = pa.paged_attention_work(q, kp, vp, bt, ln, k, nbit=n)
+        assert cuda_lib.launches[name] == before + 1
+        want = plan.live_blocks(lengths)
+        assert {key: got[key] for key in want} == want
+        if n:
+            assert 0 < got["logit_blocks"] <= got["logits"]
+        else:
+            assert got["logits"] == got["logit_blocks"] == 0
+
+
+def test_paged_attention_launch_refuses_kv_rows_off_16_bytes(cuda):
+    """A CUDA tensor launches the kernel or raises: K/V rows that do not
+    start on 16 bytes are refused, not read another way."""
+    rng = np.random.default_rng(3)
+    case = _attn_case(rng, torch.bfloat16, b=1, sc=1, h=2, kvh=1, hd=4,
+                      bs=4, nb=2, lengths=[3])
+    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in case)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pa.paged_attention_fused(q, kp, vp, bt, ln)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, nbit=64)
+
+
+@pytest.mark.parametrize("lengths", [[1023, 1000], [15, 11]])
+def test_paged_attention_kernels_at_long_context(cuda, lengths):
+    """qwen2-0.5b's heads over a 64-page table: long rows (lengths 1,023
+    and 1,000, many splits a row, merged in order) and short ones (most
+    of the table masked: the logits pass stops past the last live
+    position); float32 within 1e-5, the work as planned."""
+    rng = np.random.default_rng(7)
+    case = _attn_case(rng, torch.float32, b=2, sc=1, h=14, kvh=2, hd=64,
+                      bs=16, nb=64, lengths=lengths)
+    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in case)
+    plan = pa.paged_attention_plan(2, 2, 7, 1, 64, 64, 16, 64)
+    assert plan.splits > 1
+    _assert_work_as_planned(keys, q, kp, vp, bt, ln, 64)
+    got = pa.paged_attention_fused(q, kp, vp, bt, ln)
+    want = pa.paged_attention_fused_plain(q, kp, vp, bt, ln)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, pa.paged_attention_fused(q, kp, vp, bt, ln))
     got = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, nbit=64)
     want = pa.paged_attention_fused_sc_plain(keys, q, kp, vp, bt, ln,
                                              nbit=64)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    again = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, ln, nbit=64)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize(
