@@ -18,7 +18,8 @@ code is non-zero):
    bit-equal to the plain logits, each with the device ms and kernels
    of one traced call and the work of each of its passes counted on the
    card, equal to the plan's count (at A's decode at least one logits
-   block an SM); both moment kernels and the moment
+   block an SM), and over the 1,024-token cache a row's output at width
+   1 bit-equal to row 0 of a width-3 call; both moment kernels and the moment
    kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
    noise's mean and variance, and two launches of the moment kernel
    bit-equal), with its median time, the plain version's time, the
@@ -37,6 +38,20 @@ code is non-zero):
    time and launches, which must be the plan's per call;
 4. serve phase B: phase A's model with ``paged_attn="fused"``, one slot,
    one request;
+   serve phase P: phase A's model with prefix caching and speculative
+   decoding.  Three greedy requests sharing a 32-token prefix (one is
+   the prefix alone, so its adoption copies on write; the first is fed
+   past the prefix before the others arrive) under
+   ``rng_mode="content"`` with the cache off, then on: equal tokens,
+   at least 32 hit tokens, fewer prefill tokens, a copy-on-write.  Phase
+   A's prompts with ``speculative=True, spec_k=2`` (a ``moment`` draft
+   and a width-3 verify): tokens equal to phase A's; its first
+   speculative tick traced (kernel 3's launches per call and, counted
+   on the card, the verify call's work must be the plan's at width 3);
+   the cache and speculation together: tokens equal to the cache-on
+   run's; the ms of each draft and verify step; and one decode step at
+   width 1 against the same token as row 0 of a width-3 step: logits
+   and K/V bit-equal;
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
 6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
@@ -66,7 +81,7 @@ code is non-zero):
    tokens;
 10. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B, T, V and D and read
+Launch counts are reset just before phases A, B, P, T, V and D and read
 just after each; a kernel of a phase's path that did not launch fails
 the run.  Without a CUDA device the script exits non-zero before
 printing any result.
@@ -379,13 +394,19 @@ def check_sc_fused(rates: dict) -> dict:
     return rows
 
 
-# Kernels 2 and 3 at phase A's decode and prefill shapes, over a
-# 1,024-token cache, and phase A's decode rows in that 64-page table
-# (most of its positions masked): (name, sc, lengths, pages a row).
+P_SPEC_K = 2  # phase P's draft length: a verify chunk is 3 rows
+
+# Kernels 2 and 3 at phase A's decode and prefill shapes, at phase P's
+# speculative verify (a chunk of P_SPEC_K + 1 rows, each with its own
+# key), over a 1,024-token cache (one row at its end; a verify chunk
+# ending there), and phase A's decode rows in that 64-page table (most
+# of its positions masked): (name, sc, lengths, pages a row).
 ATTN_CASES = (
     ("decode", 1, (15, 11), 4),
     ("prefill", 8, (8, 0), 4),
+    ("verify", P_SPEC_K + 1, (15, 11), 4),
     ("long", 1, (1023, 700), 64),
+    ("long_verify", P_SPEC_K + 1, (1021, 700), 64),
     ("sparse", 1, (15, 11), 64),
 )
 
@@ -466,6 +487,31 @@ def _attn_work(plan, lengths, count, case: str, name: str) -> dict:
     return dict(card_work=got, plan_work=want)
 
 
+def _width_invariant(call, ln, rng, b: int, h: int, hd: int,
+                     name: str) -> bool:
+    """Every row of a width-3 verify chunk (random queries and per-row
+    keys) against a width-1 call of that row alone at its own length
+    (row i of a chunk starting at ``ln - 2`` sits at ``ln - 2 + i``)
+    over the same cache: the bits must be equal, as a speculative verify
+    needs.  ``call(q, keys, lengths)`` runs one kernel."""
+    w = P_SPEC_K + 1
+    dev = ln.device
+    q = torch.tensor(rng.normal(size=(b, w, h, hd)), dtype=torch.float32,
+                     device=dev)
+    keys = rng.integers(0, 2**32, (b, w, 2), dtype=np.uint64)
+    keys = torch.tensor(keys.astype(np.uint32), device=dev)
+    base = ln - (w - 1)
+    wide = call(q, keys, base)
+    for i in range(w):
+        one = call(q[:, i:i + 1].contiguous(), keys[:, i:i + 1].contiguous(),
+                   base + i)
+        if not torch.equal(one, wide[:, i:i + 1]):
+            diff = float((one - wide[:, i:i + 1]).abs().max())
+            raise AssertionError(f"{name}: row {i} of a width-{w} call and "
+                                 f"a width-1 call differ by {diff}")
+    return True
+
+
 def check_attention(rates: dict) -> dict:
     """Kernels 2 and 3 against their plain versions (float32, 1e-5) at
     ``ATTN_CASES``: the wrapper's median CUDA-event ms, the device ms and
@@ -523,6 +569,12 @@ def check_attention(rates: dict) -> dict:
                          case, "paged_attention_fused"),
             **_attn_trace(kern, plan.launches),
         )
+        if case == "long":
+            rec["width_invariant"] = _width_invariant(
+                lambda q_, _k, ln_: pa.paged_attention_fused(q_, kp, vp, bt,
+                                                             ln_),
+                ln, rng, b, h, hd, "paged_attention_fused",
+            )
         out["paged_attention_fused"][case] = rec
         emit("kernel_check", kernel="paged_attention_fused", **rec)
 
@@ -569,6 +621,12 @@ def check_attention(rates: dict) -> dict:
                          case, "paged_attention_fused_sc"),
             **_attn_trace(kern, plan.launches),
         )
+        if case == "long":
+            rec["width_invariant"] = _width_invariant(
+                lambda q_, k_, ln_: pa.paged_attention_fused_sc(
+                    k_, q_, kp, vp, bt, ln_, **kw),
+                ln, rng, b, h, hd, "paged_attention_fused_sc",
+            )
         out["paged_attention_fused_sc"][case] = rec
         emit("kernel_check", kernel="paged_attention_fused_sc", **rec)
     return out
@@ -947,18 +1005,30 @@ def _qwen_params(cfg, device):
 
 
 def serve(params, cfg, opts, prompts, max_new: int, device,
-          traced_tick=None, ranges=(), **build):
+          traced_tick=None, ranges=(), stagger=None, **build):
     """Serve ``prompts`` greedily to the end.  Returns (engine, tokens by
     request, host ms per tick, trace): tick ``traced_tick`` runs under
     the profiler (``device_trace`` with ``ranges``), else trace is None.
+    With ``stagger`` the first request is served alone until it has fed
+    that many tokens (or finished), so that the rest find its blocks
+    registered in the prefix cache.
     """
     from repro_torch.serve import Request, build_engine
 
     eng = build_engine(params, cfg, opts, device=device, **build)
-    for rid, prompt in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))
+    reqs = [Request(rid=rid, prompt=prompt, max_new_tokens=max_new)
+            for rid, prompt in enumerate(prompts)]
+    waiting = reqs[1:] if stagger else []
+    for r in reqs[:1] if stagger else reqs:
+        eng.submit(r)
     tick_ms, trace = [], None
-    while eng.scheduler.has_work():
+    while eng.scheduler.has_work() or waiting:
+        first = [s for s in eng.scheduler.rows
+                 if s is not None and s.req is reqs[0]]
+        if waiting and (reqs[0].done or first and first[0].fed >= stagger):
+            for r in waiting:
+                eng.submit(r)
+            waiting = []
         if len(tick_ms) == traced_tick:
             _, trace = device_trace(eng.step, ranges)
             tick_ms.append(trace["wall_ms"])
@@ -1072,6 +1142,221 @@ def cross_device() -> None:
     emit("cross_device", cuda=toks["cuda"], cpu=toks["cpu"])
     if toks["cuda"] != toks["cpu"]:
         raise AssertionError("greedy tokens differ between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# Phase P: prefix caching, content-chain keys and speculative decoding
+# ---------------------------------------------------------------------------
+
+P_PREFIX = 32  # two full 16-token blocks
+P_MAX_NEW = 4
+
+
+def _prefix_prompts(rng, vocab: int) -> list:
+    """Three prompts sharing a 32-token prefix: two longer, and the
+    prefix alone (a block multiple, whose adoption copies on write)."""
+    prefix = rng.integers(3, vocab, P_PREFIX).tolist()
+    tails = [rng.integers(3, vocab, n).tolist() for n in (2, 3)]
+    return [prefix + tails[0], prefix + tails[1], list(prefix)]
+
+
+class _StepTimer:
+    """Wraps ``lm.decode_paged`` while installed: the synced host ms of
+    each call, split into draft steps (the draft backend) and verify
+    steps (``all_logits``); and the arguments of the first SC attention
+    call of a verify step (for the card-work count)."""
+
+    def __init__(self, draft_backend: str):
+        from repro_torch.kernels import paged_attention as pa
+        from repro_torch.models import lm
+
+        self.lm, self.pa = lm, pa
+        self.draft_backend = draft_backend
+        self.draft_ms, self.verify_ms, self.verify_args = [], [], None
+        self._in_verify = False
+
+    def __enter__(self):
+        lm, pa = self.lm, self.pa
+        self._step, self._attn = lm.decode_paged, pa.paged_attention_fused_sc
+        timer = self
+
+        def step(*args, **kw):
+            timer._in_verify = bool(kw.get("all_logits"))
+            out, ms = _synced_ms(lambda: timer._step(*args, **kw))
+            timer._in_verify = False
+            if kw.get("all_logits"):
+                timer.verify_ms.append(ms)
+            elif args[6].sc_backend == timer.draft_backend:
+                timer.draft_ms.append(ms)
+            return out
+
+        def attn(keys, q, *rest, **kw):
+            if timer._in_verify and timer.verify_args is None:
+                timer.verify_args = (keys, q) + rest
+            return timer._attn(keys, q, *rest, **kw)
+
+        lm.decode_paged, pa.paged_attention_fused_sc = step, attn
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.decode_paged = self._step
+        self.pa.paged_attention_fused_sc = self._attn
+
+
+def width_check(params, cfg, prompt) -> dict:
+    """One decode step at width 1 and the same token as row 0 of a
+    width-3 ``all_logits`` step, from copies of one prefilled pool: the
+    logits and the K/V the row writes must be bit-equal (every per-row
+    step of the verify path is width-invariant: embedding, rms_norm,
+    RoPE, kernels 1 and 3)."""
+    from repro_torch.models import lm
+    from repro_torch.sc import ctr_rng
+
+    dev = "cuda"
+    n = len(prompt)
+    pages = lm.init_paged_cache(cfg, 5, 16, device=dev)
+    table = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
+    rng = ctr_rng.prng_key(5)[None].to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lm.decode_paged(params, pages, table,
+                    torch.tensor([prompt], **i32), torch.tensor([0], **i32),
+                    torch.tensor([n], **i32), cfg, rng=rng)
+    copy = {k: v.clone() for k, v in pages.items()}
+    tok = torch.tensor([[prompt[-1]]], **i32)
+    length = torch.tensor([n], **i32)
+    one, _ = lm.decode_paged(params, pages, table, tok, length,
+                             torch.tensor([1], **i32), cfg, rng=rng)
+    wide_tok = torch.tensor([[prompt[-1], 7, 9]], **i32)
+    wide, _ = lm.decode_paged(params, copy, table, wide_tok, length,
+                              torch.tensor([3], **i32), cfg, rng=rng,
+                              all_logits=True)
+    pos = (n // 16 + 1, n % 16)
+    rec = dict(
+        logits_bit_equal=bool(torch.equal(one, wide[:, 0])),
+        kv_bit_equal=all(
+            torch.equal(pages[k][:, pos[0], pos[1]],
+                        copy[k][:, pos[0], pos[1]]) for k in ("k", "v")
+        ),
+        max_abs_diff=float((one - wide[:, 0]).abs().max()),
+    )
+    if not (rec["logits_bit_equal"] and rec["kv_bit_equal"]):
+        raise AssertionError(f"width check: {rec}")
+    return rec
+
+
+def prefix_spec_phase(params, cfg, opts, prompts_a, tokens_a) -> dict:
+    """Phase P on phase A's model: prefix caching (cache off, then on,
+    under content-chain keys), speculation on phase A's prompts (tokens
+    must be phase A's), the two together, a traced speculative tick
+    (kernel 3's launches per call and its card work at the verify's
+    width must be the plan's), and the width check."""
+    from repro_torch import sc
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(1)
+    prompts = _prefix_prompts(rng, cfg.vocab)
+    cuda_lib.reset_launches()
+    runs = {}
+    spec = dict(speculative=True, spec_k=P_SPEC_K)
+    for name, kw in (
+        ("cache_off", dict(rng_mode="content")),
+        ("cache_on", dict(prefix_cache=True)),
+        ("cache_on_spec", dict(prefix_cache=True, **spec)),
+    ):
+        eng, toks, tick_ms, _ = serve(
+            params, cfg, opts.replace(**kw), prompts, P_MAX_NEW, "cuda",
+            stagger=P_PREFIX,
+        )
+        runs[name] = (eng, toks, tick_ms)
+    # phase A's prompts, speculating; tick 2 is the first decode tick
+    # (both rows decoding), so it speculates, traced
+    draft = sc.draft_backend(cfg.sc_backend)
+    with _StepTimer(draft) as timer:
+        eng, toks, tick_ms, trace = serve(
+            params, cfg, opts.replace(**spec), prompts_a, P_MAX_NEW,
+            "cuda", traced_tick=2,
+        )
+    runs["spec_a"] = (eng, toks, tick_ms)
+    counts = dict(cuda_lib.launches)
+
+    def metric(e, name, **lab):
+        return e.metrics.value(name, **lab) or 0
+
+    lines = {}
+    for name, (e, t, ms) in runs.items():
+        lines[name] = dict(
+            tokens=t,
+            ticks=e.ticks,
+            tick_ms=ms,
+            ms_per_tick=float(np.mean(ms)),
+            spec_ticks=metric(e, "serve_ticks_total", kind="spec"),
+            drafted=metric(e, "serve_spec_drafted_tokens_total"),
+            accepted=metric(e, "serve_spec_accepted_tokens_total"),
+            hits=metric(e, "serve_prefix_cache_hit_tokens_total"),
+            cow=metric(e, "serve_prefix_cache_cow_total"),
+            prefill_tokens=metric(e, "serve_prefill_tokens_total"),
+        )
+    off, on = lines["cache_off"], lines["cache_on"]
+    both, spec_a = lines["cache_on_spec"], lines["spec_a"]
+    # the traced tick: kernel 3's launches per call at the verify width
+    kvh, h = cfg.n_kv_heads, cfg.n_heads
+    nb, width = -(-opts.max_len // opts.block_size), P_SPEC_K + 1
+    plan = pa.paged_attention_plan(
+        opts.slots, kvh, h // kvh * width, width, cfg.resolved_head_dim,
+        nb, opts.block_size, cfg.sc_nbit,
+    )
+    att_ms, att_n = kernel_ms(trace, "paged_attn_")
+    keys, q, kp, vp, bt, ln = timer.verify_args
+    work = pa.paged_attention_work(q, kp, vp, bt, ln, keys, nbit=cfg.sc_nbit)
+    want = plan.live_blocks(ln.tolist())
+    rec = dict(
+        runs=lines,
+        launches=counts,
+        draft_ms=timer.draft_ms,
+        draft_ms_median=float(np.median(timer.draft_ms)),
+        verify_ms=timer.verify_ms,
+        verify_ms_median=float(np.median(timer.verify_ms)),
+        draft_backend=draft,
+        traced_tick=dict(
+            tick=2,
+            host_ms=trace["wall_ms"],
+            device_ms=trace["device_ms"],
+            attention_ms=att_ms,
+            attention_launches=att_n,
+            launches_per_call=att_n / cfg.n_layers,
+            plan_launches=plan.launches,
+            verify_width=list(q.shape[:2]),
+            card_work=work,
+            plan_work=want,
+            top=_top(trace),
+        ),
+        width_check=width_check(params, cfg, prompts_a[1]),
+    )
+    emit("serve_p", **rec)
+    checks = [
+        (on["tokens"] == off["tokens"], "cache-on tokens != cache-off"),
+        (on["hits"] >= P_PREFIX, f"{on['hits']} prefix hits"),
+        (on["prefill_tokens"] < off["prefill_tokens"], "no prefill saved"),
+        (on["cow"] >= 1, "no copy-on-write"),
+        (spec_a["tokens"] == tokens_a, "speculative tokens != serve_a's"),
+        (spec_a["spec_ticks"] >= 1, "phase A's prompts never speculated"),
+        (both["tokens"] == on["tokens"], "spec + cache tokens != cache-on"),
+        (both["drafted"] > 0, "spec + cache never drafted"),
+        (runs["spec_a"][0].spec_log[0]["tick"] == 2, "tick 2 not spec"),
+        (list(q.shape[:2]) == [opts.slots, width], "verify width"),
+        (att_n == plan.launches * cfg.n_layers,
+         f"{att_n} attention launches in the traced tick"),
+        (all(work[k] == v for k, v in want.items()),
+         f"verify work {work} on the card, {want} planned"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"serve_p: {what}")
+    for k in ("sc_fused", "paged_attention_fused_sc"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"serve_p: kernel {k} never launched")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1511,7 +1796,7 @@ def main(argv=None) -> int:
     opts = ServeOptions(
         paged=True, slots=2, block_size=16, prefill_chunk=8, max_len=64
     )
-    counts_a, ticks_a, _, trace_a = serve_phase(
+    counts_a, ticks_a, eng_a, trace_a = serve_phase(
         "serve_a",
         cfg,
         opts,
@@ -1542,6 +1827,8 @@ def main(argv=None) -> int:
         params,
         ("sc_fused", "paged_attention_fused"),
     )
+    tokens_a = {r.rid: list(r.generated) for r in eng_a.finished}
+    serve_p = prefix_spec_phase(params, cfg, opts, prompts, tokens_a)
     val = validation_phase(params, cfg)
     faulty = faulty_serve_phase(
         params, cfg.replace(sc_backend="exact", paged_attn="unfused"),
@@ -1556,7 +1843,7 @@ def main(argv=None) -> int:
         train = train_phase(args.layers, workdir)
         train_cross_device(workdir)
 
-    serving = (counts_a, counts_b, faulty["counts"])
+    serving = (counts_a, counts_b, serve_p["launches"], faulty["counts"])
     launches = {
         k: sum(c.get(k, 0) for c in serving)
         for k in set().union(*serving)
@@ -1594,10 +1881,11 @@ def main(argv=None) -> int:
             library_ms=fa["library_ms"],
             shape="b=2 sc=1 lengths 15/11 h=14 kvh=2 hd=64 bs=16 f32 "
             "(phase A's decode); by_shape: decode, prefill (sc=8, 8/0), "
-            "long (sc=1, 1023/700, 64 pages) and sparse (sc=1, 15/11, "
-            "64 pages); ms is a wrapper call (CUDA events), device_ms its "
-            "kernels in one traced call, card_work the work its passes "
-            "counted on the card",
+            "verify (sc=3, 15/11), long (sc=1, 1023/700, 64 pages), "
+            "long_verify (sc=3, 1021/700, 64 pages) and sparse (sc=1, "
+            "15/11, 64 pages); ms is a wrapper call (CUDA events), "
+            "device_ms its kernels in one traced call, card_work the work "
+            "its passes counted on the card",
             by_shape=_by_shape(attn["paged_attention_fused"]),
         ),
         dict(

@@ -179,15 +179,20 @@ def paged_attention_plan(
     """Split count and tiles of one call: a pure function of the shapes.
 
     The context is cut into the fewest splits of whole pages that give
-    the (batch row, kv head, row tile) units at least ``NUM_SMS`` blocks
-    between them, so a long row's pages spread over the card instead of
-    one block walking them (1 page a split at a 4-page table).  The
-    logits pass (``nbit > 0``) gives a logit's block one thread per
-    (d, word) pair, 32 to ``MAX_LOGIT_THREADS``.
+    the (batch row, kv head) pairs at least ``NUM_SMS`` blocks between
+    them, so a long row's pages spread over the card instead of one
+    block walking them (1 page a split at a 4-page table).  The split
+    count depends on ``b``, ``kvh`` and ``nb`` only, never on the query
+    rows: a row's softmax is then merged from the same splits in the
+    same order whatever the width of the call, so a width-(k+1)
+    speculative verify gives each row the bits a width-1 decode gives
+    it.  (Counting row tiles too gave a 64-page table 32 splits at
+    width 1 and 11 at width 5.)  The logits pass (``nbit > 0``) gives a
+    logit's block one thread per (d, word) pair, 32 to
+    ``MAX_LOGIT_THREADS``.
     """
     row_tiles = -(-rows // ROW_TILE)
-    units = b * kvh * row_tiles
-    splits = min(nb, -(-NUM_SMS // units))
+    splits = min(nb, -(-NUM_SMS // (b * kvh)))
     per = -(-nb // splits)
     threads = 0
     if nbit:

@@ -42,6 +42,9 @@ def attn_specs(cfg):
         sp["bq"] = ParamSpec((h * hd,), ("heads",), "zeros")
         sp["bk"] = ParamSpec((kv * hd,), ("kv_embed",), "zeros")
         sp["bv"] = ParamSpec((kv * hd,), ("kv_embed",), "zeros")
+    if cfg.qk_norm:
+        sp["q_norm"] = ParamSpec((hd,), (None,), "ones")
+        sp["k_norm"] = ParamSpec((hd,), (None,), "ones")
     return sp
 
 
@@ -59,8 +62,12 @@ def _project_qkv(x, p, cfg, positions, key=None):
     q = layers.dense(x, p["wq"], cfg, keys[0], p.get("bq"))
     k = layers.dense(x, p["wk"], cfg, keys[1], p.get("bk"))
     v = layers.dense(x, p["wv"], cfg, keys[2], p.get("bv"))
-    q = layers.apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = layers.apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"])
+        k = layers.rms_norm(k, p["k_norm"])
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, kv, hd)
 
 

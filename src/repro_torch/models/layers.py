@@ -1,5 +1,5 @@
-"""Primitive layers: RMSNorm, Linear (SC-routable), SwiGLU MLP, RoPE,
-embed.
+"""Primitive layers: RMSNorm, Linear (SC-routable), the SwiGLU / GELU
+MLP, RoPE, embed.
 
 Port of ``repro.models.layers``.  Every weight matmul goes through
 :func:`dense`, which routes to the SC substrate registry when
@@ -116,21 +116,30 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
     return y
 
 
-# ----------------------------- MLP (SwiGLU) --------------------------------
+# ----------------------------- MLP (SwiGLU / GELU) -------------------------
 
 
 def mlp_specs(cfg):
     d, f = cfg.d_model, cfg.d_ff
+    wi_cols = 2 * f if cfg.mlp_variant == "swiglu" else f
     return {
-        "wi": ParamSpec((d, 2 * f), ("embed", "mlp"), "scaled"),
+        "wi": ParamSpec((d, wi_cols), ("embed", "mlp"), "scaled"),
         "wo": ParamSpec((f, d), ("mlp", "embed"), "scaled"),
     }
 
 
 def mlp(x, p, cfg, key=None):
+    """SwiGLU on a (d, 2·d_ff) ``wi``, or (``mlp_variant="gelu"``) the
+    tanh-approximated GELU on a (d, d_ff) ``wi`` — ``jax.nn.gelu``'s
+    default, as the reference calls it."""
     h = dense(x, p["wi"], cfg, site_key(key, "mlp_wi"), site="mlp_wi")
-    gate, up = torch.chunk(h, 2, dim=-1)
-    act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype) * up
+    if cfg.mlp_variant == "swiglu":
+        gate, up = torch.chunk(h, 2, dim=-1)
+        act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype)
+        act = act * up
+    else:
+        act = torch.nn.functional.gelu(h.to(torch.float32),
+                                       approximate="tanh").to(x.dtype)
     return dense(act, p["wo"], cfg, site_key(key, "mlp_wo"), site="mlp_wo")
 
 

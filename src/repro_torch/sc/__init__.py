@@ -10,7 +10,8 @@ straight-through gradient at the dispatch boundary: ``exact``,
 it, as in the reference), and the lazily registered ``array``
 architecture simulator (``repro_torch.arch``).  ``use_device_profile``
 scopes a device-realism profile over every ``ScConfig`` the model stack
-builds.
+builds.  ``draft_backend`` names the cheap backend speculative decoding
+drafts with for a verify backend (``register_draft_pair`` sets one).
 """
 
 from repro_torch.sc import backends as _backends  # noqa: F401  (registers)
@@ -23,9 +24,11 @@ from repro_torch.sc.config import (  # noqa: F401
 )
 from repro_torch.sc.registry import (  # noqa: F401
     available_backends,
+    draft_backend,
     fast_backend,
     get_backend,
     register_backend,
+    register_draft_pair,
     register_rows_backend,
     sc_dot,
     sc_dot_rows,

@@ -39,6 +39,14 @@ _FAST_ALIASES: dict = {"pallas_bitexact": "pallas_fused"}
 # module whose import performs the @register_backend call.
 _LAZY_BACKENDS: dict = {"array": "repro_torch.arch.backend"}
 
+# verify backend -> cheap DRAFT backend for speculative decoding.  The
+# draft only guesses tokens (the verifier re-derives every emitted token
+# under its own backend), so stochastic backends draft with ``moment``
+# (the closed-form mean of the SC estimator) and ``exact`` drafts as
+# itself.
+_DRAFT_PAIRS: dict = {"exact": "exact"}
+_DEFAULT_DRAFT = "moment"
+
 
 def register_backend(name: str):
     """Decorator: register ``fn(key, x2d, w, cfg) -> y2d`` under ``name``
@@ -91,6 +99,20 @@ def fast_backend(name: str, nbit: int | None = None) -> str:
     if nbit is not None and nbit % 32 != 0:
         return name
     return fast
+
+
+def register_draft_pair(verify: str, draft: str) -> None:
+    """Pair ``verify`` with the backend speculative decoding drafts with
+    (``draft`` must resolve; accepted tokens are always the verifier's)."""
+    get_backend(draft)  # fail fast on unknown names
+    _DRAFT_PAIRS[verify] = draft
+
+
+def draft_backend(name: str) -> str:
+    """Draft backend paired with verify backend ``name``: unpaired names
+    draft with ``moment``.  ``fast_backend`` upgrades do not change the
+    pairing (``pallas_bitexact`` and ``pallas_fused`` draft alike)."""
+    return _DRAFT_PAIRS.get(name, _DEFAULT_DRAFT)
 
 
 def _dispatch_scope(entry: str, backend: str, m: int, k: int, n: int):

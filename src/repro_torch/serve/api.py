@@ -5,10 +5,12 @@ the reference under its name; :func:`build_engine` validates them and
 builds the paged engine on a device.  A ``fault_profile`` serves on a
 non-ideal device: the profile is resolved, an exact model moves onto
 the ``array`` backend (the only one that realizes faults), and the
-engine enters ``sc.use_device_profile`` around each tick.  Knobs whose
-features the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them, rather than serving something
-else.
+engine enters ``sc.use_device_profile`` around each tick.
+``prefix_cache``, ``rng_mode`` and ``speculative`` / ``spec_k`` /
+``draft_backend`` pass through to the paged engine.  Knobs whose
+features the port does not have yet (the fixed-slot engine, ``mesh``,
+``chaos``) raise ``NotImplementedError`` naming the ROADMAP item that
+brings them, rather than serving something else.
 """
 
 from __future__ import annotations
@@ -55,9 +57,6 @@ class ServeOptions:
             )
         unported = [
             ("paged=False (the fixed-slot engine)", not self.paged, 9),
-            ("prefix_cache", self.prefix_cache, 5),
-            ("speculative", self.speculative, 5),
-            ("rng_mode='content'", self.rng_mode == "content", 5),
             ("mesh", self.mesh, 10),
             ("chaos", self.chaos, 9),
         ]
@@ -134,6 +133,11 @@ def build_engine(
         block_size=options.block_size,
         num_blocks=options.num_blocks,
         prefill_chunk=options.prefill_chunk,
+        prefix_cache=options.prefix_cache,
+        rng_mode=options.rng_mode,
+        speculative=options.speculative,
+        spec_k=options.spec_k,
+        draft_backend=options.draft_backend,
     )
     engine = engine_mod.PagedServingEngine(
         params,

@@ -19,10 +19,18 @@ port bills the work it ran (each record's plan and price equal the
 reference's for that shape).  ``close()`` (or a raise mid-tick)
 detaches the collector.
 
+Prefix caching (``PagedServeConfig.prefix_cache``) shares full KV
+blocks across requests through ``kv_cache.PagedKVCache`` and forces
+content-chain keys (``rng_mode="content"``), so an adopted block holds
+the K/V the adopter would have written.  Speculative decoding
+(``speculative``) drafts ``spec_k`` tokens per greedy decode row with a
+cheap backend and verifies them in one width-(k+1) step
+(:meth:`PagedServingEngine._run_spec_plan`); its tokens are the plain
+greedy tokens.
+
 What the port does not have yet raises at construction (see
-``serve/api.py``): prefix caching and speculative decoding (ROADMAP
-queue 1 item 5), the fixed-slot engine and drain/restore (item 9), and
-families other than dense (item 7).
+``serve/api.py``): the fixed-slot engine and drain/restore (ROADMAP
+queue 1 item 9), and families other than dense (item 7).
 """
 
 from __future__ import annotations
@@ -58,7 +66,11 @@ class PagedServeConfig:
 
     ``num_blocks = 0`` sizes the pool for every slot at full ``max_len``
     plus the null block; ``prefill_chunk`` caps how many prompt tokens
-    one tick feeds per row.
+    one tick feeds per row.  ``prefix_cache`` turns on block sharing
+    (and content-chain keys); ``rng_mode`` is ``"request"`` or
+    ``"content"``; ``speculative`` drafts ``spec_k`` tokens a greedy
+    decode row with ``draft_backend`` ("" = ``sc.draft_backend`` of the
+    model's backend).
     """
 
     slots: int = 4
@@ -68,6 +80,11 @@ class PagedServeConfig:
     block_size: int = 16
     num_blocks: int = 0
     prefill_chunk: int = 8
+    prefix_cache: bool = False
+    rng_mode: str = "request"  # "request" | "content"
+    speculative: bool = False
+    spec_k: int = 4
+    draft_backend: str = ""
 
 
 def _uniform01(keys, n: int):
@@ -124,13 +141,19 @@ class PagedServingEngine:
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
+        if scfg.rng_mode not in ("request", "content"):
+            raise ValueError(
+                f"rng_mode must be 'request' or 'content', got "
+                f"{scfg.rng_mode!r}"
+            )
         self.device = torch.device(device)
         if metrics is None:
             metrics = obs.MetricsRegistry()
         self.metrics = metrics
         self.tracer = tracer if tracer is not None else obs.NULL_TRACER
         self._m_ticks = self.metrics.counter(
-            "serve_ticks_total", "engine ticks, labeled kind=prefill|decode"
+            "serve_ticks_total",
+            "engine ticks, labeled kind=prefill|decode|spec",
         )
         self._m_errors = self.metrics.counter(
             "serve_errors_total", "engine ticks that raised"
@@ -149,7 +172,11 @@ class PagedServingEngine:
                 f"{scfg.max_len} sequence (+1 null block) at block_size="
                 f"{scfg.block_size}; need >= {1 + pcfg.blocks_per_seq}"
             )
-        self.kv = kvc.PagedKVCache(pcfg, metrics=self.metrics)
+        self.kv = kvc.PagedKVCache(
+            pcfg,
+            metrics=self.metrics,
+            enable_prefix_cache=scfg.prefix_cache,
+        )
         self.pages = lm.init_paged_cache(
             cfg, num_blocks, scfg.block_size, device=self.device
         )
@@ -172,6 +199,8 @@ class PagedServingEngine:
         self._stochastic_substrate = (
             cfg.sc_backend != "exact" or cfg.paged_attn == "fused_sc"
         )
+        if scfg.speculative:
+            self._init_spec(cfg, scfg)
         self.ticks = 0
         self._seen_decode_tick = False
         # Per-tick decode wall times (ms per live token, width-1 ticks
@@ -186,6 +215,34 @@ class PagedServingEngine:
             "serve_decode_jit_ticks_total",
             "decode ticks excluded from the latency series (first tick)",
         )
+
+    def _init_spec(self, cfg, scfg) -> None:
+        """The draft config and the acceptance telemetry.  The draft runs
+        the same weights on the cheap backend with plain ``unfused``
+        attention: its K/V writes are placeholders the verify pass
+        overwrites, its logits only guess tokens."""
+        if scfg.spec_k < 1:
+            raise ValueError(
+                f"speculative=True needs spec_k >= 1, got {scfg.spec_k}"
+            )
+        dname = scfg.draft_backend or sc.draft_backend(cfg.sc_backend)
+        sc.get_backend(dname)  # fail fast on unknown names
+        self.draft_cfg = cfg.replace(sc_backend=dname, paged_attn="unfused")
+        self._spec_hist = self.metrics.histogram(
+            "spec_accepted_tokens",
+            "draft tokens accepted per speculative row-tick (0..k)",
+            buckets=tuple(float(i) for i in range(scfg.spec_k + 1)),
+        )
+        self._m_spec_drafted = self.metrics.counter(
+            "serve_spec_drafted_tokens_total",
+            "tokens drafted by the cheap backend",
+        )
+        self._m_spec_accepted = self.metrics.counter(
+            "serve_spec_accepted_tokens_total",
+            "drafted tokens the verifier accepted",
+        )
+        # one entry per speculative row-tick, for replaying the counters
+        self.spec_log: list = []
 
     # -- queue/active views -------------------------------------------
     @property
@@ -272,7 +329,8 @@ class PagedServingEngine:
             src = [s for s, _ in plan.copies]
             dst = [d for _, d in plan.copies]
             attention.paged_copy_blocks(self.pages, src, dst)
-        kind = "decode" if plan.sc == 1 else "prefill"
+        spec = bool(plan.spec_rows)
+        kind = "spec" if spec else "decode" if plan.sc == 1 else "prefill"
         live = sum(1 for nv in plan.n_valid if nv)
         self._m_ticks.inc(kind=kind)
         with self.tracer.span(
@@ -282,7 +340,10 @@ class PagedServingEngine:
             live=live,
             width=plan.sc,
         ):
-            self._run_plan(plan, live)
+            if spec:
+                self._run_spec_plan(plan)
+            else:
+                self._run_plan(plan, live)
         self.ticks += 1
         return True
 
@@ -320,21 +381,143 @@ class PagedServingEngine:
                 self._seen_decode_tick = True
                 self._m_first_ticks.inc()
             self.tracer.attr(decode_ms_per_token=round(ms, 4))
-        if plan.sample_rows:
-            # One batched sampling call + one host sync per tick;
-            # non-sampling slots get dummy keys and are discarded.
-            keys = [self.scheduler._dummy_key] * len(plan.tokens)
-            temps = [0.0] * len(plan.tokens)
-            for slot, seq in plan.sample_rows:
-                keys[slot] = self.scheduler.sample_key(seq)
-                temps[slot] = seq.req.temperature
-            toks = _sample_rows(
-                torch.stack(keys).to(self.device),
-                logits,
-                self._tensor(temps, torch.float32),
-            ).tolist()
-            for slot, seq in plan.sample_rows:
-                self.scheduler.on_token(slot, seq, toks[slot])
+        self._sample(plan, logits)
+
+    def _sample(self, plan, logits) -> None:
+        """Sample every row of ``plan.sample_rows`` from its ``logits``
+        row: one batched call and one host sync; non-sampling slots get
+        dummy keys and are discarded."""
+        if not plan.sample_rows:
+            return
+        keys = [self.scheduler._dummy_key] * len(plan.tokens)
+        temps = [0.0] * len(plan.tokens)
+        for slot, seq in plan.sample_rows:
+            keys[slot] = self.scheduler.sample_key(seq)
+            temps[slot] = seq.req.temperature
+        toks = _sample_rows(
+            torch.stack(keys).to(self.device),
+            logits,
+            self._tensor(temps, torch.float32),
+        ).tolist()
+        for slot, seq in plan.sample_rows:
+            self.scheduler.on_token(slot, seq, toks[slot])
+
+    def _run_spec_plan(self, plan) -> None:
+        """One speculative tick: ``spec_k`` width-1 draft steps, ONE
+        width-(k+1) verify step, then the accepted run committed per row.
+
+        The draft runs the same weights on ``draft_cfg`` and writes its
+        K/V into the real pools, IN PLACE.  That is safe because of
+        where it writes: a drafting row's positions ``fed .. fed+k-1``,
+        all inside the span the scheduler reserved and passed through
+        the copy-on-write barrier (so no block there is shared), and the
+        verify step rewrites ``fed .. fed+k`` (its scatter runs before
+        its attention reads) before anything but the row's own later
+        draft steps reads them.  The one block there that can be
+        hash-registered is the row's own, registered by this tick's plan
+        (refcount 1): it holds verify K/V before the next plan can let
+        another row adopt it.  Rows that do not draft have ``n_valid`` 0
+        in the draft steps, so their writes land in the null block.
+
+        The verify step is the real model feeding ``[t, d_1 .. d_k]``
+        with ``all_logits``, under the same per-position key grid as
+        plain decode, so its greedy tokens are the plain tokens and the
+        pools end as ``a + 1`` plain decode ticks leave them (positions
+        past the accepted run hold stale K/V that the length mask hides
+        and the next feed overwrites).  Rows that do not speculate ride
+        the verify step with their one token and sample from its
+        position-0 logits.
+        """
+        k = self.scheduler.spec_k
+        b = len(plan.tokens)
+        lengths = self._tensor(plan.lengths)
+        tables = self._tensor(plan.tables)
+        spec_slots = {slot for slot, _ in plan.spec_rows}
+        content = self.scheduler.content_mode
+        # the draft needs keys when either model is stochastic (an exact
+        # verifier may draft with a stochastic backend)
+        stoch = self._stochastic_substrate
+        stoch = stoch or self.draft_cfg.sc_backend != "exact"
+        dummy = self.scheduler._dummy_key
+        base_rng = chain = vkeys = None
+        if stoch and not content:
+            base_rng = torch.stack(plan.keys).to(self.device)  # (b, 2)
+        if stoch and content:
+            chain = [plan.keys[r][0] for r in range(b)]  # (2,) per row
+            vkeys = [[chain[r]] for r in range(b)]
+        draft_nv = self._tensor([int(r in spec_slots) for r in range(b)])
+        cur = [int(plan.tokens[r][0]) for r in range(b)]
+        drafts: list = [[] for _ in range(b)]
+        for i in range(k):
+            rng = base_rng
+            if chain is not None:
+                # host keys, moved to the device once per step
+                rng = torch.stack(chain)[:, None, :].to(self.device)
+            dlogits, self.pages = lm.decode_paged(
+                self.params,
+                self.pages,
+                tables,
+                self._tensor([[c] for c in cur]),
+                lengths + i,
+                draft_nv,
+                self.draft_cfg,
+                rng=rng,
+            )
+            nxt = torch.argmax(dlogits, dim=-1).tolist()  # one sync
+            for r in spec_slots:
+                drafts[r].append(nxt[r])
+                cur[r] = nxt[r]
+                if chain is not None:
+                    chain[r] = ctr_rng.fold_in(chain[r], nxt[r])
+            if vkeys is not None:
+                for r in range(b):
+                    vkeys[r].append(chain[r] if r in spec_slots else dummy)
+        vtok, vnv = [], []
+        for r in range(b):
+            first = int(plan.tokens[r][0])
+            if r in spec_slots:
+                vtok.append([first] + drafts[r])
+                vnv.append(k + 1)
+            else:
+                vtok.append([first] + [0] * k)
+                vnv.append(plan.n_valid[r])
+        rng = base_rng
+        if vkeys is not None:
+            rng = torch.stack([torch.stack(v) for v in vkeys])
+            rng = rng.to(self.device)  # (b, k + 1, 2)
+        vlogits, self.pages = lm.decode_paged(
+            self.params,
+            self.pages,
+            tables,
+            self._tensor(vtok),
+            lengths,
+            self._tensor(vnv),
+            self.cfg,
+            rng=rng,
+            all_logits=True,
+        )
+        greedy = torch.argmax(vlogits, dim=-1).tolist()  # (b, k+1), sync
+        for slot, seq in plan.spec_rows:
+            vrow = greedy[slot]
+            a = 0
+            while a < k and drafts[slot][a] == vrow[a]:
+                a += 1
+            committed = self.scheduler.on_tokens(slot, seq, vrow[: a + 1])
+            self._spec_hist.observe(float(a))
+            self._m_spec_drafted.inc(k)
+            self._m_spec_accepted.inc(a)
+            self.spec_log.append(
+                dict(
+                    tick=self.ticks,
+                    rid=seq.req.rid,
+                    k=k,
+                    drafted=list(drafts[slot]),
+                    verified=vrow,
+                    accepted=a,
+                    committed=committed,
+                )
+            )
+        self._sample(plan, vlogits[:, 0])
 
     def decode_latency_ms(self):
         """p50/p95 decode wall ms per token from the

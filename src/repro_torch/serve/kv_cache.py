@@ -13,10 +13,24 @@ Block 0 is reserved as the NULL block: chunk padding and idle batch rows
 scatter their K/V there (``models/attention.py:paged_scatter``), so no
 live sequence ever maps it and the allocator never hands it out.
 
-The prefix-caching half (refcounts, chain hashes, LRU of cached blocks,
-copy-on-write) is copied with the rest; the ported engine does not turn
-it on yet (ROADMAP queue 1 item 5), so every refcount stays 1 and
-``adopt_prefix`` / ``note_filled`` / ``make_writable`` are no-ops.
+Prefix caching (``enable_prefix_cache=True``, the engine's
+``prefix_cache``) shares blocks across sequences.  Every FULL block a
+sequence fills is content-addressed by a chain hash over its token
+prefix (``_chain_hash``: the parent block's hash plus this block's
+tokens, so equal hashes mean equal prefixes from position 0).  Blocks
+are refcounted and ``release`` decrefs: a block another sequence still
+maps never returns to the freelist.  A ref-0 block whose hash is
+registered parks on an LRU list instead; allocation takes freelist
+blocks first, then evicts the least recently used cached block.  So the
+pool partitions at all times into
+
+    freelist ∪ cached (ref 0, hash-registered) ∪ referenced (ref >= 1)
+
+(``check_invariants``).  Shared or registered blocks are immutable: a
+write into one goes through :meth:`PagedKVCache.make_writable`, which
+copies it out (copy-on-write) and hands the engine the page copies.
+With the cache off every refcount stays 1 and ``adopt_prefix`` /
+``note_filled`` / ``make_writable`` change nothing.
 
 The device-side pool tensors live in ``models/lm.py:init_paged_cache``.
 """
@@ -409,6 +423,46 @@ class PagedKVCache:
             self._m_cow.inc(len(need))
             self._update_gauges()
         return copies
+
+    def check_invariants(self) -> None:
+        """Assert the bookkeeping contract (refcounts equal table
+        references; freelist, cached and referenced partition blocks
+        1..n-1; the hash maps agree); raises AssertionError naming the
+        broken clause.  O(pool + tables): for tests."""
+        free = set(self.pool._free)
+        cached = set(self.cached)
+        referenced = set(self.refcounts)
+        assert NULL_BLOCK not in free | cached | referenced, (
+            "null block entered the pool"
+        )
+        counts: dict[int, int] = {}
+        for t in self.tables.values():
+            for b in t:
+                counts[b] = counts.get(b, 0) + 1
+        assert counts == self.refcounts, (
+            f"refcounts {self.refcounts} != table references {counts}"
+        )
+        assert all(r >= 1 for r in self.refcounts.values()), (
+            "zero/negative refcount retained"
+        )
+        assert free | cached | referenced == set(
+            range(1, self.cfg.num_blocks)
+        ), "pool partition lost blocks"
+        overlap = free & cached or free & referenced or cached & referenced
+        assert not overlap, "pool partition overlaps"
+        for h, b in self.hash_to_block.items():
+            assert self.block_hash.get(b) == h, (
+                f"hash_to_block[{h[:8]}]={b} but block_hash="
+                f"{self.block_hash.get(b)}"
+            )
+        for b, h in self.cached.items():
+            assert self.hash_to_block.get(h) == b, (
+                f"cached block {b} not registered under its hash"
+            )
+        for b in self.block_hash:
+            assert b in cached or b in referenced, (
+                f"registered block {b} is on the freelist"
+            )
 
 
 def default_num_blocks(slots: int, max_len: int, block_size: int) -> int:

@@ -220,6 +220,22 @@ def test_paged_attention_plan_fills_the_card():
     assert plan.live_blocks([1023, 700])["split"] == 2 * (32 + 22)
 
 
+@pytest.mark.parametrize("nb", [3, 4, 40, 64])
+def test_paged_attention_plan_splits_do_not_depend_on_the_width(nb):
+    """A row's splits are the same at every chunk width (decode,
+    speculative verify, prefill chunk), so its online softmax merges the
+    same page ranges in the same order: 64 pages at b = 2 gave 32 splits
+    at width 1 and 11 at width 5 while the plan counted row tiles."""
+    g = 7
+    base = tpa.paged_attention_plan(2, 2, g, 1, 64, nb, 16, 1024)
+    for sc in (2, 3, 5, 8):
+        plan = tpa.paged_attention_plan(2, 2, g * sc, sc, 64, nb, 16, 1024)
+        assert plan.splits == base.splits
+        assert plan.pages_per_split == base.pages_per_split
+        for length in (0, 17, nb * 16 - 1):
+            assert plan.row_splits(length, 0) == base.row_splits(length, 0)
+
+
 @pytest.mark.parametrize(
     "hd,dtype,offset",
     [(4, torch.bfloat16, 0), (6, torch.float32, 0), (8, torch.float32, 1)],

@@ -10,7 +10,8 @@ Classes: ``sc_fused`` and ``sc_mul_popcount`` totals bit-equal (and the
 ``pallas_bitexact`` backend on the packed kernel equal to ``pallas_fused``
 and to the CPU); the SC attention logits pass bit-equal to the plain
 logits, attention outputs within 1e-5 in float32 (also at a 64-page
-context) and bit-equal from launch to launch; the moment
+context), bit-equal from launch to launch and for a row at width 1 and
+as row 0 of a width-3 chunk; the moment
 kernels (``sc_mac_fused`` and its in-kernel-noise twin, 3xTF32 on the
 tensor cores) within 1e-5 of max |out| of their plain versions (float32
 sums in another order), on and off the operand grid, with the tied
@@ -173,6 +174,33 @@ def _assert_work_as_planned(keys, q, kp, vp, bt, ln, nbit):
             assert 0 < got["logit_blocks"] <= got["logits"]
         else:
             assert got["logits"] == got["logit_blocks"] == 0
+
+
+@pytest.mark.parametrize("lengths", [[1023, 700], [15, 11]])
+def test_paged_attention_kernels_are_width_invariant(cuda, lengths):
+    """A speculative verify feeds a chunk of 3 rows, row i at position
+    ``start + i``: over a 64-page table, kernels 2 and 3 give every row
+    of the chunk the bits a width-1 call of that row alone (its query,
+    its key, length ``start + i``) gives it (the plan's splits do not
+    depend on the query rows).  The chunk's last row sits at
+    ``lengths``."""
+    rng = np.random.default_rng(11)
+    w = 3
+    case = _attn_case(rng, torch.float32, b=2, sc=w, h=14, kvh=2, hd=64,
+                      bs=16, nb=64, lengths=lengths)
+    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in case)
+    start = ln - (w - 1)
+    wide = pa.paged_attention_fused(q, kp, vp, bt, start)
+    wide_sc = pa.paged_attention_fused_sc(keys, q, kp, vp, bt, start,
+                                          nbit=64)
+    for i in range(w):
+        qi = q[:, i:i + 1].contiguous()
+        ki = keys[:, i:i + 1].contiguous()
+        one = pa.paged_attention_fused(qi, kp, vp, bt, start + i)
+        assert torch.equal(one, wide[:, i:i + 1]), i
+        one = pa.paged_attention_fused_sc(ki, qi, kp, vp, bt, start + i,
+                                          nbit=64)
+        assert torch.equal(one, wide_sc[:, i:i + 1]), i
 
 
 def test_paged_attention_launch_refuses_kv_rows_off_16_bytes(cuda):

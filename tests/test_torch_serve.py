@@ -124,9 +124,6 @@ def test_serving_exact_fused_greedy_tokens_match_reference():
     "kw",
     [
         dict(paged=False),
-        dict(paged=True, prefix_cache=True),
-        dict(paged=True, speculative=True),
-        dict(paged=True, rng_mode="content"),
         dict(paged=True, mesh=True),
         dict(paged=True, chaos=True),
     ],
