@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's paged SC serving path, its trainer,
-and its validation / faulty-device path on one GPU.
+"""Drive the PyTorch/CUDA port's paged and fixed-slot SC serving paths,
+its serve-fleet failover, its trainer, and its validation /
+faulty-device path on one GPU.
 
     python3 chip_smoke.py [--layers N]
 
@@ -22,7 +23,8 @@ code is non-zero):
    1 bit-equal to row 0 of a width-3 call; both moment kernels and the moment
    kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
    noise's mean and variance, and two launches of the moment kernel
-   bit-equal), with its median time, the plain version's time, the
+   bit-equal; kernel 1 also with one key a call at phase F's prefill
+   shape), with its median time, the plain version's time, the
    least time the card could take (``bound_ms``; for the moment kernels
    the faster of 3xTF32 on the tensor cores and FP32 FMAs, with the FP32
    bound beside it), and a PyTorch yardstick where one computes the
@@ -52,6 +54,20 @@ code is non-zero):
    run's; the ms of each draft and verify step; and one decode step at
    width 1 against the same token as row 0 of a width-3 step: logits
    and K/V bit-equal;
+   serve phase F: phase A's model and prompts through the DEFAULT engine,
+   ``build_engine(params, cfg, ServeOptions(slots=2, max_len=64))`` (the
+   fixed-slot ``ServingEngine``: batch-1 prefills, one decode step over
+   both slots a tick, kernel 1 with one key a call): each admission's
+   prefill ms and each decode step's ms; only kernel 1 may launch; then
+   the tiny configuration through that engine on the card and on the
+   CPU: equal tokens;
+   fleet phase FT: ``FleetSupervisor`` over 2 shards of phase A's paged
+   engine with ``ChaosMonkey(at_tick=2, shard=1)``, four requests (A's
+   two prompts, two new, the last sampling at 0.8): every request
+   finishes, one drain, a warm resume, no shard error beyond the
+   injected ones, A's tokens for A's prompts and one unfaulted engine's
+   for the rest; then ``launch/serve.py --smoke`` on the card, plain and
+   with ``--chaos``;
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
 6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
@@ -81,9 +97,9 @@ code is non-zero):
    tokens;
 10. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B, P, T, V and D and read
-just after each; a kernel of a phase's path that did not launch fails
-the run.  Without a CUDA device the script exits non-zero before
+Launch counts are reset just before phases A, B, P, F, FT, T, V and D
+and read just after each; a kernel of a phase's path that did not
+launch fails the run.  Without a CUDA device the script exits non-zero before
 printing any result.
 """
 
@@ -349,6 +365,8 @@ def check_sc_fused(rates: dict) -> dict:
         ("mlp_wi", 2, 896, 9728, 9728, True),
         ("unembed_window", 2, 896, 512, 151936, True),
         ("wk_per_call", 2, 896, 128, 128, False),
+        # phase F's prefill of A's first prompt: 12 rows, one key
+        ("wk_prefill_per_call", 12, 896, 128, 128, False),
     ]
     rows = {}
     for name, m, k, n, n_orig, row_keys in shapes:
@@ -1117,19 +1135,9 @@ def unembed_ms(params, cfg, rows: int) -> float:
 def cross_device() -> None:
     """The tiny parity-test configuration served on the card and on the
     CPU: the greedy tokens must be equal."""
-    from repro_torch.configs import get_smoke_config
     from repro_torch.serve import ServeOptions
 
-    cfg = get_smoke_config("qwen2-0.5b").replace(
-        d_model=32,
-        d_ff=64,
-        vocab=128,
-        param_dtype=torch.float32,
-        act_dtype=torch.float32,
-        sc_backend="pallas_bitexact",
-        sc_nbit=32,
-        paged_attn="fused_sc",
-    )
+    cfg = _tiny_cfg()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, cfg.vocab, 10).tolist() for _ in range(3)]
     opts = ServeOptions(
@@ -1356,6 +1364,243 @@ def prefix_spec_phase(params, cfg, opts, prompts_a, tokens_a) -> dict:
     for k in ("sc_fused", "paged_attention_fused_sc"):
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"serve_p: kernel {k} never launched")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phases F and FT: the fixed-slot engine, and fleet failover
+# ---------------------------------------------------------------------------
+
+# kernel launch counts a phase on kernel 1 alone must leave at zero
+NOT_KERNEL_1 = (
+    "paged_attention_fused",
+    "paged_attention_fused_sc",
+    "sc_mul_popcount",
+    "sc_mac_fused",
+    "sc_mac_fused_prng",
+    "sc_mac_reduce",
+)
+
+
+class _CallTimer:
+    """Wraps the named functions of ``repro_torch.models.lm`` while
+    installed: the synced host ms of each call, by name, in order."""
+
+    def __init__(self, *names):
+        from repro_torch.models import lm
+
+        self.lm, self.names = lm, names
+        self.ms = {n: [] for n in names}
+
+    def __enter__(self):
+        self._orig = {n: getattr(self.lm, n) for n in self.names}
+        for n, fn in self._orig.items():
+            def timed(*args, _fn=fn, _n=n, **kw):
+                out, ms = _synced_ms(lambda: _fn(*args, **kw))
+                self.ms[_n].append(ms)
+                return out
+
+            setattr(self.lm, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self.lm, n, fn)
+
+
+def fixed_slot_phase(params, cfg, prompts, max_new: int) -> dict:
+    """Phase F: phase A's model and prompts through the DEFAULT engine,
+    ``build_engine(params, cfg, ServeOptions(slots=2, max_len=64))``,
+    the fixed-slot ``ServingEngine``: batch-1 prefills spliced into
+    slots and one ``decode_step`` over both slots a tick, every matmul
+    on kernel 1 with one key a call.  The ms of each admission prefill
+    and each decode step; no other kernel may launch.  Then the tiny
+    parity configuration through the default engine on the card and
+    on the CPU: equal tokens."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import Request, ServeOptions, ServingEngine
+    from repro_torch.serve import build_engine
+
+    opts = ServeOptions(slots=2, max_len=64)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    eng = build_engine(params, cfg, opts, device="cuda")
+    if not isinstance(eng, ServingEngine):
+        raise AssertionError(f"serve_f: default engine {type(eng)}")
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))
+    tick_ms = []
+    with _CallTimer("prefill", "decode_step") as timer:
+        while eng.queue or any(eng.active):
+            _, ms = _synced_ms(eng.step)
+            tick_ms.append(ms)
+    counts = dict(cuda_lib.launches)
+    toks = {r.rid: list(r.generated) for r in eng.finished}
+    rec = dict(
+        tokens=toks,
+        ticks=len(tick_ms),
+        tick_ms=tick_ms,
+        prefill_ms=timer.ms["prefill"],
+        prompt_tokens=[len(p) for p in prompts],
+        decode_ms=timer.ms["decode_step"],
+        wall_s=sum(tick_ms) / 1e3,
+        launches=counts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    emit("serve_f", **rec)
+    n_tok = sum(len(t) for t in toks.values())
+    for ok, what in (
+        (counts.get("sc_fused", 0) > 0, "kernel sc_fused never launched"),
+        (not any(counts.get(k, 0) for k in NOT_KERNEL_1),
+         "a kernel other than sc_fused launched"),
+        (n_tok == len(prompts) * max_new, f"{n_tok} tokens generated"),
+        (all(0 <= t < cfg.vocab for ts in toks.values() for t in ts),
+         "token outside the vocabulary"),
+        (len(timer.ms["prefill"]) == len(prompts), "prefill count"),
+    ):
+        if not ok:
+            raise AssertionError(f"serve_f: {what}")
+    fixed_slot_cross_device()
+    return rec
+
+
+def _tiny_cfg():
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config("qwen2-0.5b").replace(
+        d_model=32,
+        d_ff=64,
+        vocab=128,
+        param_dtype=torch.float32,
+        act_dtype=torch.float32,
+        sc_backend="pallas_bitexact",
+        sc_nbit=32,
+        paged_attn="fused_sc",
+    )
+
+
+def fixed_slot_cross_device() -> None:
+    """The tiny parity-test configuration through the default
+    (fixed-slot) engine on the card and on the CPU: equal tokens."""
+    from repro_torch.serve import Request, ServeOptions, build_engine
+
+    cfg = _tiny_cfg()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, 10).tolist() for _ in range(3)]
+    toks = {}
+    for device in ("cuda", "cpu"):
+        eng = build_engine(_qwen_params(cfg, device), cfg,
+                           ServeOptions(slots=2, max_len=32), device=device)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=5))
+        toks[device] = {r.rid: r.generated for r in eng.run_until_drained()}
+    emit("serve_f_cross_device", cuda=toks["cuda"], cpu=toks["cpu"])
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError("fixed-slot tokens differ between card and CPU")
+
+
+FT_TEMPERATURE = 0.8  # rid 3 of phase FT samples
+
+
+def fleet_phase(params, cfg, opts, prompts_a, tokens_a, max_new) -> dict:
+    """Phase FT: ``FleetSupervisor`` over 2 shards of phase A's paged
+    engine (kernels 1 and 3) with ``ChaosMonkey(at_tick=2, shard=1)``.
+    Rids 0-1 are phase A's prompts (their tokens must be phase A's),
+    rids 2-3 new (rid 3 sampling; their tokens must be one unfaulted
+    engine's).  Every request finishes, one drain, at least one warm
+    resume, and no shard counts an error the monkey did not inject.
+    Then ``launch/serve.py --smoke`` on the card, plain and ``--chaos``:
+    every request finishes."""
+    from repro_torch import obs
+    from repro_torch.ft import ChaosMonkey, FleetSupervisor
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serve import Request, build_engine
+
+    rng = np.random.default_rng(2)
+    prompts = list(prompts_a) + [
+        rng.integers(3, cfg.vocab, n).tolist() for n in (10, 6)
+    ]
+
+    def requests():
+        return [
+            Request(rid=rid, prompt=p, max_new_tokens=max_new,
+                    temperature=FT_TEMPERATURE if rid == 3 else 0.0)
+            for rid, p in enumerate(prompts)
+        ]
+
+    tracer = obs.Tracer()
+    monkey = ChaosMonkey(at_tick=2, shard=1)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    fleet = FleetSupervisor(
+        lambda s: build_engine(params, cfg, opts, device="cuda",
+                               tracer=tracer),
+        shards=2,
+        chaos=monkey,
+    )
+    homes = [fleet.submit(r) for r in requests()]
+    tick_ms = []
+    while fleet.has_work():
+        _, ms = _synced_ms(fleet.step)
+        tick_ms.append(ms)
+        if len(tick_ms) > 100:
+            raise AssertionError("serve_ft: the fleet does not drain")
+    counts = dict(cuda_lib.launches)
+    toks = {r.rid: list(r.generated) for r in fleet.finished}
+    resumes = [s.attrs for s in tracer.spans if s.name == "request.resume"]
+    errors = [e.metrics.value("serve_errors_total") for e in fleet.engines]
+    ref = build_engine(params, cfg, opts, device="cuda")
+    for r in requests()[2:]:
+        ref.submit(r)
+    ref_toks = {r.rid: list(r.generated) for r in ref.run_until_drained()}
+    rec = dict(
+        tokens=toks,
+        homes=homes,
+        ticks=len(tick_ms),
+        tick_ms=tick_ms,
+        wall_s=sum(tick_ms) / 1e3,
+        drains=fleet.drains,
+        resumed=fleet.resumed,
+        readmissions=fleet.readmissions,
+        resumes=resumes,
+        serve_errors=errors,
+        unfaulted_tokens=ref_toks,
+        launches=counts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    emit("serve_ft", **rec)
+    want_errors = [monkey.errors if s == monkey.shard else 0
+                   for s in range(fleet.shards)]
+    for ok, what in (
+        (sorted(toks) == [0, 1, 2, 3], f"finished {sorted(toks)}"),
+        (all(len(t) == max_new for t in toks.values()), "short requests"),
+        (fleet.drains == 1 and fleet.resumed > 0,
+         f"{fleet.drains} drains, {fleet.resumed} resumed"),
+        (errors == want_errors and not fleet.failures,
+         f"serve_errors_total {errors}, failures {fleet.failures}"),
+        (any(a["warm"] for a in resumes), "no warm resume"),
+        (all(toks[rid] == tokens_a[rid] for rid in (0, 1)),
+         "rids 0-1 differ from phase A"),
+        (all(toks[rid] == ref_toks[rid] for rid in (2, 3)),
+         "rids 2-3 differ from the unfaulted engine"),
+    ):
+        if not ok:
+            raise AssertionError(f"serve_ft: {what}")
+    for k in ("sc_fused", "paged_attention_fused_sc"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"serve_ft: kernel {k} never launched")
+    runs = {}
+    for name, extra in (("default", []), ("chaos", ["--chaos"])):
+        argv = ["--smoke", "--requests", "4", "--slots", "2",
+                "--max-len", "48", "--max-new", "4"] + extra
+        done, ms = _synced_ms(lambda: serve_launch.main(argv))
+        runs[name] = dict(ms=ms, finished=sorted(r.rid for r in done),
+                          tokens=sum(len(r.generated) for r in done))
+        if runs[name]["finished"] != [0, 1, 2, 3]:
+            raise AssertionError(f"serve_ft launcher {name}: {runs[name]}")
+    emit("serve_ft_launcher", **runs)
+    rec["launcher"] = runs
     return rec
 
 
@@ -1829,6 +2074,8 @@ def main(argv=None) -> int:
     )
     tokens_a = {r.rid: list(r.generated) for r in eng_a.finished}
     serve_p = prefix_spec_phase(params, cfg, opts, prompts, tokens_a)
+    serve_f = fixed_slot_phase(params, cfg, prompts, 4)
+    serve_ft = fleet_phase(params, cfg, opts, prompts, tokens_a, 4)
     val = validation_phase(params, cfg)
     faulty = faulty_serve_phase(
         params, cfg.replace(sc_backend="exact", paged_attn="unfused"),
@@ -1843,12 +2090,20 @@ def main(argv=None) -> int:
         train = train_phase(args.layers, workdir)
         train_cross_device(workdir)
 
-    serving = (counts_a, counts_b, serve_p["launches"], faulty["counts"])
+    serving = (
+        counts_a,
+        counts_b,
+        serve_p["launches"],
+        serve_f["launches"],
+        serve_ft["launches"],
+        faulty["counts"],
+    )
     launches = {
         k: sum(c.get(k, 0) for c in serving)
         for k in set().union(*serving)
     }
     mlp = fused["mlp_wi"]
+    per_call = fused["wk_prefill_per_call"]
     fa = attn["paged_attention_fused"]["decode"]
     fs = attn["paged_attention_fused_sc"]["decode"]
     kernels = [
@@ -1864,7 +2119,13 @@ def main(argv=None) -> int:
             bound_ms=mlp["bound_ms"],
             bound_by="operations",
             library_ms=None,
-            shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi)",
+            shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi); "
+            "launches from phases A, B, P, F (one key a call) and FT",
+            per_call={
+                k: per_call[k] for k in ("shape", "ms", "plain_ms", "bound_ms")
+            },
+            per_call_case="wk_prefill_per_call: M=12 K=896 N=128, one key "
+            "a call (phase F's prefill of A's first prompt at wk)",
         ),
         dict(
             name="paged_attention_fused",

@@ -2,10 +2,10 @@
 whole sequence for training, and the paged KV cache for chunked decode
 and prefill.
 
-Port of ``repro.models.attention`` minus the fixed-slot ring-buffer
-decode (``attention_block`` with a cache), which comes with the
-fixed-slot engine (ROADMAP queue 1 item 9).  The paged decode
-path (:func:`paged_attention_block`) routes through ``cfg.paged_attn``:
+Port of ``repro.models.attention``.  :func:`attention_block` also
+decodes one token against the fixed-slot engine's per-row cache (a
+``(k, v)`` pair of (b, L, kv, d) buffers, written in place).  The paged
+decode path (:func:`paged_attention_block`) routes through ``cfg.paged_attn``:
 ``"unfused"`` runs the reference gather -> :func:`chunk_decode_attention`
 sequence, ``"fused"`` / ``"fused_sc"`` dispatch to the CUDA kernels in
 ``kernels/paged_attention.py``.  GQA is computed grouped: q heads are
@@ -142,32 +142,63 @@ def blockwise_attention(q, k, v, *, causal: bool = True, chunk: int = 1024):
     return out.to(q.dtype)
 
 
-def attention_block(x, p, cfg, positions, key=None, *, cache=None):
-    """Self-attention sub-block over a whole sequence (training, eval).
-    Returns ``(out, (k, v))``: causal attention through
-    ``cfg.attn_impl`` (``"blockwise"`` or ``"full"``), then the output
-    projection under the key folded with 7.
+def attention_block(x, p, cfg, positions, key=None, *, cache=None,
+                    cache_length=None):
+    """Self-attention sub-block.  Returns ``(out, (k, v))``.
+
+    Without a cache (training, eval, prefill): causal attention over the
+    sequence through ``cfg.attn_impl`` (``"blockwise"`` or ``"full"``),
+    returning the sequence's K/V so prefill can build a cache.  With
+    ``cache=(k_cache, v_cache)`` (b, L, kv, d) buffers, the chunk's K/V
+    are written IN PLACE at ``positions[:, 0]`` and the queries attend
+    to everything up to ``cache_length - 1`` (:func:`decode_attention`);
+    the returned pair is the cache.  The output projection draws under
+    the key folded with 7.
     """
-    if cache is not None:
-        raise NotImplementedError(
-            "attention_block over a fixed-slot ring-buffer cache is not "
-            "ported yet (ROADMAP queue 1 item 9); the paged path is "
-            "paged_attention_block"
-        )
     q, k, v = _project_qkv(x, p, cfg, positions, key)
-    if cfg.attn_impl == "full":
-        out = full_attention(q, k, v, causal=True)
-    elif cfg.attn_impl == "blockwise":
-        out = blockwise_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    if cache is not None:
+        kc, vc = cache
+        _write_rows(kc, k, positions[:, 0])
+        _write_rows(vc, v, positions[:, 0])
+        out = decode_attention(q, kc, vc, cache_length)
+        kv = (kc, vc)
     else:
-        raise ValueError(
-            f"unknown cfg.attn_impl={cfg.attn_impl!r} "
-            "(expected 'blockwise' or 'full')"
-        )
+        if cfg.attn_impl == "full":
+            out = full_attention(q, k, v, causal=True)
+        elif cfg.attn_impl == "blockwise":
+            out = blockwise_attention(
+                q, k, v, causal=True, chunk=cfg.attn_chunk
+            )
+        else:
+            raise ValueError(
+                f"unknown cfg.attn_impl={cfg.attn_impl!r} "
+                "(expected 'blockwise' or 'full')"
+            )
+        kv = (k, v)
     b, s = out.shape[:2]
     okey = layers.fold_keys(key, 7)
     y = layers.dense(out.reshape(b, s, -1), p["wo"], cfg, okey)
-    return y, (k, v)
+    return y, kv
+
+
+def _write_rows(cache, new, start):
+    """``cache[r, start[r] : start[r] + s] = new[r]`` for every row, IN
+    PLACE.  A start past ``L - s`` is clamped to ``L - s``, as
+    ``jax.lax.dynamic_update_slice`` clamps it: a request at the cache's
+    last position overwrites that position instead of writing past the
+    end."""
+    b, s = new.shape[:2]
+    limit = cache.shape[1] - s
+    start = torch.clamp(start.to(torch.int64), 0, limit)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cols = start[:, None] + torch.arange(s, device=cache.device)[None]
+    cache[rows, cols] = new.to(cache.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """One-token decode: q (b, 1, h, d) against a (b, L, kv, d) cache,
+    masked past ``length - 1`` (the query's own position)."""
+    return chunk_decode_attention(q, k_cache, v_cache, length - 1)
 
 
 def chunk_decode_attention(q, k_cache, v_cache, lengths):

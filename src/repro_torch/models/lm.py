@@ -1,13 +1,13 @@
 """LM assembly: parameter specs, the full-sequence forward and loss for
-training, the paged cache, and one chunked decode/prefill step.
+training, the fixed-slot cache with ``prefill`` / ``decode_step``, the
+paged cache, and one chunked decode/prefill step.
 
 Port of the dense branch of ``repro.models.lm``: N × (RMSNorm → GQA attn
 → RMSNorm → SwiGLU MLP), layers stacked on a leading axis and run by a
 Python loop (the reference's ``lax.scan``), each layer under activation
 checkpointing when ``cfg.remat == "full"`` (the reference's
-``jax.checkpoint``).  The MoE, SSM and hybrid families and the
-fixed-slot ``prefill`` / ``decode_step`` come with later slices
-(ROADMAP queue 1 items 7 and 9).
+``jax.checkpoint``).  The MoE, SSM and hybrid families come with a later
+slice (ROADMAP queue 1 item 7).
 
 Recomputation is safe for the stochastic backends because their noise
 is a pure function of the per-layer, per-site key (``sc/ctr_rng.py``):
@@ -93,15 +93,23 @@ def _layer(tree, idx: int):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(x, p, cfg, positions, key):
-    """One dense block (pre-norm residual)."""
+def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
+    """One dense block (pre-norm residual).  Returns ``(x, (k, v))``:
+    the sequence's K/V, or the ring-buffer ``cache`` it wrote into."""
     akey = layers.fold_keys(key, 11)
-    h, _ = attention.attention_block(
-        layers.rms_norm(x, p["ln1"]), p["attn"], cfg, positions, akey
+    h, kv = attention.attention_block(
+        layers.rms_norm(x, p["ln1"]),
+        p["attn"],
+        cfg,
+        positions,
+        akey,
+        cache=cache,
+        cache_length=cache_length,
     )
     x = x + h
     fkey = layers.fold_keys(key, 13)
-    return x + layers.mlp(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
+    h = layers.mlp(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
+    return x + h, kv
 
 
 def _maybe_remat(fn, cfg):
@@ -133,7 +141,7 @@ def encode(params, inputs, cfg, *, rng=None):
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def body(xc, lp, key):
-        return _apply_block(xc, lp, cfg, positions, key)
+        return _apply_block(xc, lp, cfg, positions, key)[0]
 
     body = _maybe_remat(body, cfg)
     for idx in range(cfg.n_layers):
@@ -188,6 +196,85 @@ def lm_loss(params, batch, cfg, *, rng=None):
         )
         total = total + nll
     return total / (b * s)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-slot serving: a full-length K/V row per batch slot
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
+    """Stacked per-layer decode cache: ``{"k", "v"}`` of (layers, batch,
+    max_len, kv_heads, head_dim) zeros in ``cfg.act_dtype``."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (cfg.n_layers, batch, max_len, kvh, hd)
+    dtype = dtype or cfg.act_dtype
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def prefill(params, inputs, cfg, max_len: int, *, rng=None):
+    """Run the prompt through the model.  inputs: (b, s) tokens with
+    ``s <= max_len``.  Returns ``(logits, cache, lengths)``: the last
+    token's logits (b, vocab) — the unembed runs on that one row — a
+    cache of every layer's K/V zero-padded to ``max_len``
+    (:func:`init_cache`'s layout), and ``lengths`` (b,) = s.
+
+    ``rng`` is one raw (2,) key for the whole call: layer ``idx`` draws
+    from ``fold_in(rng, idx)``, the unembed from ``rng`` itself.
+    """
+    _require_dense(cfg)
+    x = _embed_inputs(params, inputs, cfg, rng)
+    b, s = x.shape[:2]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cache = init_cache(cfg, b, max_len, x.dtype, device=x.device)
+    for idx in range(cfg.n_layers):
+        key = layers.fold_keys(rng, idx)
+        x, (k, v) = _apply_block(
+            x, _layer(params["blocks"], idx), cfg, positions, key
+        )
+        cache["k"][idx, :, :s] = k
+        cache["v"][idx, :, :s] = v
+    x = layers.rms_norm(x, params["final_norm"])
+    logits = _logits(x[:, -1], params, cfg, rng)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return logits, cache, lengths
+
+
+def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
+    """One token per row.  tokens: (b,) next input ids; lengths: (b,)
+    current fill (the new token writes at that index, clamped to the
+    last one).  Returns ``(logits (b, vocab), cache)``: ``cache`` is the
+    dict given, whose buffers this call updated IN PLACE.
+
+    ``rng`` is one raw (2,) key for the whole batch, folded per layer as
+    in :func:`prefill`; every row is one row of each SC matmul, so a
+    row's bits depend on its neighbours (the fixed-slot engine's
+    contract, unlike :func:`decode_paged`'s per-request keys).
+    """
+    _require_dense(cfg)
+    x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
+    positions = lengths.to(torch.int64)[:, None]
+    new_lengths = lengths.to(torch.int64) + 1
+    for idx in range(cfg.n_layers):
+        key = layers.fold_keys(rng, idx)
+        x, _ = _apply_block(
+            x,
+            _layer(params["blocks"], idx),
+            cfg,
+            positions,
+            key,
+            cache=(cache["k"][idx], cache["v"][idx]),
+            cache_length=new_lengths,
+        )
+    x = layers.rms_norm(x, params["final_norm"])
+    return _logits(x[:, 0], params, cfg, rng), cache
 
 
 # ---------------------------------------------------------------------------

@@ -250,6 +250,7 @@ def randint(key, shape, minval: int, maxval: int, device=None):
     k1, k2 = split(key)
     hi = random_bits(k1, shape, device)
     lo = random_bits(k2, shape, device)
-    mult = ((1 << 16) % span) ** 2 % span
+    # the reference squares 2**16 % span in uint32, which wraps
+    mult = ((((1 << 16) % span) ** 2) & MASK32) % span
     off = ((hi % span) * mult + lo % span) & MASK32
     return (off % span + int(minval)).to(torch.int32)

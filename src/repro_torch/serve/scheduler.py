@@ -195,6 +195,18 @@ class Scheduler:
             "request.submit", rid=req.rid, prompt_tokens=len(req.prompt)
         )
 
+    def adopt(self, seq: Sequence) -> None:
+        """Queue a PRE-BUILT sequence at the admission head (a warm
+        resume from ``PagedServingEngine.restore``): its first
+        ``seq.fed`` positions already hold valid K/V under its rid's
+        block table, so on admission it goes on feeding ``pending`` from
+        there.  ``_admit`` takes it unchanged: ``adopt_prefix`` leaves an
+        existing table alone and ``has_room`` / ``ensure`` extend it."""
+        self.waiting.appendleft(seq)
+        self._m_submitted.inc()
+        self._update_gauges()
+        self.tracer.event("request.adopt", rid=seq.req.rid, fed=seq.fed)
+
     def has_work(self) -> bool:
         return bool(self.waiting) or any(r is not None for r in self.rows)
 

@@ -19,8 +19,10 @@ unembed's K-major weight taken without a copy, and bit-equal from launch
 to launch at a split-K shape (one ``sc_mac_fused`` and one
 ``sc_mac_reduce`` count per call); a
 tiny model served on the card and on the CPU gives the same greedy
-tokens (also on the ``tiny`` faulty device), and trains to the same
-losses within 1e-4.
+tokens (also on the ``tiny`` faulty device, and through the fixed-slot
+engine), trains to the same losses within 1e-4, and a request drained
+from a card engine resumes warm on another with an uninterrupted run's
+tokens.
 """
 
 import math
@@ -435,3 +437,53 @@ def test_tiny_model_on_a_faulty_device_serves_same_tokens_on_card_and_cpu(
         eng.close()
         toks[dev.type] = {r.rid: r.generated for r in eng.finished}
     assert toks["cuda"] == toks["cpu"]
+
+
+def _tiny_sc_params(dev):
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        d_model=32, d_ff=64, vocab=128, param_dtype=torch.float32,
+        act_dtype=torch.float32, sc_backend="pallas_bitexact", sc_nbit=32,
+        paged_attn="fused_sc")
+    gen = torch.Generator().manual_seed(0)
+    return cfg, params.init_params(lm.lm_param_specs(cfg), gen, dev,
+                                   torch.float32)
+
+
+def test_fixed_slot_engine_serves_same_tokens_on_card_and_cpu(cuda):
+    """The default engine (fixed slots, kernel 1 with one key a call)."""
+    prompts = [[5, 9, 17, 3, 8, 11, 40], [40, 2, 8, 30], [7, 7, 3]]
+    toks = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, p = _tiny_sc_params(dev)
+        cuda_lib.reset_launches()
+        eng = build_engine(p, cfg, ServeOptions(slots=2, max_len=32),
+                           device=dev)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=4))
+        toks[dev.type] = {r.rid: r.generated
+                          for r in eng.run_until_drained()}
+        if dev.type == "cuda":
+            assert cuda_lib.launches["sc_fused"] > 0
+            assert cuda_lib.launches["paged_attention_fused_sc"] == 0
+    assert toks["cuda"] == toks["cpu"]
+
+
+def test_drain_on_the_card_restores_warm_on_another_card_engine(cuda):
+    cfg, p = _tiny_sc_params(cuda)
+    opts = ServeOptions(paged=True, slots=2, max_len=32, block_size=4,
+                        prefill_chunk=3)
+    prompt = [5, 9, 17, 3, 11, 5]
+    ref = build_engine(p, cfg, opts, device=cuda)
+    ref.submit(Request(rid=0, prompt=list(prompt), max_new_tokens=5))
+    want = ref.run_until_drained()[0].generated
+    src = build_engine(p, cfg, opts, device=cuda)
+    src.submit(Request(rid=0, prompt=list(prompt), max_new_tokens=5))
+    for _ in range(3):
+        src.step()
+    (ckpt,) = src.drain()
+    assert ckpt["kv"]["k"].device.type == "cpu" and ckpt["fed"] > 0
+    dst = build_engine(p, cfg, opts, device=cuda)
+    assert dst.restore(ckpt) is True
+    assert dst.run_until_drained()[0].generated == want
+    assert (dst.metrics.value("serve_prefill_tokens_total") or 0) \
+        < len(prompt)

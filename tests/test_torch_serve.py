@@ -123,9 +123,8 @@ def test_serving_exact_fused_greedy_tokens_match_reference():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(paged=False),
-        dict(paged=True, mesh=True),
-        dict(paged=True, chaos=True),
+        dict(paged=False, mesh=True),
+        dict(mesh=True, model_parallel=2),
     ],
 )
 def test_unported_options_raise_not_implemented(kw):

@@ -84,6 +84,27 @@ def test_entry_points_default_to_the_card():
     assert state["params"]["embed"]["table"].device.type == "cpu"
 
 
+def test_serving_entry_points_default_to_the_card():
+    """The default (fixed-slot) engine, its cache and the serve launcher
+    take the card unless asked for the CPU."""
+    from repro_torch.launch import serve as launch_serve
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults take it")
+    gen = torch.Generator().manual_seed(0)
+    p = params.init_params(lm.lm_param_specs(cfg), gen, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(p, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--smoke", "--requests", "1"])
+    eng = build_engine(p, cfg, device="cpu")
+    assert eng.cache["k"].device.type == "cpu"
+    assert eng.cache["k"].shape == (2, 4, 128, 2, 16)
+
+
 def test_engine_refuses_params_on_another_device():
     cfg = get_smoke_config("qwen2-0.5b")
     gen = torch.Generator().manual_seed(0)
