@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port's paged and fixed-slot SC serving paths,
-its serve-fleet failover, its trainer, and its validation /
-faulty-device path on one GPU.
+its serve-fleet failover, the paper's cell model, MoE serving, its
+trainer, and its validation / faulty-device path on one GPU.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--moe-layers N]
 
 Phases, each printing one JSON line (any failure raises, so the exit
 code is non-zero):
@@ -24,7 +24,9 @@ code is non-zero):
    kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
    noise's mean and variance, and two launches of the moment kernel
    bit-equal; kernel 1 also with one key a call at phase F's prefill
-   shape), with its median time, the plain version's time, the
+   shape and at phase M's expert, router and wq shapes, the plain
+   version holding an expert's first 128 columns; both attention
+   kernels also at phase M's heads), with its median time, the plain version's time, the
    least time the card could take (``bound_ms``; for the moment kernels
    the faster of 3xTF32 on the tensor cores and FP32 FMAs, with the FP32
    bound beside it), and a PyTorch yardstick where one computes the
@@ -95,10 +97,28 @@ code is non-zero):
    device noise, its powers, kernel 2, the idle share); then the SMOKE
    model on the ``tiny`` device on the card and on the CPU: equal
    tokens;
-10. the kernels line and the device line.
+10. phase C, the paper's cell model on the card (no kernel may
+    launch): the bounds of the reference's Fig. 7 / Fig. 8 tests
+    (``tests/test_engine.py``, ``tests/test_variance.py``) over 1,000
+    MULs each; one ``sc_multiply`` of 65,536 MULs at nbit 1024 (a 67 M
+    cell state: ms, peak memory, unbiased against the deterministic
+    product); 4,096 MULs on the card and on the CPU under one key: cell
+    states equal except where a cell's uniform lies between the two
+    devices' float32 survival probabilities (the count printed);
+11. phase M: moonshot-v1-16b-a3b at its published width (64 experts,
+    top-6, 16 heads of 128), depth ``--moe-layers`` (default 1), bf16,
+    random weights from seed 0.  ``pallas_bitexact`` (kernel 1, one
+    row-key launch per expert) with ``fused_sc`` attention (kernel 3):
+    one greedy request of 8 prompt tokens and 2 new, the decode tick
+    traced (kernel 1's launches must be the plan's, 4 + 1 + 128 a layer
+    and the unembed; the share of its MULs on empty capacity slots);
+    float32 ``exact`` with ``fused`` attention (kernel 2): the paged
+    engine's greedy tokens equal the fixed-slot engine's; both MoE SMOKE
+    configs on the card and on the CPU: equal tokens;
+12. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B, P, F, FT, T, V and D
-and read just after each; a kernel of a phase's path that did not
+Launch counts are reset just before phases A, B, P, F, FT, T, V, D, C
+and M and read just after each; a kernel of a phase's path that did not
 launch fails the run.  Without a CUDA device the script exits non-zero before
 printing any result.
 """
@@ -354,6 +374,9 @@ def tensor_core_ops(census: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+PLAIN_COLS = 128  # columns of a phase-M expert shape the plain version holds
+
+
 def check_sc_fused(rates: dict) -> dict:
     from repro_torch.kernels import sc_fused as kf
 
@@ -367,6 +390,12 @@ def check_sc_fused(rates: dict) -> dict:
         ("wk_per_call", 2, 896, 128, 128, False),
         # phase F's prefill of A's first prompt: 12 rows, one key
         ("wk_prefill_per_call", 12, 896, 128, 128, False),
+        # phase M (moonshot-v1-16b-a3b): one expert's launch (1 slot x 8
+        # capacity rows), the router and wq of a decode tick
+        ("moe_wi", 8, 2048, 2816, 2816, True),
+        ("moe_wo", 8, 1408, 2048, 2048, True),
+        ("moe_router", 1, 2048, 64, 64, True),
+        ("moe_wq", 1, 2048, 2048, 2048, True),
     ]
     rows = {}
     for name, m, k, n, n_orig, row_keys in shapes:
@@ -385,12 +414,17 @@ def check_sc_fused(rates: dict) -> dict:
             row_keys=row_keys,
         )
         got = kf.sc_fused_popcount(keys, x, w, **kw)
+        # the plain version holds the first PLAIN_COLS columns (counters
+        # depend on the column index and n_orig alone): all of a wide
+        # expert would take it minutes
+        cols = min(n, PLAIN_COLS) if name.startswith("moe_") else n
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = kf.sc_fused_popcount_plain(keys, x, w, **kw)
+        ref = kf.sc_fused_popcount_plain(keys, x, w[:, :cols].contiguous(),
+                                         **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got.long() - ref.long()).abs().max())
+        err = int((got[:, :cols].long() - ref.long()).abs().max())
         if err != 0:
             raise AssertionError(f"sc_fused {name}: differs by {err}")
         ms = time_ms(lambda: kf.sc_fused_popcount(keys, x, w, **kw), 3)
@@ -403,6 +437,7 @@ def check_sc_fused(rates: dict) -> dict:
             n_orig=n_orig,
             row_keys=row_keys,
             bit_equal=True,
+            plain_cols=cols,
             ms=ms,
             plain_ms=plain_ms,
             bound_ms=bound_ms,
@@ -427,10 +462,20 @@ ATTN_CASES = (
     ("long_verify", P_SPEC_K + 1, (1021, 700), 64),
     ("sparse", 1, (15, 11), 64),
 )
+QWEN_HEADS = (14, 2, 64)  # (heads, KV heads, head dim) of qwen2-0.5b
+MOE_HEADS = (16, 16, 128)  # moonshot-v1-16b-a3b's (phase M)
+# Phase M's attention shapes: the exact half's decode rows (prompts of
+# 12 and 8) and a prefill chunk beside a row in its first decode.
+MOE_ATTN_CASES = (
+    ("moe_decode", 1, (13, 9), 2),
+    ("moe_prefill", 8, (0, 8), 2),
+)
 
 
-def _attn_inputs(rng, sc: int, lengths, nb: int, dtype=torch.float32):
-    b, h, kvh, hd, bs = 2, 14, 2, 64, 16
+def _attn_inputs(rng, sc: int, lengths, nb: int, dtype=torch.float32,
+                 heads=QWEN_HEADS):
+    h, kvh, hd = heads
+    b, bs = 2, 16
     n_pages = 1 + b * nb
     dev = "cuda"
     kp = torch.tensor(rng.normal(size=(n_pages, bs, kvh, hd)), dtype=dtype)
@@ -544,13 +589,17 @@ def check_attention(rates: dict) -> dict:
     rng = np.random.default_rng(2)
     nbit = 1024
     out = {"paged_attention_fused": {}, "paged_attention_fused_sc": {}}
-    for case, sc, lengths, nb in ATTN_CASES:
-        keys, q, kp, vp, bt, ln = _attn_inputs(rng, sc, lengths, nb)
+    cases = [c + (QWEN_HEADS,) for c in ATTN_CASES]
+    cases += [c + (MOE_HEADS,) for c in MOE_ATTN_CASES]
+    for case, sc, lengths, nb, heads in cases:
+        keys, q, kp, vp, bt, ln = _attn_inputs(rng, sc, lengths, nb,
+                                               heads=heads)
         b, _, h, hd = q.shape
         kvh, bs = kp.shape[2], kp.shape[1]
         bytes_ = _attn_bytes(q, kp, bt, ln)
         pairs = _live_pairs(q, ln)
-        shape = dict(case=case, sc=sc, lengths=list(lengths), nb=nb)
+        shape = dict(case=case, sc=sc, lengths=list(lengths), nb=nb,
+                     heads=list(heads))
 
         # exact QK^T
         kern = (lambda: pa.paged_attention_fused(q, kp, vp, bt, ln))
@@ -2008,15 +2057,354 @@ def train_cross_device(workdir: str) -> None:
         raise AssertionError(f"train losses differ card vs CPU: {rel}")
 
 
+# ---------------------------------------------------------------------------
+# Phase C: the paper's cell model (conversion, engine, variance) on the card
+# ---------------------------------------------------------------------------
+
+C_MULS = 1000  # MULs a statistic is taken over (the reference's 300-1,000)
+C_BIG_MULS = 65_536  # one sc_multiply at nbit 1024: a 67 M-cell state
+C_CROSS_MULS = 4096  # MULs held card against CPU
+
+
+def _sigma(p) -> float:
+    return float(torch.std(p, correction=0))
+
+
+def cell_model_phase() -> dict:
+    """Phase C: the bounds of the reference's Fig. 7 / Fig. 8 tests at
+    their sizes or larger, one ``sc_multiply`` of 65,536 MULs at nbit
+    1024 (ms, peak memory, its error against the deterministic product),
+    and 4,096 MULs on the card and on the CPU under one key: states equal
+    except at cells whose uniform lies between the two devices'
+    survival probabilities (float32 ``exp`` may round differently).  No
+    kernel of the port may launch."""
+    import warnings
+
+    from repro_torch.core import conversion, engine, physics, variance
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.sc import ctr_rng
+
+    dev = "cuda"
+    cuda_lib.reset_launches()
+    key = ctr_rng.prng_key(0)
+    t0 = time.perf_counter()
+
+    def p_states(tau_y, nbit, k, tau_x=0.3):
+        cfg = engine.EngineConfig(nbit=nbit)
+        tx = torch.full((C_MULS,), tau_x, device=dev)
+        ty = torch.full((C_MULS,), tau_y, device=dev)
+        st = engine.sc_multiply_states(k, tx, ty, cfg, device=dev)
+        return engine.readout(st)
+
+    p7a = p_states(0.4, 1000, key)
+    fig7a = dict(sigma=_sigma(p7a), mean=float(p7a.mean()),
+                 p_true=math.exp(-0.7))
+    s_nbit = {n: _sigma(p_states(0.4, n, ctr_rng.fold_in(key, n)))
+              for n in (256, 1024, 4096)}
+    s_tau = {ty: _sigma(p_states(ty, 1024, ctr_rng.fold_in(key, int(ty * 10))))
+             for ty in (0.2, 0.4, 0.6)}
+    cfg = engine.EngineConfig(nbit=1024)
+    x = torch.full((C_MULS,), 400, device=dev)
+    y = torch.full((C_MULS,), 700, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        s_ic = {s: _sigma(variance.sc_mul_with_ic_variance(
+            ctr_rng.fold_in(key, int(s * 100)), x, y, cfg, s, device=dev))
+            for s in (0.0, 0.05, 0.10)}
+    s_sc = {s: _sigma(variance.sc_mul_with_circuit_variance(
+        ctr_rng.fold_in(key, int(s * 1000)), x, y, cfg, s, device=dev))
+        for s in (0.04, 0.10)}
+    s_log = {s: _sigma(variance.log_multiplier(
+        ctr_rng.fold_in(key, 7000 + int(s * 1000)), x, y, cfg.conv, s,
+        device=dev)) for s in (0.04, 0.10)}
+    stats_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    xs = torch.tensor(rng.integers(0, 1024, C_BIG_MULS), device=dev)
+    ys = torch.tensor(rng.integers(0, 1024, C_BIG_MULS), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    big = {}
+
+    def mul():
+        big["out"] = engine.sc_multiply(key, xs, ys, cfg, device=dev)
+
+    big_ms = time_ms(mul, 3)
+    big_peak = torch.cuda.max_memory_allocated()
+    err = big["out"][0] - conversion.quantized_product_probability(
+        xs, ys, cfg.conv)
+    # card against CPU: one key, the same operands
+    xc, yc = xs[:C_CROSS_MULS].cpu(), ys[:C_CROSS_MULS].cpu()
+    taus = [conversion.operand_to_tau(v, cfg.conv) for v in (xc, yc)]
+    taus_card = [conversion.operand_to_tau(v.to(dev), cfg.conv)
+                 for v in (xc, yc)]
+    tau_equal = all(torch.equal(a, b.cpu()) for a, b in zip(taus, taus_card))
+    states = {d: engine.sc_multiply_states(key, *taus, cfg, device=d).cpu()
+              for d in (dev, "cpu")}
+    shape = (C_CROSS_MULS, cfg.nbit)
+    band = torch.zeros(shape, dtype=torch.bool)
+    ulp_pulses = 0
+    for k, tau in zip(ctr_rng.split(key), taus):
+        u = ctr_rng.uniform(k, shape)
+        p_cpu = physics.p_unswitched(tau, physics.I_C_UA)
+        p_card = physics.p_unswitched(tau.to(dev), physics.I_C_UA).cpu()
+        ulp_pulses += int((p_cpu != p_card).sum())
+        lo = torch.minimum(p_cpu, p_card)[:, None]
+        hi = torch.maximum(p_cpu, p_card)[:, None]
+        band |= (u >= lo) & (u < hi)
+    diff = states[dev] != states["cpu"]
+    counts = dict(cuda_lib.launches)
+    rec = dict(
+        fig7a=fig7a,
+        fig7b_sigma_by_nbit=s_nbit,
+        fig7b_ratio_per_4x_nbit=[s_nbit[256] / s_nbit[1024],
+                                 s_nbit[1024] / s_nbit[4096]],
+        fig7b_sigma_by_tau_y=s_tau,
+        fig8a_sigma_by_sigma_ic=s_ic,
+        fig8b_sc_sigma=s_sc,
+        fig8b_log_sigma=s_log,
+        statistics_s=stats_s,
+        big_muls=C_BIG_MULS,
+        big_cells=C_BIG_MULS * cfg.nbit,
+        big_ms=big_ms,
+        big_max_memory_allocated=big_peak,
+        big_mean_err=float(err.mean()),
+        big_err_sigma=_sigma(err),
+        cross_muls=C_CROSS_MULS,
+        cross_tau_bit_equal=tau_equal,
+        cross_ulp_pulses=ulp_pulses,
+        cross_band_cells=int(band.sum()),
+        cross_differing_cells=int(diff.sum()),
+        launches=counts,
+        wall_s=time.perf_counter() - t0,
+    )
+    emit("cell_model_c", **rec)
+    r1, r2 = rec["fig7b_ratio_per_4x_nbit"]
+    checks = [
+        (0.013 < fig7a["sigma"] < 0.019, "Fig. 7a sigma"),
+        (abs(fig7a["mean"] - fig7a["p_true"]) < 0.002, "Fig. 7a mean"),
+        (1.6 < r1 < 2.5 and 1.6 < r2 < 2.5, "Fig. 7b sigma vs nbit"),
+        (max(s_tau.values()) / min(s_tau.values()) < 1.6,
+         "Fig. 7b sigma vs tau_Y"),
+        (s_ic[0.10] < 1.5 * s_ic[0.0] and s_ic[0.05] < 1.5 * s_ic[0.0],
+         "Fig. 8a sigma vs sigma(I_c)"),
+        (s_sc[0.10] < 2.0 * s_sc[0.04], "Fig. 8b SC sigma"),
+        (s_log[0.10] > 2.0 * s_log[0.04], "Fig. 8b log-multiplier sigma"),
+        (s_log[0.10] > 3.0 * s_sc[0.10], "Fig. 8b log-multiplier vs SC"),
+        # 65,536 MULs: unbiased, and the error's sigma under the
+        # binomial bound of one MUL (sqrt(1/4 / 1024))
+        (abs(rec["big_mean_err"]) < 3 * 0.5 / math.sqrt(1024 * C_BIG_MULS),
+         "65,536 MULs biased"),
+        (0 < rec["big_err_sigma"] < 0.5 / math.sqrt(1024), "65,536 MULs"),
+        (tau_equal, "operand_to_tau differs between card and CPU"),
+        (not bool((diff & ~band).any()),
+         "card and CPU states differ outside the ulp bands"),
+        (not any(counts.values()), f"a kernel launched: {counts}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"cell_model_c: {what}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase M: the MoE family at moonshot-v1-16b-a3b's full width
+# ---------------------------------------------------------------------------
+
+M_PROMPT = 8  # one prefill chunk
+M_NEW = 2  # a prefill tick, then one decode tick (traced)
+M_TRACED_TICK = 1
+
+
+def _moe_params(cfg, device, dtype):
+    from repro_torch.models import lm, params
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    return params.init_params(lm.lm_param_specs(cfg), gen, device, dtype)
+
+
+def moe_kernel1_plan(cfg, slots: int) -> dict:
+    """Kernel 1's launches and SC MULs in one decode tick of the paged
+    engine at width 1: per layer wq / wk / wv / wo, the router, and one
+    launch per expert for wi and for wo over ``slots x capacity`` rows
+    (every capacity slot, empty or not, as the reference runs them); the
+    unembed once.  Live expert rows: ``slots x top_k`` (capacity 8 holds
+    every token of a width-1 tick)."""
+    from repro_torch.models import moe
+
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    rows = slots * moe.capacity(cfg, 1)
+    per_row = d * 2 * f + f * d
+    attn = slots * (d * h * hd + 2 * d * kvh * hd + h * hd * d)
+    expert = e * rows * per_row
+    live = slots * cfg.top_k * per_row
+    layer = attn + slots * d * e + expert
+    total = cfg.n_layers * layer + slots * d * cfg.vocab
+    return dict(
+        launches=cfg.n_layers * (4 + 1 + 2 * e) + 1,
+        sc_muls=total,
+        expert_muls=cfg.n_layers * expert,
+        empty_slot_muls=cfg.n_layers * (expert - live),
+        empty_slot_share=cfg.n_layers * (expert - live) / total,
+    )
+
+
+def moe_phase(layers: int) -> dict:
+    """Phase M: moonshot-v1-16b-a3b at its published width, depth cut to
+    ``layers``, random bf16 weights from seed 0.  The bit-exact half
+    (``pallas_bitexact`` -> kernel 1 in row-key mode, ``fused_sc``
+    attention -> kernel 3, the paged engine, 1 slot, one greedy request
+    of 8 prompt tokens and 2 new) traces its decode tick: kernel 1's
+    launches must be the plan's and kernel 3's per call the attention
+    plan's.  The exact half (float32, ``fused`` attention -> kernel 2,
+    2 slots): the paged engine's greedy tokens equal the fixed-slot
+    engine's for prompts of 12 and 8 tokens, 4 new each.  Then both MoE
+    SMOKE configs on ``pallas_bitexact`` on the card and on the CPU:
+    equal tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve import Request, ServeOptions, build_engine
+
+    base = get_config("moonshot-v1-16b-a3b").replace(n_layers=layers)
+    cfg = base.replace(sc_backend="pallas_bitexact", sc_nbit=1024,
+                       paged_attn="fused_sc")
+    t0 = time.perf_counter()
+    params = _moe_params(cfg, "cuda", cfg.param_dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(3, cfg.vocab, M_PROMPT).tolist()
+    opts = ServeOptions(paged=True, slots=1, block_size=16,
+                        prefill_chunk=M_PROMPT, max_len=32)
+    counts, tick_ms, _, trace = serve_phase(
+        "serve_m", cfg, opts, [prompt], M_NEW, params,
+        ("sc_fused", "paged_attention_fused_sc"), traced_tick=M_TRACED_TICK,
+    )
+    plan = moe_kernel1_plan(cfg, opts.slots)
+    k1_ms, k1_n = kernel_ms(trace, "sc_fused_kernel")
+    att_ms, att_n = kernel_ms(trace, "paged_attn_")
+    aplan = pa.paged_attention_plan(
+        opts.slots, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, 1,
+        cfg.resolved_head_dim, -(-opts.max_len // opts.block_size),
+        opts.block_size, cfg.sc_nbit,
+    )
+    bitexact = dict(
+        params=n_params,
+        init_s=init_s,
+        tick_ms=tick_ms,
+        traced_tick=M_TRACED_TICK,
+        host_ms=trace["wall_ms"],
+        device_ms=trace["device_ms"],
+        kernel1_ms=k1_ms,
+        kernel1_launches=k1_n,
+        kernel1_plan=plan,
+        kernel1_ns_per_mul=k1_ms * 1e6 / plan["sc_muls"],
+        attention_ms=att_ms,
+        attention_launches=att_n,
+        attention_launches_per_call=att_n / cfg.n_layers,
+        attention_plan_launches=aplan.launches,
+        top=_top(trace),
+        launches=counts,
+    )
+    emit("serve_m_trace", **bitexact)
+    if k1_n != plan["launches"]:
+        raise AssertionError(f"serve_m: {k1_n} kernel-1 launches in the "
+                             f"traced tick, {plan['launches']} planned")
+    if att_n != aplan.launches * cfg.n_layers:
+        raise AssertionError(f"serve_m: {att_n} attention launches")
+    del params
+    torch.cuda.empty_cache()
+
+    # the exact half: paged == fixed-slot tokens (the reference's
+    # invariant, tests/test_serve_zoo.py), kernel 2 on the paged side
+    cfg32 = base.replace(param_dtype=torch.float32, act_dtype=torch.float32,
+                         sc_backend="exact", paged_attn="fused")
+    params = _moe_params(cfg32, "cuda", torch.float32)
+    prompts = [rng.integers(3, cfg.vocab, n).tolist() for n in (12, 8)]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    paged_opts = ServeOptions(paged=True, slots=2, block_size=16,
+                              prefill_chunk=8, max_len=32)
+    _, paged_tok, paged_ms, _ = serve(params, cfg32, paged_opts, prompts, 4,
+                                      "cuda")
+    exact_counts = dict(cuda_lib.launches)
+    eng = build_engine(params, cfg32, ServeOptions(slots=2, max_len=32),
+                       device="cuda")
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=4))
+    t1 = time.perf_counter()
+    fixed_tok = {r.rid: list(r.generated) for r in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    exact = dict(
+        paged_tokens=paged_tok,
+        fixed_tokens=fixed_tok,
+        paged_tick_ms=paged_ms,
+        fixed_s=time.perf_counter() - t1,
+        launches=exact_counts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    emit("serve_m_exact", **exact)
+    del params, eng
+    torch.cuda.empty_cache()
+    if paged_tok != fixed_tok:
+        raise AssertionError("serve_m: paged tokens != fixed-slot tokens")
+    if exact_counts.get("paged_attention_fused", 0) <= 0:
+        raise AssertionError("serve_m: kernel paged_attention_fused never "
+                             "launched")
+    cross = moe_cross_device()
+    return dict(bitexact=bitexact, exact=exact, cross=cross,
+                counts_bitexact=counts, counts_exact=exact_counts)
+
+
+def moe_cross_device() -> dict:
+    """Both MoE SMOKE configs (narrowed as the CPU parity tests run
+    them) on ``pallas_bitexact`` with ``fused_sc`` attention through the
+    paged engine, on the card and on the CPU: equal tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import ServeOptions
+
+    out = {}
+    for arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"):
+        cfg = get_smoke_config(arch).replace(
+            d_model=32, d_ff=48, vocab=128, param_dtype=torch.float32,
+            act_dtype=torch.float32, sc_backend="pallas_bitexact",
+            sc_nbit=32, paged_attn="fused_sc",
+        )
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(3, cfg.vocab, n).tolist() for n in (6, 9)]
+        opts = ServeOptions(paged=True, slots=2, max_len=24, block_size=4,
+                            prefill_chunk=4)
+        toks = {}
+        for device in ("cuda", "cpu"):
+            params = _qwen_params(cfg, device)
+            _, toks[device], _, _ = serve(params, cfg, opts, prompts, 3,
+                                          device)
+        out[arch] = toks
+        emit("serve_m_cross_device", arch=arch, cuda=toks["cuda"],
+             cpu=toks["cpu"])
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"{arch}: tokens differ between card and "
+                                 "CPU")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2, help="depth (<= 24)")
+    ap.add_argument("--moe-layers", type=int, default=1,
+                    help="phase M's depth (<= 48)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     if not 1 <= args.layers <= 24:
         raise SystemExit("--layers must be in 1..24")
+    if not 1 <= args.moe_layers <= 48:
+        raise SystemExit("--moe-layers must be in 1..48")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2085,6 +2473,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cross_device()
     faulty_cross_device()
+    cell_model_phase()
+    serve_m = moe_phase(args.moe_layers)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = train_phase(args.layers, workdir)
@@ -2097,6 +2487,8 @@ def main(argv=None) -> int:
         serve_f["launches"],
         serve_ft["launches"],
         faulty["counts"],
+        serve_m["counts_bitexact"],
+        serve_m["counts_exact"],
     )
     launches = {
         k: sum(c.get(k, 0) for c in serving)
@@ -2120,7 +2512,11 @@ def main(argv=None) -> int:
             bound_by="operations",
             library_ms=None,
             shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi); "
-            "launches from phases A, B, P, F (one key a call) and FT",
+            "launches from phases A, B, P, F (one key a call), FT and M",
+            moe_expert={
+                k: fused["moe_wi"][k]
+                for k in ("shape", "ms", "plain_ms", "plain_cols", "bound_ms")
+            },
             per_call={
                 k: per_call[k] for k in ("shape", "ms", "plain_ms", "bound_ms")
             },

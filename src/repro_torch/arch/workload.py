@@ -1,12 +1,14 @@
 """Static workload extraction: a ModelConfig's SC-routed matmuls.
 
-Port of ``repro.arch.workload`` for the ported (dense) family:
-``dense_workload(cfg, tokens)`` enumerates every matmul a forward pass
-routes through ``layers.dense`` with its per-layer multiplicity, and
-``price_workload`` prices the whole pass on the array without running
-any numerics.  The MoE / SSM / hybrid / frontend sites come with the
-model zoo (ROADMAP queue 1 item 7), the sharded pricing with the
-sharded substrate (item 10).
+Port of ``repro.arch.workload`` for the ported attention families
+(dense, moe, vlm): ``dense_workload(cfg, tokens)`` enumerates every
+matmul a forward pass routes through ``layers.dense`` /
+``expert_dense`` with its per-layer multiplicity (MoE experts as the
+dense equivalent of the ``top_k`` visits a token makes, plus the shared
+expert), and ``price_workload`` prices the whole pass on the array
+without running any numerics.  The SSM / hybrid / frontend sites come
+with the rest of the model zoo (ROADMAP queue 1 item 7), the sharded
+pricing with the sharded substrate (item 10).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from repro_torch.arch.accounting import TraceReport, merge_reports
 from repro_torch.arch.backend import schedule_call
 from repro_torch.arch.spec import ArraySpec
 from repro_torch.core.costmodel import CostParams
+from repro_torch.models import lm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,11 +40,7 @@ class MatmulSite:
 def dense_workload(cfg, tokens: int) -> list[MatmulSite]:
     """All dense() matmuls of one forward pass over ``tokens`` tokens
     (the reference's site order and labels)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 7)"
-        )
+    lm.require_ported(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     count = cfg.n_layers
@@ -51,10 +50,20 @@ def dense_workload(cfg, tokens: int) -> list[MatmulSite]:
         ("attn.wk", d, kvh * hd, count),
         ("attn.wv", d, kvh * hd, count),
         ("attn.wo", h * hd, d, count),
-        ("mlp.wi", d, wi_cols, count),
-        ("mlp.wo", cfg.d_ff, d, count),
-        ("unembed", d, cfg.vocab, 1),
     ]
+    if cfg.family == "moe":
+        visits = cfg.top_k + (1 if cfg.shared_expert else 0)
+        shapes += [
+            ("moe.router", d, cfg.n_experts, count),
+            ("moe.wi", d, wi_cols, count * visits),
+            ("moe.wo", cfg.d_ff, d, count * visits),
+        ]
+    else:
+        shapes += [
+            ("mlp.wi", d, wi_cols, count),
+            ("mlp.wo", cfg.d_ff, d, count),
+        ]
+    shapes.append(("unembed", d, cfg.vocab, 1))
     return [MatmulSite(lbl, tokens, k, n, c) for lbl, k, n, c in shapes]
 
 

@@ -1,10 +1,12 @@
 """Model configuration schema (port of ``repro.configs.base``).
 
 The fields are the reference's, with torch dtypes, restricted to what the
-ported paths read: paged serving and full-sequence training (attention
-implementation and chunk, remat policy).  The MoE, SSM, hybrid and
-frontend fields come with the model-zoo slice (ROADMAP queue 1 item 7);
-the reference's deprecated ``sc_mode`` alias is not carried over.
+ported paths read: paged and fixed-slot serving and full-sequence
+training of the attention families (dense, moe, vlm).  The SSM and
+hybrid fields come with the rest of the model zoo (ROADMAP queue 1 item
+7); ``frontend`` is carried so that the embeddings frontend, not ported
+yet, is refused by name.  The reference's deprecated ``sc_mode`` alias
+is not carried over.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (this slice); moe | ssm | hybrid come later
+    family: str  # dense | moe | vlm (ported); ssm | hybrid | audio later
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,12 +41,19 @@ class ModelConfig:
     # unfused (gather + chunk_decode_attention) | fused (one CUDA kernel,
     # same math) | fused_sc (fused, SC-sampled QK^T; needs rng keys)
     paged_attn: str = "unfused"
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
     # SC multiplication substrate: a backend of repro_torch.sc
     sc_backend: str = "exact"
     sc_nbit: int = 1024
     # dtypes
     param_dtype: Any = torch.bfloat16
     act_dtype: Any = torch.bfloat16
+    # input frontend: "tokens" (ids) or "embeddings" (not ported yet)
+    frontend: str = "tokens"
     # remat policy per layer in training: none | full
     remat: str = "full"
 
@@ -54,6 +63,20 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# The reference's architectures whose family the port runs; the SSM,
+# hybrid and audio ones come with ROADMAP queue 1 item 7.
+ARCH_IDS = [
+    "moonshot-v1-16b-a3b",
+    "llama4-maverick-400b-a17b",
+    "chameleon-34b",
+    "starcoder2-15b",
+    "qwen2-0.5b",
+    "qwen3-14b",
+    "yi-6b",
+    "paper-sc",
+]
 
 
 def get_config(arch_id: str) -> ModelConfig:

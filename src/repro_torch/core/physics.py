@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 
 import numpy as np
 import torch
@@ -30,6 +31,28 @@ import torch
 # Paper constants (Section II-B).
 DELTA = 60.9  # thermal-stability parameter of the MTJ
 I_C_UA = 80.0  # critical switching current, micro-amps
+PRESET_TAU_NS = 3.0  # long deterministic preset pulse (P_usw < 1e-26 @ I=I_c)
+PRESET_I_FACTOR = 1.25  # the preset's stronger reverse current (Fig. 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceParams:
+    """Per-device physical parameters; fluctuation models perturb these."""
+
+    delta: float = DELTA
+    i_c_ua: float = I_C_UA
+
+    def with_ic_fluctuation(self, sigma_frac: float) -> "DeviceParams":
+        warnings.warn(
+            "DeviceParams.with_ic_fluctuation is deprecated; describe device "
+            "non-ideality with physics.DeviceProfile(sigma_ic=...) instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return dataclasses.replace(
+            self, i_c_ua=self.i_c_ua * (1.0 + sigma_frac)
+        )
+
 
 # Salt of the profile's variation/fault stream: with ``seed`` it forms
 # the Threefry key.  Part of the bit-reproducibility contract (the
@@ -264,3 +287,23 @@ def tau_for_probability(p, *, i_ua=I_C_UA, delta=DELTA, i_c_ua=I_C_UA):
     p = torch.clamp(_f32(p), 1e-30, 1.0 - 1e-12)
     rate = torch.exp(-delta * (1.0 - _f32(i_ua) / _f32(i_c_ua)))
     return -torch.log(p) / rate
+
+
+def scale_to_half_switching(tau_ns, *, target_p=0.5):
+    """Paper §III-D normalization: rescale the pulse durations so the mean
+    pulse programs survival ``target_p`` (``ln 2`` at I = I_c), where the
+    bitstream is neither sparse nor dense.  Returns ``(scale, scaled)``."""
+    tau_ns = _f32(tau_ns)
+    tau_half = -torch.log(_f32(target_p))
+    mean_tau = torch.mean(tau_ns)
+    scale = torch.where(
+        mean_tau > 0, tau_half / torch.clamp_min(mean_tau, 1e-30), 1.0
+    )
+    return scale, tau_ns * scale
+
+
+def switching_energy_aj(tau_ns, i_ua, *, r_hml_ohm=250.0):
+    """Joule-heating write energy per bit in attojoules, ``I^2 R tau``."""
+    i_a = _f32(i_ua) * 1e-6
+    tau_s = _f32(tau_ns) * 1e-9
+    return (i_a * i_a) * r_hml_ohm * tau_s * 1e18

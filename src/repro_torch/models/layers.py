@@ -2,7 +2,8 @@
 MLP, RoPE, embed.
 
 Port of ``repro.models.layers``.  Every weight matmul goes through
-:func:`dense`, which routes to the SC substrate registry when
+:func:`dense` (the MoE capacity buffers through :func:`expert_dense`),
+which routes to the SC substrate registry when
 ``cfg.sc_backend != "exact"`` — under a NAMED SITE whose salt folds into
 the caller's key (the salts are part of the bit-reproducibility contract
 and equal the reference's).  Keys are explicit ``uint32`` tensors.
@@ -82,6 +83,18 @@ def _dense_rows(keys, x, w, sc_cfg):
     return yf.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
+def _sc_config(cfg):
+    """The substrate of a stochastic matmul: ``fast_backend`` upgrades
+    pallas_bitexact to the bit-identical fused engine; the ambient device
+    profile rides along (array realizes it, every other backend models
+    the ideal device)."""
+    return sc.ScConfig(
+        backend=sc.fast_backend(cfg.sc_backend, cfg.sc_nbit),
+        nbit=cfg.sc_nbit,
+        device=sc.current_device_profile(),
+    )
+
+
 def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
     """x @ w with the configured multiplication substrate.
 
@@ -97,15 +110,7 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
             f"{cfg.sc_backend!r} is stochastic but key=None"
         )
     else:
-        # fast_backend upgrades pallas_bitexact to the bit-identical fused
-        # engine; the ambient device profile rides along (array realizes
-        # it, every other backend models the ideal device)
-        backend = sc.fast_backend(cfg.sc_backend, cfg.sc_nbit)
-        sc_cfg = sc.ScConfig(
-            backend=backend,
-            nbit=cfg.sc_nbit,
-            device=sc.current_device_profile(),
-        )
+        sc_cfg = _sc_config(cfg)
         if key.dim() > 1:
             y = _dense_rows(key, x, w, sc_cfg)
         else:
@@ -176,3 +181,37 @@ def embed(tokens, p):
 
 def unembed(x, p, cfg, key=None):
     return dense(x, p["table"].T, cfg, key, site="unembed")
+
+
+# ----------------------------- Expert matmul --------------------------------
+
+
+def expert_dense(x, w, cfg, key=None, site: str = "moe_wi"):
+    """Per-expert batched matmul: (b, e, c, d) @ (e, d, f) -> (b, e, c, f).
+
+    The MoE capacity-buffer contraction.  Under ``exact`` it is one
+    einsum.  Stochastic backends loop over the experts, one
+    ``sc_dot_rows`` call per expert (one launch of the fused kernel in
+    row-key mode), and every capacity slot draws from its own key folded
+    with ``site``'s salt and the expert index.
+
+    ``key`` is None (``exact`` only: a stochastic backend raises naming
+    the site), one raw (2,) key (broadcast to every slot), or a
+    (b, e, c, 2) buffer of per-slot keys dispatched alongside ``x``.
+    """
+    if cfg.sc_backend == "exact":
+        return torch.einsum("becd,edf->becf", x, w.to(x.dtype))
+    if key is None:
+        raise ValueError(
+            f"layers.expert_dense at site {site!r}: sc_backend="
+            f"{cfg.sc_backend!r} is stochastic but key=None — pass a key "
+            "so expert matmuls draw on the substrate"
+        )
+    b, e, c, _ = x.shape
+    if key.dim() == 1:
+        key = key.expand(b, e, c, 2)
+    eidx = torch.arange(e, device=x.device)[None, :, None].expand(b, e, c)
+    keys = site_key(key, site, eidx)  # (b, e, c, 2)
+    sc_cfg = _sc_config(cfg)
+    ys = [_dense_rows(keys[:, i], x[:, i], w[i], sc_cfg) for i in range(e)]
+    return torch.stack(ys, dim=1)

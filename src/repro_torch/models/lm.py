@@ -2,12 +2,14 @@
 training, the fixed-slot cache with ``prefill`` / ``decode_step``, the
 paged cache, and one chunked decode/prefill step.
 
-Port of the dense branch of ``repro.models.lm``: N × (RMSNorm → GQA attn
-→ RMSNorm → SwiGLU MLP), layers stacked on a leading axis and run by a
-Python loop (the reference's ``lax.scan``), each layer under activation
-checkpointing when ``cfg.remat == "full"`` (the reference's
-``jax.checkpoint``).  The MoE, SSM and hybrid families come with a later
-slice (ROADMAP queue 1 item 7).
+Port of the attention families of ``repro.models.lm``: dense and vlm run
+N × (RMSNorm → GQA attn → RMSNorm → MLP), moe the same with the MoE FFN
+(``models/moe.py``) in place of the MLP.  Layers are stacked on a
+leading axis and run by a Python loop (the reference's ``lax.scan``),
+each layer under activation checkpointing when ``cfg.remat == "full"``
+(the reference's ``jax.checkpoint``).  The SSM, hybrid and audio
+families and the embeddings frontend come with a later slice (ROADMAP
+queue 1 item 7).
 
 Recomputation is safe for the stochastic backends because their noise
 is a pure function of the per-layer, per-site key (``sc/ctr_rng.py``):
@@ -20,17 +22,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
-_FAMILIES = ("dense",)
+# The attention families: one K/V cache per layer (the reference's
+# ``serve/kv_cache.py`` plans moe and vlm like dense).
+FAMILIES = ("dense", "moe", "vlm")
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family not in _FAMILIES:
+def require_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP queue 1 item 7 for a
+    family or frontend the port does not run yet."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family={cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 7); the port runs the dense family"
+            f"item 7); the port runs {', '.join(FAMILIES)}"
+        )
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"frontend={cfg.frontend!r} needs the modality frontend, not "
+            "ported yet (ROADMAP queue 1 item 7)"
         )
 
 
@@ -39,12 +50,13 @@ def _norm_spec(cfg):
 
 
 def block_specs(cfg):
-    _require_dense(cfg)
+    require_ported(cfg)
     return {
         "ln1": _norm_spec(cfg),
         "attn": attention.attn_specs(cfg),
         "ln2": _norm_spec(cfg),
-        "ffn": layers.mlp_specs(cfg),
+        "ffn": moe.moe_specs(cfg) if cfg.family == "moe"
+        else layers.mlp_specs(cfg),
     }
 
 
@@ -93,8 +105,15 @@ def _layer(tree, idx: int):
 # ---------------------------------------------------------------------------
 
 
+def _ffn(x, p, cfg, key):
+    """The block's FFN: the MoE layer for family moe, else the MLP."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(x, p, cfg, key)
+    return layers.mlp(x, p, cfg, key)
+
+
 def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
-    """One dense block (pre-norm residual).  Returns ``(x, (k, v))``:
+    """One attention block (pre-norm residual).  Returns ``(x, (k, v))``:
     the sequence's K/V, or the ring-buffer ``cache`` it wrote into."""
     akey = layers.fold_keys(key, 11)
     h, kv = attention.attention_block(
@@ -108,7 +127,7 @@ def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
     )
     x = x + h
     fkey = layers.fold_keys(key, 13)
-    h = layers.mlp(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
+    h = _ffn(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
     return x + h, kv
 
 
@@ -135,7 +154,7 @@ def _embed_inputs(params, inputs, cfg, rng=None):
 def encode(params, inputs, cfg, *, rng=None):
     """Backbone pass: tokens (b, s) -> final hidden states (b, s, d) after
     the last norm.  Layer ``idx`` draws from ``fold_in(rng, idx)``."""
-    _require_dense(cfg)
+    require_ported(cfg)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -206,7 +225,7 @@ def lm_loss(params, batch, cfg, *, rng=None):
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
     """Stacked per-layer decode cache: ``{"k", "v"}`` of (layers, batch,
     max_len, kv_heads, head_dim) zeros in ``cfg.act_dtype``."""
-    _require_dense(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (cfg.n_layers, batch, max_len, kvh, hd)
@@ -227,7 +246,7 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None):
     ``rng`` is one raw (2,) key for the whole call: layer ``idx`` draws
     from ``fold_in(rng, idx)``, the unembed from ``rng`` itself.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
     if s > max_len:
@@ -258,7 +277,7 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
     row's bits depend on its neighbours (the fixed-slot engine's
     contract, unlike :func:`decode_paged`'s per-request keys).
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
     positions = lengths.to(torch.int64)[:, None]
     new_lengths = lengths.to(torch.int64) + 1
@@ -285,7 +304,7 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *, device=None):
     """One pool of ``num_blocks`` token blocks per layer, in
     ``cfg.act_dtype`` (block 0 is the reserved null block)."""
-    _require_dense(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (cfg.n_layers, num_blocks, block_size, kvh, hd)
@@ -324,7 +343,7 @@ def decode_paged(
     also be (b, sc, 2) per-token keys already resolved by the caller.
     ``paged_attn="fused_sc"`` requires ``rng``.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     if rng is None and cfg.paged_attn == "fused_sc":
         raise ValueError(
             "paged_attn='fused_sc' draws stochastic attention logits "
@@ -359,7 +378,7 @@ def decode_paged(
         )
         x = x + h
         fkey = layers.fold_keys(lkeys, 13)
-        x = x + layers.mlp(layers.rms_norm(x, lp["ln2"]), lp["ffn"], cfg, fkey)
+        x = x + _ffn(layers.rms_norm(x, lp["ln2"]), lp["ffn"], cfg, fkey)
     x = layers.rms_norm(x, params["final_norm"])
     if all_logits:
         return _logits(x, params, cfg, keys), pages

@@ -31,6 +31,7 @@ import dataclasses
 
 from repro_torch import resolve_device
 from repro_torch.core import physics
+from repro_torch.models import lm
 
 
 def _opt(default, help="", flag=None, metavar=None, cli=True):  # noqa: A002
@@ -224,11 +225,7 @@ def build_engine(
     options = options or ServeOptions()
     options.validate()
     device = resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "item 7)"
-        )
+    lm.require_ported(cfg)
     table = params["embed"]["table"]
     if table.device.type != device.type:
         raise ValueError(

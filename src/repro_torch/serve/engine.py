@@ -36,8 +36,9 @@ the aggregate (the jitted reference records once per COMPILED shape).
 ``close()`` (or a raise mid-tick) detaches the collector.
 
 Construct engines through ``serve.api.build_engine``; direct
-construction works but warns.  Families other than dense raise
-(ROADMAP queue 1 item 7).
+construction works but warns.  The attention families (dense, moe,
+vlm) are served; the SSM and hybrid families raise (ROADMAP queue 1
+item 7).
 """
 
 from __future__ import annotations

@@ -274,7 +274,7 @@ def test_workload_pricing_of_qwen2_0_5b_equals_reference():
             jarch.report_dict(r) for _, r in jper
         ]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tarch.dense_workload(tcfg.replace(family="moe"), 1)
+        tarch.dense_workload(tcfg.replace(family="ssm"), 1)
 
 
 # ---------------------------------------------------------------------------

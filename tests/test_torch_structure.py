@@ -115,13 +115,23 @@ def test_engine_refuses_params_on_another_device():
 
 
 def test_unported_families_raise_not_implemented():
-    cfg = get_smoke_config("qwen2-0.5b").replace(family="moe")
+    _assert_unported(get_smoke_config("qwen2-0.5b").replace(family="ssm"))
+
+
+def test_embeddings_frontend_raises_not_implemented():
+    cfg = get_smoke_config("qwen2-0.5b").replace(frontend="embeddings")
+    _assert_unported(cfg)
+
+
+def _assert_unported(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.lm_param_specs(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init_paged_cache(cfg, 4, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.encode({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_engine({}, cfg, device="cpu")
 
 
 def test_full_width_config_matches_published_qwen2_0_5b():
