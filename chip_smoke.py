@@ -1,8 +1,10 @@
 """Drive the PyTorch/CUDA port's paged and fixed-slot SC serving paths,
-its serve-fleet failover, the paper's cell model, MoE serving, its
-trainer, and its validation / faulty-device path on one GPU.
+its serve-fleet failover, the paper's cell model, MoE, SSM and hybrid
+serving, its trainer, and its validation / faulty-device path on one
+GPU.
 
-    python3 chip_smoke.py [--layers N] [--moe-layers N]
+    python3 chip_smoke.py [--layers N] [--moe-layers N] [--ssm-layers N]
+                          [--hybrid-groups N]
 
 Phases, each printing one JSON line (any failure raises, so the exit
 code is non-zero):
@@ -24,12 +26,13 @@ code is non-zero):
    kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
    noise's mean and variance, and two launches of the moment kernel
    bit-equal; kernel 1 also with one key a call at phase F's prefill
-   shape and at phase M's expert, router and wq shapes, the plain
-   version holding an expert's first 128 columns; both attention
-   kernels also at phase M's heads), with its median time, the plain version's time, the
-   least time the card could take (``bound_ms``; for the moment kernels
-   the faster of 3xTF32 on the tensor cores and FP32 FMAs, with the FP32
-   bound beside it), and a PyTorch yardstick where one computes the
+   shape, at phase M's expert, router and wq shapes and at phases S and
+   H's wz, wdt and out shapes, the plain version holding the first 128
+   columns of the wide ones; both attention kernels also at phase M's
+   and phase H's heads), with its median time, the plain version's
+   time, the least time the card could take (``bound_ms``; for the
+   moment kernels the faster of 3xTF32 on the tensor cores and FP32
+   FMAs, with the FP32 bound beside it), and a PyTorch yardstick where one computes the
    same function (``scaled_dot_product_attention``; three float32
    ``torch.matmul`` calls plus the moment epilogue, timed in turns with
    the kernel); the SASS census must show the moment kernel's wgmma
@@ -115,11 +118,33 @@ code is non-zero):
     float32 ``exact`` with ``fused`` attention (kernel 2): the paged
     engine's greedy tokens equal the fixed-slot engine's; both MoE SMOKE
     configs on the card and on the CPU: equal tokens;
-12. the kernels line and the device line.
+12. phase S: mamba2-370m at its published width (d_model 1024, d_inner
+    2048, 32 SSM heads of 64, state 128, conv 4, vocab 50,280, tied),
+    depth ``--ssm-layers`` (default 4 of 48), bf16, random weights from
+    seed 0.  ``pallas_bitexact`` at nbit 1024 (kernel 1 for every
+    projection, token by token through ``ssm_stream``), paged, 2 slots,
+    block 16, chunk 8, phase A's prompt lengths: decode tick 3 traced,
+    kernel 1's launches in it (read from the wrapper's count) 6 a layer
+    plus the unembed, and no attention kernel; the same prompts at chunk
+    4: equal tokens; float32 ``exact``: the paged engine's tokens equal
+    the fixed-slot engine's; the SMOKE config on the card and the CPU:
+    equal tokens;
+13. phase H: zamba2-7b at its published width (d_model 3584, d_inner
+    7168, 112 SSM heads of 64, state 64, 32 heads of 112 (MHA), d_ff
+    14,336, vocab 32,000, untied), ``--hybrid-groups`` groups (default 1
+    of 27) of 2 SSM layers and one invocation of the shared block, bf16.
+    ``pallas_bitexact`` + ``fused_sc``, paged, 1 slot, one greedy
+    request of 8 prompt tokens and 2 new, the decode tick traced:
+    kernel 1's launches 18 a group plus the unembed, kernel 3 one call
+    an invocation (the wrappers' counts decide; the trace's device
+    launches are held to the attention plan where it shows them all);
+    float32 ``exact`` with ``fused`` attention (kernel 2): paged tokens
+    equal fixed-slot tokens; the SMOKE config on card and CPU;
+14. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B, P, F, FT, T, V, D, C
-and M and read just after each; a kernel of a phase's path that did not
-launch fails the run.  Without a CUDA device the script exits non-zero before
+Launch counts are reset just before phases A, B, P, F, FT, T, V, D, C,
+M, S and H and read just after each; a kernel of a phase's path that
+did not launch fails the run.  Without a CUDA device the script exits non-zero before
 printing any result.
 """
 
@@ -374,7 +399,7 @@ def tensor_core_ops(census: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-PLAIN_COLS = 128  # columns of a phase-M expert shape the plain version holds
+PLAIN_COLS = 128  # columns of a phase-M, S or H shape the plain version holds
 
 
 def check_sc_fused(rates: dict) -> dict:
@@ -396,6 +421,13 @@ def check_sc_fused(rates: dict) -> dict:
         ("moe_wo", 8, 1408, 2048, 2048, True),
         ("moe_router", 1, 2048, 64, 64, True),
         ("moe_wq", 1, 2048, 2048, 2048, True),
+        # phase S (mamba2-370m, 2 slots): wz, wdt and out of a decode tick
+        ("ssm_wz", 2, 1024, 2048, 2048, True),
+        ("ssm_wdt", 2, 1024, 32, 32, True),
+        ("ssm_out", 2, 2048, 1024, 1024, True),
+        # phase H (zamba2-7b, 1 slot): wz and out of a decode tick
+        ("hyb_wz", 1, 3584, 7168, 7168, True),
+        ("hyb_out", 1, 7168, 3584, 3584, True),
     ]
     rows = {}
     for name, m, k, n, n_orig, row_keys in shapes:
@@ -416,8 +448,9 @@ def check_sc_fused(rates: dict) -> dict:
         got = kf.sc_fused_popcount(keys, x, w, **kw)
         # the plain version holds the first PLAIN_COLS columns (counters
         # depend on the column index and n_orig alone): all of a wide
-        # expert would take it minutes
-        cols = min(n, PLAIN_COLS) if name.startswith("moe_") else n
+        # expert or SSM projection would take it minutes
+        wide = name.startswith(("moe_", "ssm_", "hyb_"))
+        cols = min(n, PLAIN_COLS) if wide else n
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref = kf.sc_fused_popcount_plain(keys, x, w[:, :cols].contiguous(),
@@ -469,6 +502,11 @@ MOE_HEADS = (16, 16, 128)  # moonshot-v1-16b-a3b's (phase M)
 MOE_ATTN_CASES = (
     ("moe_decode", 1, (13, 9), 2),
     ("moe_prefill", 8, (0, 8), 2),
+)
+HYB_HEADS = (32, 32, 112)  # zamba2-7b's shared block (phase H): MHA, g = 1
+HYB_ATTN_CASES = (
+    ("hyb_decode", 1, (13, 9), 2),
+    ("hyb_prefill", 8, (0, 8), 2),
 )
 
 
@@ -591,6 +629,7 @@ def check_attention(rates: dict) -> dict:
     out = {"paged_attention_fused": {}, "paged_attention_fused_sc": {}}
     cases = [c + (QWEN_HEADS,) for c in ATTN_CASES]
     cases += [c + (MOE_HEADS,) for c in MOE_ATTN_CASES]
+    cases += [c + (HYB_HEADS,) for c in HYB_ATTN_CASES]
     for case, sc, lengths, nb, heads in cases:
         keys, q, kp, vp, bt, ln = _attn_inputs(rng, sc, lengths, nb,
                                                heads=heads)
@@ -1080,6 +1119,7 @@ def serve(params, cfg, opts, prompts, max_new: int, device,
     that many tokens (or finished), so that the rest find its blocks
     registered in the prefix cache.
     """
+    from repro_torch.kernels import cuda_lib
     from repro_torch.serve import Request, build_engine
 
     eng = build_engine(params, cfg, opts, device=device, **build)
@@ -1097,7 +1137,13 @@ def serve(params, cfg, opts, prompts, max_new: int, device,
                 eng.submit(r)
             waiting = []
         if len(tick_ms) == traced_tick:
+            before = dict(cuda_lib.launches)
             _, trace = device_trace(eng.step, ranges)
+            # the wrappers' own counts in the traced tick, beside the trace
+            trace["counted"] = {
+                k: n - before.get(k, 0) for k, n in cuda_lib.launches.items()
+                if n - before.get(k, 0)
+            }
             tick_ms.append(trace["wall_ms"])
             continue
         t0 = time.perf_counter()
@@ -2392,11 +2438,268 @@ def moe_cross_device() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases S and H: the SSM family at mamba2-370m's full width and the
+# hybrid family at zamba2-7b's
+# ---------------------------------------------------------------------------
+
+S_PROMPTS = (12, 8)  # phase A's prompt lengths, 4 new tokens each
+S_NEW = 4
+S_TRACED_TICK = 3  # both rows decoding (ticks 0 and 1 prefill)
+H_PROMPT = 8  # one prefill chunk
+H_NEW = 2  # a prefill tick, then one decode tick (traced)
+H_TRACED_TICK = 1
+
+
+def ssm_layer_muls(cfg) -> int:
+    """SC MULs of one Mamba2 layer for one token: wz, wx (d -> d_inner),
+    wB, wC (d -> state), wdt (d -> heads) and out (d_inner -> d)."""
+    d, di = cfg.d_model, cfg.d_inner
+    return d * 2 * di + 2 * d * cfg.ssm_state + d * cfg.ssm_heads + di * d
+
+
+def zoo_kernel1_plan(cfg, slots: int) -> dict:
+    """Kernel 1's launches and SC MULs in one width-1 decode tick of the
+    paged engine over ``slots`` rows: six projections an SSM layer (the
+    recurrent feed runs one token a step) and, for the hybrid, wq / wk /
+    wv / wo and the MLP's wi / wo a shared invocation; the unembed
+    once."""
+    from repro_torch.models import lm
+
+    d = cfg.d_model
+    layers_ = lm.n_backbone_layers(cfg)
+    inv = lm.n_shared_invocations(cfg)
+    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    shared = (d * h * hd + 2 * d * kvh * hd + h * hd * d
+              + d * 2 * cfg.d_ff + cfg.d_ff * d)
+    per_row = layers_ * ssm_layer_muls(cfg) + inv * shared + d * cfg.vocab
+    return dict(launches=6 * layers_ + 6 * inv + 1,
+                sc_muls=slots * per_row,
+                ssm_layer_muls=ssm_layer_muls(cfg),
+                shared_muls=shared if inv else 0,
+                unembed_muls=d * cfg.vocab)
+
+
+def traced_launches(trace: dict, name: str, want: int, what: str) -> int:
+    """The wrappers' count of ``name`` in a traced tick, which must be
+    ``want``: the count decides, so a kernel the trace missed cannot
+    fail the run, nor one it shows but the path never launched pass."""
+    got = trace["counted"].get(name, 0)
+    if got != want:
+        raise AssertionError(f"{what}: {got} {name} launches in the traced "
+                             f"tick, {want} planned")
+    return got
+
+
+def zoo_bitexact(name, cfg, opts, prompts, max_new, traced_tick, expect):
+    """Serve ``prompts`` on ``pallas_bitexact`` (kernel 1 for every
+    projection and the unembed) with random bf16 weights from seed 0,
+    trace one decode tick and hold kernel 1's launches in it to the
+    plan.  Returns (record, tokens, phase counts, trace, params)."""
+    from repro_torch.models.params import tree_leaves
+
+    t0 = time.perf_counter()
+    params = _moe_params(cfg, "cuda", cfg.param_dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    counts, tick_ms, eng, trace = serve_phase(
+        name, cfg, opts, prompts, max_new, params, expect,
+        traced_tick=traced_tick,
+    )
+    plan = zoo_kernel1_plan(cfg, opts.slots)
+    k1_ms, k1_n = kernel_ms(trace, "sc_fused_kernel")
+    k1 = traced_launches(trace, "sc_fused", plan["launches"], name)
+    rec = dict(
+        params=n_params,
+        init_s=init_s,
+        tick_ms=tick_ms,
+        traced_tick=traced_tick,
+        host_ms=trace["wall_ms"],
+        device_ms=trace["device_ms"],
+        kernel1_launches=k1,
+        kernel1_trace_launches=k1_n,
+        kernel1_ms=k1_ms if k1_n == k1 else None,
+        kernel1_plan=plan,
+        kernel1_ns_per_mul=(k1_ms * 1e6 / plan["sc_muls"]
+                            if k1_n == k1 else None),
+        counted=trace["counted"],
+        top=_top(trace),
+    )
+    toks = {r.rid: list(r.generated) for r in eng.finished}
+    return rec, toks, counts, trace, params
+
+
+def zoo_exact(name, base, prompts, max_new, paged_attn) -> dict:
+    """The exact half (float32, ``exact``): the paged engine's greedy
+    tokens must equal the fixed-slot engine's (the reference's
+    invariant, tests/test_serve_zoo.py)."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import Request, ServeOptions, build_engine
+
+    cfg32 = base.replace(param_dtype=torch.float32, act_dtype=torch.float32,
+                         sc_backend="exact", paged_attn=paged_attn)
+    params = _moe_params(cfg32, "cuda", torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    paged_opts = ServeOptions(paged=True, slots=2, block_size=16,
+                              prefill_chunk=8, max_len=32)
+    _, paged_tok, paged_ms, _ = serve(params, cfg32, paged_opts, prompts,
+                                      max_new, "cuda")
+    counts = dict(cuda_lib.launches)
+    eng = build_engine(params, cfg32, ServeOptions(slots=2, max_len=32),
+                       device="cuda")
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+    t1 = time.perf_counter()
+    fixed_tok = {r.rid: list(r.generated) for r in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    rec = dict(
+        paged_tokens=paged_tok,
+        fixed_tokens=fixed_tok,
+        paged_tick_ms=paged_ms,
+        fixed_s=time.perf_counter() - t1,
+        launches=counts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    emit(name, **rec)
+    del params, eng
+    torch.cuda.empty_cache()
+    if paged_tok != fixed_tok:
+        raise AssertionError(f"{name}: paged tokens != fixed-slot tokens")
+    return rec
+
+
+def zoo_cross_device(arch: str) -> dict:
+    """The SMOKE config (narrowed as the CPU parity tests run it) on
+    ``pallas_bitexact`` through the paged engine, on the card and on
+    the CPU: equal tokens (the hybrid with ``fused_sc`` attention)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import ServeOptions
+
+    attn = "fused_sc" if arch == "zamba2-7b" else "unfused"
+    cfg = get_smoke_config(arch).replace(
+        d_model=32, vocab=128, param_dtype=torch.float32,
+        act_dtype=torch.float32, sc_backend="pallas_bitexact", sc_nbit=64,
+        paged_attn=attn,
+    )
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, n).tolist() for n in (6, 9)]
+    opts = ServeOptions(paged=True, slots=2, max_len=24, block_size=4,
+                        prefill_chunk=4)
+    toks = {}
+    for device in ("cuda", "cpu"):
+        params = _qwen_params(cfg, device)
+        _, toks[device], _, _ = serve(params, cfg, opts, prompts, 3, device)
+    emit("zoo_cross_device", arch=arch, cuda=toks["cuda"], cpu=toks["cpu"])
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError(f"{arch}: tokens differ between card and CPU")
+    return toks
+
+
+def ssm_phase(layers: int) -> dict:
+    """Phase S: mamba2-370m at its published width (d_model 1024, 32
+    SSM heads of 64, state 128, vocab 50,280, tied), depth cut to
+    ``layers``, random bf16 weights from seed 0.  The bit-exact half
+    (``pallas_bitexact`` at nbit 1024, paged, 2 slots, block 16, chunk
+    8, phase A's prompt lengths): decode tick 3 traced, kernel 1's
+    launches the plan's (6 a layer and the unembed), no attention
+    kernel; the same prompts at chunk 4 give the same tokens.  The exact
+    half: paged tokens equal fixed-slot tokens.  Then the SMOKE config
+    on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeOptions
+
+    base = get_config("mamba2-370m").replace(n_layers=layers)
+    cfg = base.replace(sc_backend="pallas_bitexact", sc_nbit=1024)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, n).tolist() for n in S_PROMPTS]
+    opts = ServeOptions(paged=True, slots=2, block_size=16, prefill_chunk=8,
+                        max_len=64)
+    rec, toks, counts, trace, params = zoo_bitexact(
+        "serve_s", cfg, opts, prompts, S_NEW, S_TRACED_TICK, ("sc_fused",))
+    attn = {k: v for k, v in counts.items() if k.startswith("paged_")}
+    rec["attention_launches"] = attn
+    emit("serve_s_trace", **rec)
+    if attn or kernel_ms(trace, "paged_attn_")[1]:
+        raise AssertionError(f"serve_s: attention kernels launched: {attn}")
+    _, toks4, ticks4, _ = serve(params, cfg, opts.replace(prefill_chunk=4),
+                                prompts, S_NEW, "cuda")
+    emit("serve_s_chunk4", tokens=toks4, tick_ms=ticks4)
+    if toks4 != toks:
+        raise AssertionError("serve_s: tokens at chunk 4 != chunk 8")
+    del params
+    torch.cuda.empty_cache()
+    exact = zoo_exact("serve_s_exact", base, prompts, S_NEW, "unfused")
+    cross = zoo_cross_device("mamba2-370m")
+    return dict(bitexact=rec, exact=exact, cross=cross, counts=counts,
+                counts_exact=exact["launches"])
+
+
+def hybrid_phase(groups: int) -> dict:
+    """Phase H: zamba2-7b at its published width (d_model 3584, 112 SSM
+    heads of 64, state 64, 32 heads of 112 (MHA), d_ff 14,336 SwiGLU,
+    vocab 32,000, untied), ``groups`` groups of 2 SSM layers and one
+    shared invocation, random bf16 weights from seed 0.  The bit-exact
+    half (``pallas_bitexact`` + ``fused_sc``, paged, 1 slot, one greedy
+    request of 8 prompt tokens and 2 new): the decode tick traced,
+    kernel 1's launches the plan's (18 a group and the unembed) and
+    kernel 3 one call an invocation, its device launches the attention
+    plan's.  The exact half (``fused`` -> kernel 2): paged tokens equal
+    fixed-slot tokens.  Then the SMOKE config on the card and on the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import ServeOptions
+
+    base = get_config("zamba2-7b").replace(n_layers=3 * groups)
+    cfg = base.replace(sc_backend="pallas_bitexact", sc_nbit=1024,
+                       paged_attn="fused_sc")
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(3, cfg.vocab, H_PROMPT).tolist()
+    opts = ServeOptions(paged=True, slots=1, block_size=16,
+                        prefill_chunk=H_PROMPT, max_len=32)
+    rec, _, counts, trace, params = zoo_bitexact(
+        "serve_h", cfg, opts, [prompt], H_NEW, H_TRACED_TICK,
+        ("sc_fused", "paged_attention_fused_sc"))
+    del params
+    torch.cuda.empty_cache()
+    aplan = pa.paged_attention_plan(
+        opts.slots, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, 1,
+        cfg.resolved_head_dim, -(-opts.max_len // opts.block_size),
+        opts.block_size, cfg.sc_nbit,
+    )
+    calls = traced_launches(trace, "paged_attention_fused_sc", groups,
+                            "serve_h")
+    att_ms, att_n = kernel_ms(trace, "paged_attn_")
+    rec.update(
+        attention_calls=calls,
+        attention_plan_launches=aplan.launches,
+        attention_trace_launches=att_n,
+        attention_ms=att_ms if att_n == aplan.launches * calls else None,
+        attention_trace_gap=att_n != aplan.launches * calls,
+    )
+    emit("serve_h_trace", **rec)
+    prompts = [rng.integers(3, cfg.vocab, n).tolist() for n in S_PROMPTS]
+    exact = zoo_exact("serve_h_exact", base, prompts, S_NEW, "fused")
+    if exact["launches"].get("paged_attention_fused", 0) <= 0:
+        raise AssertionError("serve_h: kernel paged_attention_fused never "
+                             "launched")
+    cross = zoo_cross_device("zamba2-7b")
+    return dict(bitexact=rec, exact=exact, cross=cross, counts=counts,
+                counts_exact=exact["launches"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2, help="depth (<= 24)")
     ap.add_argument("--moe-layers", type=int, default=1,
                     help="phase M's depth (<= 48)")
+    ap.add_argument("--ssm-layers", type=int, default=4,
+                    help="phase S's depth (<= 48)")
+    ap.add_argument("--hybrid-groups", type=int, default=1,
+                    help="phase H's groups of 2 SSM layers and one shared "
+                    "invocation (<= 27)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2405,6 +2708,10 @@ def main(argv=None) -> int:
         raise SystemExit("--layers must be in 1..24")
     if not 1 <= args.moe_layers <= 48:
         raise SystemExit("--moe-layers must be in 1..48")
+    if not 1 <= args.ssm_layers <= 48:
+        raise SystemExit("--ssm-layers must be in 1..48")
+    if not 1 <= args.hybrid_groups <= 27:
+        raise SystemExit("--hybrid-groups must be in 1..27")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2475,6 +2782,8 @@ def main(argv=None) -> int:
     faulty_cross_device()
     cell_model_phase()
     serve_m = moe_phase(args.moe_layers)
+    serve_s = ssm_phase(args.ssm_layers)
+    serve_h = hybrid_phase(args.hybrid_groups)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = train_phase(args.layers, workdir)
@@ -2489,6 +2798,10 @@ def main(argv=None) -> int:
         faulty["counts"],
         serve_m["counts_bitexact"],
         serve_m["counts_exact"],
+        serve_s["counts"],
+        serve_s["counts_exact"],
+        serve_h["counts"],
+        serve_h["counts_exact"],
     )
     launches = {
         k: sum(c.get(k, 0) for c in serving)
@@ -2512,7 +2825,8 @@ def main(argv=None) -> int:
             bound_by="operations",
             library_ms=None,
             shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi); "
-            "launches from phases A, B, P, F (one key a call), FT and M",
+            "launches from phases A, B, P, F (one key a call), FT, M, S "
+            "and H",
             moe_expert={
                 k: fused["moe_wi"][k]
                 for k in ("shape", "ms", "plain_ms", "plain_cols", "bound_ms")
@@ -2522,6 +2836,14 @@ def main(argv=None) -> int:
             },
             per_call_case="wk_prefill_per_call: M=12 K=896 N=128, one key "
             "a call (phase F's prefill of A's first prompt at wk)",
+            ssm={
+                case: {k: fused[case][k] for k in
+                       ("shape", "ms", "plain_ms", "plain_cols", "bound_ms")}
+                | {"ns_per_mul": fused[case]["ms"] * 1e6
+                   / fused[case]["sc_muls"]}
+                for case in ("ssm_wz", "ssm_wdt", "ssm_out", "hyb_wz",
+                             "hyb_out")
+            },
         ),
         dict(
             name="paged_attention_fused",

@@ -1,14 +1,16 @@
 """Static workload extraction: a ModelConfig's SC-routed matmuls.
 
-Port of ``repro.arch.workload`` for the ported attention families
-(dense, moe, vlm): ``dense_workload(cfg, tokens)`` enumerates every
-matmul a forward pass routes through ``layers.dense`` /
-``expert_dense`` with its per-layer multiplicity (MoE experts as the
-dense equivalent of the ``top_k`` visits a token makes, plus the shared
-expert), and ``price_workload`` prices the whole pass on the array
-without running any numerics.  The SSM / hybrid / frontend sites come
-with the rest of the model zoo (ROADMAP queue 1 item 7), the sharded
-pricing with the sharded substrate (item 10).
+Port of ``repro.arch.workload`` for the families the port runs:
+``dense_workload(cfg, tokens)`` enumerates every matmul a forward pass
+routes through ``layers.dense`` / ``expert_dense`` with its per-layer
+multiplicity (MoE experts as the dense equivalent of the ``top_k``
+visits a token makes, plus the shared expert; the Mamba2 projections
+per backbone layer; zamba2's shared attention and MLP per invocation),
+and ``price_workload`` prices the whole pass on the array without
+running any numerics.  The attention score / value products and the
+SSM scan are not ``dense`` calls and are absent.  The frontend site
+comes with the frontend (ROADMAP queue 1 item 7), the sharded pricing
+with the sharded substrate (item 10).
 """
 
 from __future__ import annotations
@@ -39,30 +41,52 @@ class MatmulSite:
 
 def dense_workload(cfg, tokens: int) -> list[MatmulSite]:
     """All dense() matmuls of one forward pass over ``tokens`` tokens
-    (the reference's site order and labels)."""
+    (the reference's site order and labels; the layer counts come from
+    the ``lm`` assembly)."""
     lm.require_ported(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
-    count = cfg.n_layers
     wi_cols = 2 * cfg.d_ff if cfg.mlp_variant == "swiglu" else cfg.d_ff
-    shapes = [
-        ("attn.wq", d, h * hd, count),
-        ("attn.wk", d, kvh * hd, count),
-        ("attn.wv", d, kvh * hd, count),
-        ("attn.wo", h * hd, d, count),
-    ]
-    if cfg.family == "moe":
-        visits = cfg.top_k + (1 if cfg.shared_expert else 0)
-        shapes += [
-            ("moe.router", d, cfg.n_experts, count),
-            ("moe.wi", d, wi_cols, count * visits),
-            ("moe.wo", cfg.d_ff, d, count * visits),
+
+    def attn(count, prefix=""):
+        return [
+            (prefix + "attn.wq", d, h * hd, count),
+            (prefix + "attn.wk", d, kvh * hd, count),
+            (prefix + "attn.wv", d, kvh * hd, count),
+            (prefix + "attn.wo", h * hd, d, count),
         ]
+
+    def mlp(count, prefix=""):
+        return [
+            (prefix + "mlp.wi", d, wi_cols, count),
+            (prefix + "mlp.wo", cfg.d_ff, d, count),
+        ]
+
+    if cfg.family in lm.STATE_FAMILIES:
+        di, n = cfg.d_inner, lm.n_backbone_layers(cfg)
+        shapes = [
+            ("ssm.wz", d, di, n),
+            ("ssm.wx", d, di, n),
+            ("ssm.wB", d, cfg.ssm_state, n),
+            ("ssm.wC", d, cfg.ssm_state, n),
+            ("ssm.wdt", d, cfg.ssm_heads, n),
+            ("ssm.out", di, d, n),
+        ]
+        if cfg.family == "hybrid":
+            shared = lm.n_shared_invocations(cfg)
+            shapes += attn(shared, "shared.") + mlp(shared, "shared.")
     else:
-        shapes += [
-            ("mlp.wi", d, wi_cols, count),
-            ("mlp.wo", cfg.d_ff, d, count),
-        ]
+        count = cfg.n_layers
+        shapes = attn(count)
+        if cfg.family == "moe":
+            visits = cfg.top_k + (1 if cfg.shared_expert else 0)
+            shapes += [
+                ("moe.router", d, cfg.n_experts, count),
+                ("moe.wi", d, wi_cols, count * visits),
+                ("moe.wo", cfg.d_ff, d, count * visits),
+            ]
+        else:
+            shapes += mlp(count)
     shapes.append(("unembed", d, cfg.vocab, 1))
     return [MatmulSite(lbl, tokens, k, n, c) for lbl, k, n, c in shapes]
 

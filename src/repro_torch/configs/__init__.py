@@ -3,4 +3,5 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     get_config,
     get_smoke_config,
+    supported_shapes,
 )

@@ -1,12 +1,11 @@
 """Model configuration schema (port of ``repro.configs.base``).
 
 The fields are the reference's, with torch dtypes, restricted to what the
-ported paths read: paged and fixed-slot serving and full-sequence
-training of the attention families (dense, moe, vlm).  The SSM and
-hybrid fields come with the rest of the model zoo (ROADMAP queue 1 item
-7); ``frontend`` is carried so that the embeddings frontend, not ported
-yet, is refused by name.  The reference's deprecated ``sc_mode`` alias
-is not carried over.
+ported paths read: paged and fixed-slot serving of every family but
+audio, full-sequence training of the attention families (dense, moe,
+vlm).  ``frontend`` is carried so that the embeddings frontend, not
+ported yet, is refused by name (ROADMAP queue 1 item 7).  The
+reference's deprecated ``sc_mode`` alias is not carried over.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm (ported); ssm | hybrid | audio later
+    family: str  # dense | moe | vlm | ssm | hybrid (ported); audio later
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,6 +45,14 @@ class ModelConfig:
     top_k: int = 0
     shared_expert: bool = False
     capacity_factor: float = 1.25
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    # hybrid (zamba2): one SHARED attn+MLP block every `attn_every` ssm layers
+    attn_every: int = 0
     # SC multiplication substrate: a backend of repro_torch.sc
     sc_backend: str = "exact"
     sc_nbit: int = 1024
@@ -61,12 +68,20 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // max(self.n_heads, 1)
 
+    @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
-# The reference's architectures whose family the port runs; the SSM,
-# hybrid and audio ones come with ROADMAP queue 1 item 7.
+# The reference's architectures whose family the port runs; the audio
+# one (musicgen-large) comes with the frontend, ROADMAP queue 1 item 7.
 ARCH_IDS = [
     "moonshot-v1-16b-a3b",
     "llama4-maverick-400b-a17b",
@@ -75,6 +90,8 @@ ARCH_IDS = [
     "qwen2-0.5b",
     "qwen3-14b",
     "yi-6b",
+    "zamba2-7b",
+    "mamba2-370m",
     "paper-sc",
 ]
 
@@ -91,3 +108,13 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_")
     )
     return mod.SMOKE
+
+
+def supported_shapes(cfg: ModelConfig) -> list[str]:
+    """Which of the four assigned shapes an architecture runs:
+    ``long_500k`` needs sub-quadratic attention, so only the SSM and
+    hybrid families run it."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid"):
+        out.append("long_500k")
+    return out

@@ -12,6 +12,8 @@ versions of the kernels on the CPU.
         --device cpu                    # 2-shard fleet, drain/resume
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \\
         --metrics-out metrics.prom --trace-out trace.jsonl --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
+        --arch mamba2-370m --device cpu     # SSM (zamba2-7b: hybrid)
 
 Engine flags are derived from ``serve.ServeOptions`` field metadata
 (``serve.add_cli_args``); the launcher adds its workload knobs

@@ -2,14 +2,24 @@
 training, the fixed-slot cache with ``prefill`` / ``decode_step``, the
 paged cache, and one chunked decode/prefill step.
 
-Port of the attention families of ``repro.models.lm``: dense and vlm run
-N × (RMSNorm → GQA attn → RMSNorm → MLP), moe the same with the MoE FFN
-(``models/moe.py``) in place of the MLP.  Layers are stacked on a
-leading axis and run by a Python loop (the reference's ``lax.scan``),
-each layer under activation checkpointing when ``cfg.remat == "full"``
-(the reference's ``jax.checkpoint``).  The SSM, hybrid and audio
-families and the embeddings frontend come with a later slice (ROADMAP
-queue 1 item 7).
+Port of ``repro.models.lm``:
+
+  dense / vlm : N × (RMSNorm → GQA attn → RMSNorm → MLP)
+  moe         : N × (RMSNorm → GQA attn → RMSNorm → MoE FFN)
+  ssm         : N × (RMSNorm → Mamba2/SSD block, ``models/ssm.py``)
+  hybrid      : groups of ``attn_every`` Mamba2 layers, each group
+                followed by ONE weight-shared (attn + MLP) block with a
+                K/V cache of its own per invocation (zamba2: 81 "layers" =
+                54 ssm + 27 shared invocations).
+
+Layers are stacked on a leading axis and run by a Python loop (the
+reference's ``lax.scan``), each layer under activation checkpointing when
+``cfg.remat == "full"`` (the reference's ``jax.checkpoint``).  Backbone
+layer ``i`` draws from ``fold_in(rng, i)``, shared invocation ``j`` from
+``fold_in(rng, 10_000 + j)``.  Every family serves; training
+(``lm_loss``) runs the attention families only, and the audio family
+and the embeddings frontend come with a later slice (ROADMAP queue 1
+item 7).
 
 Recomputation is safe for the stochastic backends because their noise
 is a pure function of the per-layer, per-site key (``sc/ctr_rng.py``):
@@ -22,21 +32,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
-# The attention families: one K/V cache per layer (the reference's
-# ``serve/kv_cache.py`` plans moe and vlm like dense).
-FAMILIES = ("dense", "moe", "vlm")
+# The families the port serves; the ssm and hybrid ones carry recurrent
+# state (the reference's ``serve/kv_cache.py:CachePlan``).
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+STATE_FAMILIES = ("ssm", "hybrid")
+TRAINABLE = ("dense", "moe", "vlm")
+SHARED_KEY_BASE = 10_000  # key fold of shared invocation j: base + j
 
 
-def require_ported(cfg) -> None:
+def require_ported(cfg, *, training: bool = False) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP queue 1 item 7 for a
-    family or frontend the port does not run yet."""
+    family or frontend the port does not run yet (with ``training``, a
+    family it serves but does not train)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family={cfg.family!r} is not ported yet (ROADMAP queue 1 "
             f"item 7); the port runs {', '.join(FAMILIES)}"
+        )
+    if training and cfg.family not in TRAINABLE:
+        raise NotImplementedError(
+            f"training family={cfg.family!r} is not ported yet (ROADMAP "
+            f"queue 1 item 7); the port trains {', '.join(TRAINABLE)} "
+            "and serves every family it runs"
         )
     if cfg.frontend != "tokens":
         raise NotImplementedError(
@@ -51,12 +71,24 @@ def _norm_spec(cfg):
 
 def block_specs(cfg):
     require_ported(cfg)
+    if cfg.family in STATE_FAMILIES:
+        return {"ln1": _norm_spec(cfg), "ssm": ssm.ssm_specs(cfg)}
     return {
         "ln1": _norm_spec(cfg),
         "attn": attention.attn_specs(cfg),
         "ln2": _norm_spec(cfg),
         "ffn": moe.moe_specs(cfg) if cfg.family == "moe"
         else layers.mlp_specs(cfg),
+    }
+
+
+def shared_block_specs(cfg):
+    """zamba2's weight-shared transformer block (MHA + MLP)."""
+    return {
+        "ln1": _norm_spec(cfg),
+        "attn": attention.attn_specs(cfg),
+        "ln2": _norm_spec(cfg),
+        "mlp": layers.mlp_specs(cfg),
     }
 
 
@@ -68,15 +100,39 @@ def stack_specs(specs, n: int):
     return tree_map_specs(stack, specs)
 
 
+def n_backbone_layers(cfg) -> int:
+    """Stacked backbone depth (hybrid: ssm layers only; ``n_layers``
+    counts ssm layers + shared invocations)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers * cfg.attn_every // (cfg.attn_every + 1)
+    return cfg.n_layers
+
+
+def n_shared_invocations(cfg) -> int:
+    if cfg.family != "hybrid":
+        return 0
+    return n_backbone_layers(cfg) // cfg.attn_every
+
+
+def _shared_after(cfg, idx: int):
+    """The shared invocation that runs after backbone layer ``idx``
+    (hybrid: after every ``attn_every``-th layer), else None."""
+    if cfg.family != "hybrid" or (idx + 1) % cfg.attn_every:
+        return None
+    return idx // cfg.attn_every
+
+
 def lm_param_specs(cfg):
     sp = {
         "embed": layers.embed_specs(cfg),
-        "blocks": stack_specs(block_specs(cfg), cfg.n_layers),
+        "blocks": stack_specs(block_specs(cfg), n_backbone_layers(cfg)),
         "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
         shape = (cfg.d_model, cfg.vocab)
         sp["unembed"] = ParamSpec(shape, ("embed", "vocab"), "scaled")
+    if cfg.family == "hybrid":
+        sp["shared"] = shared_block_specs(cfg)
     return sp
 
 
@@ -113,8 +169,17 @@ def _ffn(x, p, cfg, key):
 
 
 def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
-    """One attention block (pre-norm residual).  Returns ``(x, (k, v))``:
-    the sequence's K/V, or the ring-buffer ``cache`` it wrote into."""
+    """One backbone block (pre-norm residual).  Returns ``(x, cache)``.
+
+    Attention families: the sequence's K/V, or the ring-buffer ``cache``
+    it wrote into.  SSM / hybrid: the Mamba2 block under the layer's key
+    unfolded, with ``cache`` None, ``"prefill"`` or a state dict
+    (:func:`ssm.ssm_block`)."""
+    if cfg.family in STATE_FAMILIES:
+        h, new_cache = ssm.ssm_block(
+            layers.rms_norm(x, p["ln1"]), p["ssm"], cfg, key, cache=cache
+        )
+        return x + h, new_cache
     akey = layers.fold_keys(key, 11)
     h, kv = attention.attention_block(
         layers.rms_norm(x, p["ln1"]),
@@ -128,6 +193,25 @@ def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
     x = x + h
     fkey = layers.fold_keys(key, 13)
     h = _ffn(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
+    return x + h, kv
+
+
+def _apply_shared(x, p, cfg, positions, key, cache=None, cache_length=None):
+    """zamba2's weight-shared block: attention under ``fold_in(key, 17)``,
+    the MLP under ``fold_in(key, 19)``.  Returns ``(x, (k, v))`` as
+    :func:`_apply_block` does for an attention layer."""
+    h, kv = attention.attention_block(
+        layers.rms_norm(x, p["ln1"]),
+        p["attn"],
+        cfg,
+        positions,
+        layers.fold_keys(key, 17),
+        cache=cache,
+        cache_length=cache_length,
+    )
+    x = x + h
+    mkey = layers.fold_keys(key, 19)
+    h = layers.mlp(layers.rms_norm(x, p["ln2"]), p["mlp"], cfg, mkey)
     return x + h, kv
 
 
@@ -153,7 +237,8 @@ def _embed_inputs(params, inputs, cfg, rng=None):
 
 def encode(params, inputs, cfg, *, rng=None):
     """Backbone pass: tokens (b, s) -> final hidden states (b, s, d) after
-    the last norm.  Layer ``idx`` draws from ``fold_in(rng, idx)``."""
+    the last norm.  Backbone layer ``idx`` draws from ``fold_in(rng,
+    idx)``, shared invocation ``j`` from ``fold_in(rng, 10_000 + j)``."""
     require_ported(cfg)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
@@ -162,10 +247,16 @@ def encode(params, inputs, cfg, *, rng=None):
     def body(xc, lp, key):
         return _apply_block(xc, lp, cfg, positions, key)[0]
 
-    body = _maybe_remat(body, cfg)
-    for idx in range(cfg.n_layers):
+    def shared(xc, key):
+        return _apply_shared(xc, params["shared"], cfg, positions, key)[0]
+
+    body, shared = _maybe_remat(body, cfg), _maybe_remat(shared, cfg)
+    for idx in range(n_backbone_layers(cfg)):
         key = layers.fold_keys(rng, idx)
         x = body(x, _layer(params["blocks"], idx), key)
+        inv = _shared_after(cfg, idx)
+        if inv is not None:
+            x = shared(x, layers.fold_keys(rng, SHARED_KEY_BASE + inv))
     return layers.rms_norm(x, params["final_norm"])
 
 
@@ -192,8 +283,10 @@ def lm_loss(params, batch, cfg, *, rng=None):
     ``LOSS_SEQ_CHUNK`` under activation checkpointing, so the backward
     recomputes each chunk's logits instead of keeping them: peak memory
     is O(chunk·vocab), not O(s·vocab).  Chunk ``i`` draws from
-    ``fold_in(rng, i)``.
+    ``fold_in(rng, i)``.  The SSM and hybrid families serve but do not
+    train yet (ROADMAP queue 1 item 7).
     """
+    require_ported(cfg, training=True)
     x = encode(params, batch["inputs"], cfg, rng=rng)
     labels = batch["labels"]
     b, s, _ = x.shape
@@ -218,18 +311,37 @@ def lm_loss(params, batch, cfg, *, rng=None):
 
 
 # ---------------------------------------------------------------------------
-# Fixed-slot serving: a full-length K/V row per batch slot
+# Fixed-slot serving: a full-length K/V row (or a state row) per batch slot
 # ---------------------------------------------------------------------------
 
 
+def _stacked_state(cfg, n: int, batch: int, dtype, device):
+    """:func:`ssm.init_ssm_cache` stacked over ``n`` backbone layers."""
+    one = ssm.init_ssm_cache(cfg, batch, dtype, device=device)
+    return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in one.items()}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
-    """Stacked per-layer decode cache: ``{"k", "v"}`` of (layers, batch,
-    max_len, kv_heads, head_dim) zeros in ``cfg.act_dtype``."""
+    """Stacked per-layer decode cache in ``cfg.act_dtype``.
+
+    Attention families: ``{"k", "v"}`` of (layers, batch, max_len,
+    kv_heads, head_dim) zeros.  SSM: ``{"ssm"}``, the conv tails and the
+    float32 state of every backbone layer (leading axis = layer).  Hybrid
+    adds ``shared_k`` / ``shared_v`` of (invocations, batch, max_len,
+    kv_heads, head_dim)."""
     require_ported(cfg)
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, max_len, kvh, hd)
     dtype = dtype or cfg.act_dtype
+    if cfg.family in STATE_FAMILIES:
+        n = n_backbone_layers(cfg)
+        cache = {"ssm": _stacked_state(cfg, n, batch, dtype, device)}
+        if cfg.family == "hybrid":
+            shape = (n_shared_invocations(cfg), batch, max_len, kvh, hd)
+            for name in ("shared_k", "shared_v"):
+                cache[name] = torch.zeros(shape, dtype=dtype, device=device)
+        return cache
+    shape = (cfg.n_layers, batch, max_len, kvh, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -239,12 +351,20 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
 def prefill(params, inputs, cfg, max_len: int, *, rng=None):
     """Run the prompt through the model.  inputs: (b, s) tokens with
     ``s <= max_len``.  Returns ``(logits, cache, lengths)``: the last
-    token's logits (b, vocab) — the unembed runs on that one row — a
-    cache of every layer's K/V zero-padded to ``max_len``
-    (:func:`init_cache`'s layout), and ``lengths`` (b,) = s.
+    token's logits (b, vocab) — the unembed runs on that one row — the
+    cache, and ``lengths`` (b,) = s.
 
-    ``rng`` is one raw (2,) key for the whole call: layer ``idx`` draws
-    from ``fold_in(rng, idx)``, the unembed from ``rng`` itself.
+    Attention families: every layer's K/V zero-padded to ``max_len``
+    (:func:`init_cache`'s layout).  SSM / hybrid: each backbone layer's
+    chunked pass also returns its state (``ssm_block(cache="prefill")``):
+    ``cache["ssm"]`` stacks the raw conv tails — the last
+    ``min(s, ssm_conv - 1)`` positions, as the reference slices them —
+    and the final SSD states; hybrid adds the shared invocations' K/V
+    zero-padded to ``max_len``.
+
+    ``rng`` is one raw (2,) key for the whole call, folded per layer (and
+    per SSD chunk inside an SSM layer); the unembed draws from ``rng``
+    itself.
     """
     require_ported(cfg)
     x = _embed_inputs(params, inputs, cfg, rng)
@@ -253,24 +373,48 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None):
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cache = init_cache(cfg, b, max_len, x.dtype, device=x.device)
-    for idx in range(cfg.n_layers):
-        key = layers.fold_keys(rng, idx)
-        x, (k, v) = _apply_block(
-            x, _layer(params["blocks"], idx), cfg, positions, key
-        )
-        cache["k"][idx, :, :s] = k
-        cache["v"][idx, :, :s] = v
+    if cfg.family in STATE_FAMILIES:
+        states = []
+        for idx in range(n_backbone_layers(cfg)):
+            key = layers.fold_keys(rng, idx)
+            x, nc = _apply_block(x, _layer(params["blocks"], idx), cfg,
+                                 positions, key, cache="prefill")
+            states.append(nc)
+            inv = _shared_after(cfg, idx)
+            if inv is not None:
+                key = layers.fold_keys(rng, SHARED_KEY_BASE + inv)
+                x, (k, v) = _apply_shared(x, params["shared"], cfg,
+                                          positions, key)
+                cache["shared_k"][inv, :, :s] = k
+                cache["shared_v"][inv, :, :s] = v
+        cache["ssm"] = {name: torch.stack([st[name] for st in states])
+                        for name in states[0]}
+    else:
+        for idx in range(cfg.n_layers):
+            key = layers.fold_keys(rng, idx)
+            x, (k, v) = _apply_block(
+                x, _layer(params["blocks"], idx), cfg, positions, key
+            )
+            cache["k"][idx, :, :s] = k
+            cache["v"][idx, :, :s] = v
     x = layers.rms_norm(x, params["final_norm"])
     logits = _logits(x[:, -1], params, cfg, rng)
     lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache, lengths
 
 
+def _write_state(stacked: dict, idx: int, new: dict) -> None:
+    """Layer ``idx``'s rows of a stacked state, overwritten IN PLACE."""
+    for name, v in new.items():
+        stacked[name][idx].copy_(v)
+
+
 def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
     """One token per row.  tokens: (b,) next input ids; lengths: (b,)
     current fill (the new token writes at that index, clamped to the
     last one).  Returns ``(logits (b, vocab), cache)``: ``cache`` is the
-    dict given, whose buffers this call updated IN PLACE.
+    dict given, whose buffers this call updated IN PLACE (SSM layers:
+    their conv tails and states; attention: the K/V rows).
 
     ``rng`` is one raw (2,) key for the whole batch, folded per layer as
     in :func:`prefill`; every row is one row of each SC matmul, so a
@@ -281,17 +425,33 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
     x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
     positions = lengths.to(torch.int64)[:, None]
     new_lengths = lengths.to(torch.int64) + 1
-    for idx in range(cfg.n_layers):
-        key = layers.fold_keys(rng, idx)
-        x, _ = _apply_block(
-            x,
-            _layer(params["blocks"], idx),
-            cfg,
-            positions,
-            key,
-            cache=(cache["k"][idx], cache["v"][idx]),
-            cache_length=new_lengths,
-        )
+    if cfg.family in STATE_FAMILIES:
+        for idx in range(n_backbone_layers(cfg)):
+            key = layers.fold_keys(rng, idx)
+            lc = _layer(cache["ssm"], idx)
+            x, nc = _apply_block(x, _layer(params["blocks"], idx), cfg,
+                                 positions, key, cache=lc)
+            _write_state(cache["ssm"], idx, nc)
+            inv = _shared_after(cfg, idx)
+            if inv is not None:
+                key = layers.fold_keys(rng, SHARED_KEY_BASE + inv)
+                x, _ = _apply_shared(
+                    x, params["shared"], cfg, positions, key,
+                    cache=(cache["shared_k"][inv], cache["shared_v"][inv]),
+                    cache_length=new_lengths,
+                )
+    else:
+        for idx in range(cfg.n_layers):
+            key = layers.fold_keys(rng, idx)
+            x, _ = _apply_block(
+                x,
+                _layer(params["blocks"], idx),
+                cfg,
+                positions,
+                key,
+                cache=(cache["k"][idx], cache["v"][idx]),
+                cache_length=new_lengths,
+            )
     x = layers.rms_norm(x, params["final_norm"])
     return _logits(x[:, 0], params, cfg, rng), cache
 
@@ -301,17 +461,48 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
 # ---------------------------------------------------------------------------
 
 
-def init_paged_cache(cfg, num_blocks: int, block_size: int, *, device=None):
-    """One pool of ``num_blocks`` token blocks per layer, in
-    ``cfg.act_dtype`` (block 0 is the reserved null block)."""
+def init_paged_cache(cfg, num_blocks: int, block_size: int, *, slots=None,
+                     device=None):
+    """Per-family paged decode cache (the device half of
+    ``serve/kv_cache.py:CachePlan``), in ``cfg.act_dtype``.
+
+    Attention families: one pool of ``num_blocks`` token blocks per layer
+    (block 0 is the reserved null block).  SSM: nothing to page — one
+    state + conv-tail row PER BATCH ROW (``slots``) for every backbone
+    layer, carried beside the block table (the allocator still meters
+    the token budget; the tables go unread by the model).  Hybrid: both,
+    with K/V pools only for the shared invocations.
+    """
     require_ported(cfg)
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.n_layers, num_blocks, block_size, kvh, hd)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-    }
+    n_pools = cfg.n_layers
+    pages = {}
+    if cfg.family in STATE_FAMILIES:
+        if slots is None:
+            raise ValueError(
+                f"family={cfg.family!r} carries fixed-size SSM state per "
+                "batch row — pass slots= to init_paged_cache"
+            )
+        pages["ssm"] = _stacked_state(cfg, n_backbone_layers(cfg), slots,
+                                      cfg.act_dtype, device)
+        if cfg.family == "ssm":
+            return pages
+        n_pools = n_shared_invocations(cfg)
+    shape = (n_pools, num_blocks, block_size, kvh, hd)
+    for name in ("k", "v"):
+        pages[name] = torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+    return pages
+
+
+def _reset_fresh_state(state: dict, lengths) -> None:
+    """Zero, IN PLACE, the state and conv rows of sequences starting from
+    position 0 this step (a fresh admission or an eviction resume) — the
+    recurrent analogue of a fresh block table.  Leaves: (n, b, ...); idle
+    rows (lengths == 0, nothing fed) zero harmlessly."""
+    fresh = lengths == 0
+    for v in state.values():
+        v.masked_fill_(fresh.reshape((1, -1) + (1,) * (v.dim() - 2)), 0)
 
 
 def decode_paged(
@@ -342,6 +533,12 @@ def decode_paged(
     depend only on (request key, position, layer, site).  ``rng`` may
     also be (b, sc, 2) per-token keys already resolved by the caller.
     ``paged_attn="fused_sc"`` requires ``rng``.
+
+    SSM / hybrid layers feed their chunk through :func:`ssm.ssm_stream`
+    (token-recurrent, so a row's state is bit-identical whatever the
+    chunking or batch composition); rows at ``lengths == 0`` zero their
+    state first.  Hybrid adds the shared attention block over its own
+    K/V pools per invocation, under keys ``fold_in(10_000 + j)``.
     """
     require_ported(cfg)
     if rng is None and cfg.paged_attn == "fused_sc":
@@ -361,24 +558,42 @@ def decode_paged(
         else:
             per_tok = rng[:, None, :].expand(b, sc, rng.shape[-1])
             keys = layers.fold_keys(per_tok, positions)  # (b, sc, 2)
-    for idx in range(cfg.n_layers):
-        lp = _layer(params["blocks"], idx)
-        lkeys = layers.fold_keys(keys, idx)
+
+    def attend(xc, p, key, kp, vp):
         h, _, _ = attention.paged_attention_block(
-            layers.rms_norm(x, lp["ln1"]),
-            lp["attn"],
-            cfg,
-            positions,
-            layers.fold_keys(lkeys, 11),
-            pages["k"][idx],
-            pages["v"][idx],
-            block_table,
-            lengths,
-            n_valid,
+            layers.rms_norm(xc, p["ln1"]), p["attn"], cfg, positions, key,
+            kp, vp, block_table, lengths, n_valid,
         )
-        x = x + h
-        fkey = layers.fold_keys(lkeys, 13)
-        x = x + _ffn(layers.rms_norm(x, lp["ln2"]), lp["ffn"], cfg, fkey)
+        return xc + h
+
+    if cfg.family in STATE_FAMILIES:
+        _reset_fresh_state(pages["ssm"], lengths)
+        valid = steps[None, :] < n_valid.to(torch.int64)[:, None]
+        for idx in range(n_backbone_layers(cfg)):
+            lp = _layer(params["blocks"], idx)
+            h, nc = ssm.ssm_stream(
+                layers.rms_norm(x, lp["ln1"]), lp["ssm"], cfg,
+                layers.fold_keys(keys, idx), _layer(pages["ssm"], idx),
+                valid,
+            )
+            x = x + h
+            _write_state(pages["ssm"], idx, nc)
+            inv = _shared_after(cfg, idx)
+            if inv is not None:
+                sp = params["shared"]
+                k2 = layers.fold_keys(keys, SHARED_KEY_BASE + inv)
+                x = attend(x, sp, layers.fold_keys(k2, 17), pages["k"][inv],
+                           pages["v"][inv])
+                x = x + layers.mlp(layers.rms_norm(x, sp["ln2"]), sp["mlp"],
+                                   cfg, layers.fold_keys(k2, 19))
+    else:
+        for idx in range(cfg.n_layers):
+            lp = _layer(params["blocks"], idx)
+            lkeys = layers.fold_keys(keys, idx)
+            x = attend(x, lp, layers.fold_keys(lkeys, 11), pages["k"][idx],
+                       pages["v"][idx])
+            fkey = layers.fold_keys(lkeys, 13)
+            x = x + _ffn(layers.rms_norm(x, lp["ln2"]), lp["ffn"], cfg, fkey)
     x = layers.rms_norm(x, params["final_norm"])
     if all_logits:
         return _logits(x, params, cfg, keys), pages

@@ -15,6 +15,7 @@ from repro_torch.serve.engine import (  # noqa: F401
 )
 from repro_torch.serve.kv_cache import (  # noqa: F401
     BlockPool,
+    CachePlan,
     PagedCacheConfig,
     PagedKVCache,
     default_num_blocks,

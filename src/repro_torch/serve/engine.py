@@ -24,7 +24,10 @@ telemetry and ``health_snapshot``):
   (``speculative``) drafts ``spec_k`` tokens a greedy row and verifies
   them in one width-(k+1) step.  ``drain`` / ``restore`` move requests
   between engines (``ft.FleetSupervisor``'s failover), warm with their
-  K/V blocks where the geometry allows.
+  K/V blocks where the geometry allows.  Every family serves through a
+  per-family cache plan (``kv_cache.CachePlan``): the SSM and hybrid
+  families carry recurrent state rows per slot, so they refuse prefix
+  caching and speculation, and checkpoint cold.
 
 Both engines keep their caches on their device and update them in
 place.  On a non-ideal device (``ServeOptions.fault_profile``) each tick
@@ -36,9 +39,8 @@ the aggregate (the jitted reference records once per COMPILED shape).
 ``close()`` (or a raise mid-tick) detaches the collector.
 
 Construct engines through ``serve.api.build_engine``; direct
-construction works but warns.  The attention families (dense, moe,
-vlm) are served; the SSM and hybrid families raise (ROADMAP queue 1
-item 7).
+construction works but warns.  Every family the port runs is served
+(``lm.FAMILIES``).
 """
 
 from __future__ import annotations
@@ -326,9 +328,20 @@ class ServingEngine(_ArchTracedEngine):
 
     def _splice_slot(self, slot: int, cache1, length: int, last_tok: int):
         """Write a batch-1 prefill cache into batch row ``slot``, cast to
-        the cache's dtype."""
-        for name, full in self.cache.items():
-            full[:, slot] = cache1[name][:, 0].to(full.dtype)
+        the cache's dtype: every leaf (the K/V rows, or the SSM conv
+        tails and states and the shared K/V) from its first index on, as
+        the reference's ``dynamic_update_slice`` writes it (a prompt
+        shorter than the conv tail writes only its own rows)."""
+
+        def put(full, one):
+            if isinstance(full, dict):
+                for name in full:
+                    put(full[name], one[name])
+                return
+            rows = tuple(slice(0, n) for n in one.shape[2:])
+            full[(slice(None), slot) + rows] = one[:, 0].to(full.dtype)
+
+        put(self.cache, cache1)
         self.lengths[slot] = length
         self.last_token[slot] = last_tok
 
@@ -452,6 +465,20 @@ class PagedServingEngine(_ArchTracedEngine):
         from repro_torch.serve import scheduler as sched
 
         _warn_direct("PagedServingEngine")
+        self.cache_plan = kvc.CachePlan.for_config(cfg)
+        if self.cache_plan.has_state:
+            if scfg.prefix_cache:
+                raise ValueError(
+                    "prefix_cache=True needs reconstructible context, but "
+                    f"family={cfg.family!r} carries recurrent SSM state — "
+                    "adopted KV blocks cannot rebuild a row's state"
+                )
+            if scfg.speculative:
+                raise ValueError(
+                    "speculative=True cannot rewind recurrent state, but "
+                    f"family={cfg.family!r} carries SSM state — the verify "
+                    "pass would advance it past rejected draft tokens"
+                )
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
@@ -482,7 +509,8 @@ class PagedServingEngine(_ArchTracedEngine):
             enable_prefix_cache=scfg.prefix_cache,
         )
         self.pages = lm.init_paged_cache(
-            cfg, num_blocks, scfg.block_size, device=self.device
+            cfg, num_blocks, scfg.block_size, slots=scfg.slots,
+            device=self.device,
         )
         self.scheduler = sched.Scheduler(
             scfg,
@@ -782,10 +810,14 @@ class PagedServingEngine(_ArchTracedEngine):
         A checkpoint carries the request's identity (rid, prompt,
         generated so far, raw key, sampling knobs), its scheduler
         position (``fed``, ``pending``, ``prefilling``), the pool's
-        ``block_size`` and, for an admitted row, the K/V of its filled
-        blocks as CPU tensors, so a healthy engine can resume it WARM
-        through :meth:`restore` without re-prefilling.  Waiting requests
-        checkpoint cold.  After ``drain()`` the engine is empty."""
+        ``block_size`` and, for an admitted row of an attention family,
+        the K/V of its filled blocks as CPU tensors, so a healthy engine
+        can resume it WARM through :meth:`restore` without re-prefilling.
+        Waiting requests checkpoint cold, and so do the state-carrying
+        families (ssm, hybrid): their recurrent state is not rebuilt from
+        pages, so the resume recomputes from tokens, which the
+        per-(request key, position) rng contract makes token-identical.
+        After ``drain()`` the engine is empty."""
         sched = self.scheduler
         ckpts = []
         for slot in range(self.scfg.slots):
@@ -833,7 +865,7 @@ class PagedServingEngine(_ArchTracedEngine):
             block_size=self.scfg.block_size,
             kv=None,
         )
-        if warm and seq.fed:
+        if warm and seq.fed and not self.cache_plan.has_state:
             nblk = blocks_for(seq.fed, self.scfg.block_size)
             ids = self._tensor(self.kv.tables[req.rid][:nblk], torch.int64)
             ckpt["kv"] = {
@@ -874,6 +906,7 @@ class PagedServingEngine(_ArchTracedEngine):
         fed = ckpt["fed"]
         if (
             ckpt["block_size"] != self.scfg.block_size
+            or self.cache_plan.has_state
             or fed == 0
             or fed > self.scfg.max_len
             or self.kv.tables.get(req.rid)

@@ -32,7 +32,8 @@ copies it out (copy-on-write) and hands the engine the page copies.
 With the cache off every refcount stays 1 and ``adopt_prefix`` /
 ``note_filled`` / ``make_writable`` change nothing.
 
-The device-side pool tensors live in ``models/lm.py:init_paged_cache``.
+The device-side pool tensors live in ``models/lm.py:init_paged_cache``,
+laid out per family by :class:`CachePlan`.
 """
 
 from __future__ import annotations
@@ -75,6 +76,51 @@ class PagedCacheConfig:
     @property
     def capacity_tokens(self) -> int:
         return (self.num_blocks - 1) * self.block_size
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePlan:
+    """Per-family device-cache layout: which layers page and which carry
+    fixed-size recurrent state.
+
+    * attention (dense / moe / vlm): every backbone layer owns a paged
+      K/V pool; ``state_layers = 0``.
+    * ssm: no K/V pools — each backbone layer carries one O(1) state +
+      conv-tail row PER BATCH ROW, indexed by slot.  The block allocator
+      still meters the admission / eviction token budget, so scheduling
+      is family-agnostic; the tables go unread.  ``paged_layers = 0``.
+    * hybrid: both — state rows for the Mamba2 backbone layers and K/V
+      pools for each weight-shared attention invocation.
+
+    ``models/lm.py:init_paged_cache`` materializes the tensors this plan
+    describes; ``engine.PagedServingEngine`` consults ``has_state`` to
+    refuse prefix caching and speculative decoding (recurrent state
+    cannot be spliced from adopted blocks nor rewound) and to checkpoint
+    cold.
+    """
+
+    family: str
+    paged_layers: int  # layers with paged K/V pools
+    state_layers: int  # layers with fixed-size SSM state rows
+
+    @classmethod
+    def for_config(cls, cfg) -> "CachePlan":
+        from repro_torch.models import lm
+
+        n = lm.n_backbone_layers(cfg)
+        if cfg.family == "ssm":
+            return cls(cfg.family, 0, n)
+        if cfg.family == "hybrid":
+            return cls(cfg.family, lm.n_shared_invocations(cfg), n)
+        return cls(cfg.family, n, 0)
+
+    @property
+    def has_paged(self) -> bool:
+        return self.paged_layers > 0
+
+    @property
+    def has_state(self) -> bool:
+        return self.state_layers > 0
 
 
 def blocks_for(tokens: int, block_size: int) -> int:

@@ -4,7 +4,8 @@ that it mirrors the reference's public names.
 * no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports
   ``jax`` or anything of the JAX package ``repro``;
 * entry points default to the card and refuse to fall back to the CPU;
-* the ported modules keep the reference's names.
+* the ported modules keep the reference's names, and every model module
+  and config of the reference has its port but the audio frontend's.
 """
 
 import ast
@@ -114,8 +115,24 @@ def test_engine_refuses_params_on_another_device():
         build_engine(p, cfg, ServeOptions(paged=True), device="cpu")
 
 
+# What ``src/repro/{models,configs}`` has and the port lacks: the
+# modality frontend and its one config (ROADMAP queue 1 item 7).
+UNPORTED = {"models/frontend.py", "configs/musicgen_large.py"}
+
+
+def test_port_mirrors_the_reference_models_and_configs():
+    ref = ROOT / "src" / "repro"
+    missing = {
+        f"{sub}/{p.name}"
+        for sub in ("models", "configs")
+        for p in (ref / sub).glob("*.py")
+        if not (PORT / sub / p.name).exists()
+    }
+    assert missing == UNPORTED
+
+
 def test_unported_families_raise_not_implemented():
-    _assert_unported(get_smoke_config("qwen2-0.5b").replace(family="ssm"))
+    _assert_unported(get_smoke_config("qwen2-0.5b").replace(family="audio"))
 
 
 def test_embeddings_frontend_raises_not_implemented():
