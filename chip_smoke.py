@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port's paged and fixed-slot SC serving paths,
 its serve-fleet failover, the paper's cell model, MoE, SSM and hybrid
-serving, its trainer, and its validation / faulty-device path on one
-GPU.
+serving, its trainer (dense, SSM, hybrid and audio), and its validation /
+faulty-device path on one GPU.
 
     python3 chip_smoke.py [--layers N] [--moe-layers N] [--ssm-layers N]
-                          [--hybrid-groups N]
+                          [--hybrid-groups N] [--audio-layers N]
 
 Phases, each printing one JSON line (any failure raises, so the exit
 code is non-zero):
@@ -36,7 +36,12 @@ code is non-zero):
    same function (``scaled_dot_product_attention``; three float32
    ``torch.matmul`` calls plus the moment epilogue, timed in turns with
    the kernel); the SASS census must show the moment kernel's wgmma
-   (HGMMA) opcodes;
+   (HGMMA) opcodes; kernel 5 also at the family training phases' shapes
+   (TS's row-key wz, wdt and out at M = 2,048 and its tied unembed, TH's
+   wz, out and shared-MLP wi / wo at M = 1,024, TA's MLP and frontend
+   projection at M = 512), and at each row-key shape the whole
+   ``sc_dot_rows`` route: one kernel-5 launch for all rows, within 1e-5
+   of the ``moment`` rows route in torch ops;
 3. serve phase A: qwen2-0.5b at full width, depth cut to ``--layers``
    (default 2), bf16, random weights from seed 0, ``pallas_bitexact``
    (the fused SC matmul kernel) with ``fused_sc`` attention at
@@ -83,8 +88,27 @@ code is non-zero):
    0-based index) and recovered from the step-2 checkpoint; then an
    uninterrupted run from the same seed, whose losses must equal the
    first run's at every step; then one profiled step;
-7. the tiny trainer (paper-sc smoke, ``pallas_moment``) for 2 steps on
-   the card and on the CPU in this process: losses within 1e-4;
+7. train phases TS (mamba2-370m at its published width, ``--ssm-layers``
+   deep, batch 4 x seq 512: the SSD carry crosses a 256-token chunk),
+   TH (zamba2-7b, ``--hybrid-groups`` groups, 2 x 512) and TA
+   (musicgen-large, ``--audio-layers`` deep, default 2 of 48, 8 x 64
+   frame embeddings from ``make_embedding_batch``): float32,
+   ``pallas_moment`` at nbit 1024, ``remat="full"``, random weights from
+   seed 0, 3 steps each through ``launch/train.py``; finite losses; kernel
+   5's and ``sc_mac_reduce``'s launches a step equal to the count derived
+   from the code before the run (``kernel5_plan``: a launch a site a
+   layer, twice under remat, twice a loss chunk), kernel 5's the same at
+   half the batch and half the sequence (the SSM's per-token keys take
+   the row-key route, one launch a call); one step traced (kernel 5, the
+   GEMMs, the rest, the idle share); then the SMOKE trainers of
+   paper-sc and the three families, 2 steps on the card and on the CPU
+   (``train_cross_device``): with the 10-bit operand grid off on both
+   devices each step is also taken on the CPU from the card's state,
+   and the loss, the grad norm, every gradient leaf and the card's
+   AdamW update must agree, and so must the independent runs' losses
+   (1e-4); with the grid on, the independent runs through
+   ``launch/train.py`` (held within 1e-4 for paper-sc, printed for the
+   families);
 8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
    decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
    kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
@@ -142,15 +166,17 @@ code is non-zero):
     equal fixed-slot tokens; the SMOKE config on card and CPU;
 14. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B, P, F, FT, T, V, D, C,
-M, S and H and read just after each; a kernel of a phase's path that
-did not launch fails the run.  Without a CUDA device the script exits non-zero before
-printing any result.
+Launch counts are reset just before phases A, B, P, F, FT, T, TS, TH,
+TA, V, D, C, M, S and H and read just after each; a kernel of a phase's
+path that did not launch fails the run.  Without a CUDA device the
+script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1022,6 +1048,129 @@ def check_sc_mac_reduce(km, x, w, z, splits, kper, nbit) -> dict:
     )
     emit("kernel_check", kernel="sc_mac_reduce", case="mlp_wo", **row)
     return row
+
+
+# Kernel 5 at the training phases' shapes, M = batch x seq rows: TS's
+# row-key SSM calls (mamba2-370m, 4 x 512) and its tied unembed, TH's SSM
+# calls and the shared block's MLP (zamba2-7b, 2 x 512), TA's MLP and the
+# frontend's projection (musicgen-large, 8 x 64).
+# (case, M, K, N, w the K-major table.T, reached in row-key mode)
+SC_MAC_TRAIN_SHAPES = (
+    ("ts_wz", 2048, 1024, 2048, False, True),
+    ("ts_wdt", 2048, 1024, 32, False, True),
+    ("ts_out", 2048, 2048, 1024, False, True),
+    ("ts_unembed", 2048, 1024, 50280, True, False),
+    ("th_wz", 1024, 3584, 7168, False, True),
+    ("th_out", 1024, 7168, 3584, False, True),
+    ("th_mlp_wi", 1024, 3584, 28672, False, False),
+    ("th_mlp_wo", 1024, 14336, 3584, False, False),
+    ("ta_mlp_wi", 512, 2048, 8192, False, False),
+    ("ta_mlp_wo", 512, 8192, 2048, False, False),
+    ("ta_frontend_proj", 512, 2048, 2048, False, False),
+)
+
+
+def rows_route_check(m: int, k: int, n: int, seed: int) -> dict:
+    """``pallas_moment``'s row-key route (``sc_dot_rows``) at a row-key
+    shape: one kernel-5 launch (plus the split-K pass where the plan
+    splits) for all m rows, within 1e-5 of max |out| of the ``moment``
+    rows route in torch ops on the same keys (its plain version: the
+    same scales, grid and noise rows); the call's ms and the noise
+    draw's (``ctr_rng.normal_rows``)."""
+    from repro_torch import sc
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import sc_mac as km
+    from repro_torch.sc import backends, ctr_rng
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    x = x * torch.exp(torch.randn((m, 1), generator=gen, device="cuda"))
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.05
+    keys = ctr_rng.split(ctr_rng.prng_key(seed, device="cuda"), m)
+    cfg = sc.ScConfig(backend="pallas_moment")
+    before = dict(cuda_lib.launches)
+    got = sc.sc_dot_rows(keys, x, w, cfg)
+    torch.cuda.synchronize()
+    launched = {
+        name: cuda_lib.launches[name] - before.get(name, 0)
+        for name in ("sc_mac_fused", "sc_mac_reduce")
+    }
+    splits = km.sc_mac_plan(m, n, k)[0]
+    want = {"sc_mac_fused": 1, "sc_mac_reduce": int(splits > 1)}
+    if launched != want:
+        raise AssertionError(f"rows route {m}x{k}x{n}: launches {launched}"
+                             f", planned {want}")
+    ref = backends.moment_rows(keys, x, w, cfg.replace(backend="moment"))
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"rows route {m}x{k}x{n}: rel err {err}")
+    return dict(
+        launches=launched,
+        max_abs_err=err,
+        call_ms=time_ms(lambda: sc.sc_dot_rows(keys, x, w, cfg), 5),
+        noise_ms=time_ms(lambda: ctr_rng.normal_rows(keys, n), 5),
+    )
+
+
+def check_sc_mac_train(rates: dict) -> dict:
+    """Kernel 5 at the training phases' shapes (``SC_MAC_TRAIN_SHAPES``)
+    on grid operands, as ``pallas_moment`` launches it: within 1e-5 of
+    max |out| of its plain version, its median ms timed in turns with
+    three float32 ``torch.matmul`` calls plus the epilogue, the plain
+    version's ms and the bound; at the row-key shapes also the whole
+    rows route (``rows_route_check``)."""
+    from repro_torch.kernels import sc_mac as km
+
+    rng = np.random.default_rng(11)
+    nbit = 1024
+    rows = {}
+    for name, m, k, n, kmajor, row_keys in SC_MAC_TRAIN_SHAPES:
+        x, w, z = _moment_operands(rng, m, k, n, kmajor)
+        ref = km.sc_mac_fused_plain(x, w, z, nbit=nbit)
+        got = km.sc_mac_fused(x, w, z, nbit=nbit, on_grid=True)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        del got, ref
+        if not err <= 1e-5:
+            raise AssertionError(f"sc_mac_fused {name}: rel err {err}")
+        xa, wa, xq, wq = x.abs(), w.abs(), x * x, w * w
+
+        def library():
+            mean = torch.matmul(x, w)
+            p = torch.matmul(xa, wa)
+            p2 = torch.matmul(xq, wq)
+            var = torch.clamp_min(p - p2, 0.0) * (1.0 / nbit)
+            return mean + z * torch.sqrt(var)
+
+        lib_ms, ms = paired_ms(
+            library,
+            lambda: km.sc_mac_fused(x, w, z, nbit=nbit, on_grid=True),
+            10,
+        )
+        plain_ms = time_ms(
+            lambda: km.sc_mac_fused_plain(x, w, z, nbit=nbit), 5
+        )
+        bound = _moment_bound(m, k, n, rates, True, True)
+        splits, kper = km.sc_mac_plan(m, n, k)
+        rows[name] = dict(
+            shape=[m, k, n],
+            w_layout="K-major view (table.T)" if kmajor else "row-major",
+            row_keys=row_keys,
+            splits=splits,
+            k_per_split=kper,
+            max_abs_err=err,
+            ms=ms,
+            plain_ms=plain_ms,
+            library_ms=lib_ms,
+            vs_library=ms / lib_ms,
+            **bound,
+            of_bound=bound["bound_ms"] / ms,
+        )
+        del x, w, z, xa, wa, xq, wq
+        if row_keys:
+            rows[name]["rows_route"] = rows_route_check(m, k, n, len(rows))
+        emit("kernel_check", kernel="sc_mac_fused", case=name, **rows[name])
+        torch.cuda.empty_cache()
+    return rows
 
 
 # Integer ops of the packed MUL per word pair: 16 ladder slices x 2
@@ -2004,6 +2153,23 @@ def train_phase(layers: int, workdir: str) -> dict:
     )
 
 
+def by_class_ms(trace: dict) -> dict:
+    """Device ms of a traced step by kernel class: the moment kernel
+    (and its split-K pass), GEMMs (the straight-through backward and the
+    attention / SSD einsums) and everything else."""
+    classes = {"sc_mac": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (ms, _) in trace["kernels"].items():
+        low = name.lower()
+        if "sc_mac" in low:
+            cls = "sc_mac"
+        elif "gemm" in low or "cutlass" in low or "matmul" in low:
+            cls = "gemm"
+        else:
+            cls = "other"
+        classes[cls] += ms
+    return classes
+
+
 def profile_step(layers: int) -> dict:
     """One training step under ``torch.profiler``: device time by kernel
     class (the moment kernel, GEMMs — the straight-through backward and
@@ -2035,16 +2201,7 @@ def profile_step(layers: int) -> dict:
         return new_state
 
     state, tr = device_trace(traced_step)
-    classes = {"sc_mac": 0.0, "gemm": 0.0, "other": 0.0}
-    for name, (ms, _) in tr["kernels"].items():
-        low = name.lower()
-        if "sc_mac" in low:
-            cls = "sc_mac"
-        elif "gemm" in low or "cutlass" in low or "matmul" in low:
-            cls = "gemm"
-        else:
-            cls = "other"
-        classes[cls] += ms
+    classes = by_class_ms(tr)
     out = dict(
         profiled_wall_ms=tr["wall_ms"],
         device_ms=tr["device_ms"],
@@ -2083,24 +2240,322 @@ def step_parts(state, cfg, tcfg) -> dict:
     )
 
 
-def train_cross_device(workdir: str) -> None:
-    """The tiny trainer on the card and on the CPU: losses within 1e-4."""
+# ---------------------------------------------------------------------------
+# Phases TS, TH and TA: training the SSM, hybrid and audio families
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 3  # steps a family phase trains
+
+
+def kernel5_plan(cfg, batch: int, seq: int) -> dict:
+    """Kernel-5 and split-K launches of one ``pallas_moment`` training
+    step, derived from the code before the run.  Each site of
+    ``arch.dense_workload`` is one ``sc_dot`` or ``sc_dot_rows`` call,
+    one kernel-5 launch whatever its rows (the SSM projections' per-token
+    keys take the row-key route); under ``remat="full"`` the backward
+    recomputes every backbone layer and shared invocation (twice), the
+    frontend's projection runs once (outside the checkpoints), and each
+    loss chunk twice (its checkpoint).  A call launches
+    ``sc_mac_reduce`` once where ``sc_mac_plan`` splits its K."""
+    from repro_torch.arch import dense_workload
+    from repro_torch.kernels import sc_mac as km
+    from repro_torch.models import lm
+
+    tokens = batch * seq
+    c = min(lm.LOSS_SEQ_CHUNK, seq)
+    if seq % c:
+        c = seq
+    remat = 2 if cfg.remat == "full" else 1
+    plan = {"sc_mac_fused": 0, "sc_mac_reduce": 0}
+    for site in dense_workload(cfg, tokens):
+        if site.label == "unembed":
+            calls, m = 2 * (seq // c), batch * c
+        elif site.label == "frontend.proj":
+            calls, m = 1, tokens
+        else:
+            calls, m = site.count * remat, tokens
+        k4 = max(4, -(-site.k // 4) * 4)
+        plan["sc_mac_fused"] += calls
+        if km.sc_mac_plan(m, site.n, k4)[0] > 1:
+            plan["sc_mac_reduce"] += calls
+    return plan
+
+
+def _family_batch(cfg, batch: int, seq: int, step: int):
+    from repro_torch.data import (
+        SyntheticLMData,
+        make_batch,
+        make_embedding_batch,
+    )
+
+    data = SyntheticLMData(cfg.vocab, seq, batch)
+    if cfg.frontend == "embeddings":
+        return make_embedding_batch(data, cfg.d_model, step)
+    return make_batch(data, step)
+
+
+# the SMOKE trainers held card against CPU; the grid-on trajectory is held
+# for paper-sc, printed for the families
+CROSS_TRAIN_ARCHS = ("paper-sc", "mamba2-370m", "zamba2-7b", "musicgen-large")
+GRID_TRAJECTORY_HELD = ("paper-sc",)
+
+
+@contextlib.contextmanager
+def operand_grid_off():
+    """Every stochastic matmul with the 10-bit operand grid off on both
+    devices: each call's ``ScConfig`` takes ``quantize=False``, so the
+    plain versions skip ``quantize_grid`` and kernel 5 takes its general
+    route (9 TF32 products a pair, not the grid's 5)."""
+    from repro_torch.models import layers
+
+    real = layers._sc_config
+    layers._sc_config = lambda cfg: dataclasses.replace(
+        real(cfg), quantize=False)
+    try:
+        yield
+    finally:
+        layers._sc_config = real
+
+
+class _GradSpy:
+    """Keeps the gradients each train step hands to ``adamw_update``
+    while installed."""
+
+    def __init__(self):
+        from repro_torch.train import step as step_lib
+
+        self.lib, self.grads = step_lib, []
+
+    def __enter__(self):
+        self._real = self.lib.adamw_update
+        spy = self
+
+        def update(grads, *args, **kw):
+            spy.grads.append(grads)
+            return spy._real(grads, *args, **kw)
+
+        self.lib.adamw_update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.adamw_update = self._real
+
+
+def _leaf_gap(got, want) -> tuple:
+    """(worst leaf, its max |got - want| over its max |want|) of two
+    trees of one structure; a leaf that is zero in both has gap 0."""
+    from repro_torch.models.params import _leaves
+
+    worst = ("", 0.0)
+    for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        err = float((a.cpu() - b.cpu()).abs().max())
+        scale = float(b.abs().max())
+        gap = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if gap > worst[1]:
+            worst = ("/".join(path), gap)
+    return worst
+
+
+def train_cross_device(arch: str, workdir: str) -> dict:
+    """``arch``'s SMOKE trainer (float32, ``pallas_moment``, 2 AdamW steps
+    of batch 2 x seq 16) on the card and on the CPU (plain versions).
+
+    With the 10-bit operand grid off on both devices, each step is also
+    taken on the CPU from the card's state before it: the loss and the
+    grad norm within 1e-4 relative, every gradient leaf within 1e-4 of
+    its max |value|, and the card's updated parameters within 1e-6 of
+    each leaf's max |value| of AdamW applied on the CPU to the card's own
+    gradients (Adam's first step is sign-like, so the update is held on
+    the card's gradients: an element near zero whose sign differs between
+    the devices moves by 2 lr); and the independent runs' losses within
+    1e-4 at both steps.
+
+    With the grid on (the configs' own), the independent runs go through
+    ``launch/train.py`` (``--device cuda`` and ``cpu``): their losses are
+    held within 1e-4 for ``GRID_TRAJECTORY_HELD`` and printed for the
+    rest (``grid_max_rel``): on the grid an ulp between the devices can
+    move an operand across a grid step, and Adam's first update carries
+    that into the next step's loss."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train import (
+        TrainConfig,
+        make_train_step,
+        train_state_init,
+    )
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
     args = [
-        "--arch", "paper-sc", "--smoke", "--steps", "2", "--batch", "2",
+        "--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
         "--seq", "16", "--sc-backend", "pallas_moment",
     ]
-    losses = {}
+    grid = {}
     for dev in ("cuda", "cpu"):
         _, hist = _train(args + ["--device", dev],
-                         os.path.join(workdir, f"x_{dev}"))
-        losses[dev] = hist["loss"]
-    rel = max(
-        abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])
+                         os.path.join(workdir, f"x_{arch}_{dev}"))
+        grid[dev] = hist["loss"]
+    grid_rel = max(rel(a, b) for a, b in zip(grid["cuda"], grid["cpu"]))
+
+    cfg = get_smoke_config(arch).replace(
+        param_dtype=torch.float32, act_dtype=torch.float32,
+        sc_backend="pallas_moment",
     )
-    emit("train_cross_device", cuda=losses["cuda"], cpu=losses["cpu"],
-         max_rel=rel)
-    if not rel <= 1e-4:
-        raise AssertionError(f"train losses differ card vs CPU: {rel}")
+    tcfg = TrainConfig(
+        optimizer=AdamWConfig(lr=1e-3, total_steps=2, warmup_steps=1))
+    step = make_train_step(cfg, tcfg)
+    card = train_state_init(0, cfg, tcfg, device="cuda")
+    host = train_state_init(0, cfg, tcfg, device="cpu")
+    off = {"cuda": [], "cpu_same_state": [], "cpu": [], "grad_norm_rel": [],
+           "grads": [], "update": []}
+    with operand_grid_off(), _GradSpy() as spy:
+        for i in range(2):
+            batch = _family_batch(cfg, 2, 16, i)
+            before = tree_map(lambda t: t.cpu(), card)
+            _, m_same = step(before, batch)
+            card, m = step(card, batch)
+            g_cpu, g_card = spy.grads
+            want, _, _ = adamw_update(tree_map(lambda t: t.cpu(), g_card),
+                                      before["opt"], before["params"],
+                                      tcfg.optimizer)
+            host, m_host = step(host, batch)
+            spy.grads.clear()
+            off["cuda"].append(float(m["loss"]))
+            off["cpu_same_state"].append(float(m_same["loss"]))
+            off["cpu"].append(float(m_host["loss"]))
+            off["grad_norm_rel"].append(rel(m["grad_norm"],
+                                            m_same["grad_norm"]))
+            off["grads"].append(_leaf_gap(g_card, g_cpu))
+            off["update"].append(_leaf_gap(card["params"], want))
+    same_rel = max(rel(a, b) for a, b in zip(off["cuda"],
+                                             off["cpu_same_state"]))
+    run_rel = max(rel(a, b) for a, b in zip(off["cuda"], off["cpu"]))
+    rec = dict(arch=arch, grid=grid, grid_max_rel=grid_rel, grid_off=off,
+               max_rel=same_rel, trajectory_max_rel=run_rel)
+    emit("train_cross_device", **rec)
+    faults = []
+    if not same_rel <= 1e-4:
+        faults.append(f"same-state loss {same_rel}")
+    if not max(off["grad_norm_rel"]) <= 1e-4:
+        faults.append(f"same-state grad norm {off['grad_norm_rel']}")
+    if not max(g for _, g in off["grads"]) <= 1e-4:
+        faults.append(f"gradient leaves {off['grads']}")
+    if not max(g for _, g in off["update"]) <= 1e-6:
+        faults.append(f"AdamW update {off['update']}")
+    if not run_rel <= 1e-4:
+        faults.append(f"independent runs, grid off, {run_rel}")
+    if arch in GRID_TRAJECTORY_HELD and not grid_rel <= 1e-4:
+        faults.append(f"independent runs, grid on, {grid_rel}")
+    if faults:
+        raise AssertionError(f"train_cross_device {arch}: card vs CPU: "
+                             + "; ".join(faults))
+    return rec
+
+
+def family_train_phase(tag: str, arch: str, layers: int, batch: int,
+                       seq: int, workdir: str) -> dict:
+    """Train ``arch`` at its published width, ``layers`` deep, float32,
+    ``pallas_moment`` at nbit 1024 with ``remat="full"``, random weights
+    from seed 0, ``FAMILY_STEPS`` steps of batch x seq through
+    ``launch/train.py`` on the card.  Kernel 5's and ``sc_mac_reduce``'s
+    launches a step must be ``kernel5_plan``'s, and kernel 5's the same
+    in one more step at half the batch and half the sequence; no other
+    kernel may launch; the losses must be finite.  Then one step at the
+    phase's shapes under ``torch.profiler``: device ms of kernel 5, the
+    GEMMs (the straight-through backward, the SSD and attention
+    einsums) and the rest, and the idle share against the untraced
+    median."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config(arch).replace(
+        n_layers=layers, sc_backend="pallas_moment",
+        param_dtype=torch.float32, act_dtype=torch.float32,
+    )
+    if cfg.remat != "full" or cfg.sc_nbit != 1024:
+        raise AssertionError(f"{tag}: remat {cfg.remat}, nbit {cfg.sc_nbit}")
+    plan = kernel5_plan(cfg, batch, seq)
+    args = [
+        "--arch", arch, "--layers", str(layers), "--steps",
+        str(FAMILY_STEPS), "--batch", str(batch), "--seq", str(seq),
+        "--sc-backend", "pallas_moment", "--ckpt-every", "1000",
+        "--seed", "0",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = _train(args, os.path.join(workdir, tag))
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(v.numel() for v in tree_leaves(state["params"]))
+    steps = hist["steps"]
+    losses = [r["loss"] for r in steps]
+    step_ms = [r["ms"] for r in steps]
+    median = float(np.median(step_ms))
+    per_step = {k: counts.get(k, 0) / FAMILY_STEPS for k in plan}
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    step = make_train_step(cfg, tcfg)
+    alt_b, alt_s = max(1, batch // 2), seq // 2
+    alt_plan = kernel5_plan(cfg, alt_b, alt_s)
+    cuda_lib.reset_launches()
+    state, m = step(state, _family_batch(cfg, alt_b, alt_s, FAMILY_STEPS))
+    alt = dict(cuda_lib.launches)
+    alt_loss = float(m["loss"])
+    full = _family_batch(cfg, batch, seq, FAMILY_STEPS + 1)
+
+    def traced_step():
+        new_state, mt = step(state, full)
+        float(mt["loss"])
+        return new_state
+
+    _, tr = device_trace(traced_step)
+    classes = by_class_ms(tr)
+    rec = dict(
+        arch=arch,
+        layers=layers,
+        batch=batch,
+        seq=seq,
+        params=n_params,
+        losses=losses,
+        step_ms=step_ms,
+        median_step_ms=median,
+        max_memory_allocated=peak,
+        launches_per_step=per_step,
+        launches_planned=plan,
+        launches=counts,
+        alt_shape=[alt_b, alt_s],
+        alt_launches=alt,
+        alt_planned=alt_plan,
+        alt_loss=alt_loss,
+        wall_s=wall,
+        traced_wall_ms=tr["wall_ms"],
+        device_ms=tr["device_ms"],
+        by_class_ms=classes,
+        idle_share=1 - tr["device_ms"] / median if tr["device_ms"] else None,
+        top=_top(tr, 8),
+    )
+    emit(f"train_{tag}", **rec)
+    del state, step
+    torch.cuda.empty_cache()
+    if set(counts) - set(plan) or per_step != plan:
+        raise AssertionError(f"train_{tag}: launches {counts} over "
+                             f"{FAMILY_STEPS} steps, planned {plan} a step")
+    if alt != {k: v for k, v in alt_plan.items() if v}:
+        raise AssertionError(f"train_{tag}: launches {alt} at {alt_b} x "
+                             f"{alt_s}, planned {alt_plan}")
+    if alt_plan["sc_mac_fused"] != plan["sc_mac_fused"]:
+        raise AssertionError(f"train_{tag}: the kernel-5 plan depends on "
+                             "batch x seq")
+    if not all(math.isfinite(v) for v in losses + [alt_loss]):
+        raise AssertionError(f"train_{tag}: a loss is not finite: {losses}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2698,8 +3153,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ssm-layers", type=int, default=4,
                     help="phase S's depth (<= 48)")
     ap.add_argument("--hybrid-groups", type=int, default=1,
-                    help="phase H's groups of 2 SSM layers and one shared "
-                    "invocation (<= 27)")
+                    help="phases H's and TH's groups of 2 SSM layers and "
+                    "one shared invocation (<= 27)")
+    ap.add_argument("--audio-layers", type=int, default=2,
+                    help="phase TA's depth (<= 48)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2712,6 +3169,8 @@ def main(argv=None) -> int:
         raise SystemExit("--ssm-layers must be in 1..48")
     if not 1 <= args.hybrid_groups <= 27:
         raise SystemExit("--hybrid-groups must be in 1..27")
+    if not 1 <= args.audio_layers <= 48:
+        raise SystemExit("--audio-layers must be in 1..48")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2719,6 +3178,7 @@ def main(argv=None) -> int:
     fused = check_sc_fused(rates)
     attn = check_attention(rates)
     mac = check_sc_mac(rates)
+    mac_train = check_sc_mac_train(rates)
     muls = check_sc_mul(rates)
 
     from repro_torch.configs import get_config
@@ -2787,7 +3247,17 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = train_phase(args.layers, workdir)
-        train_cross_device(workdir)
+        families = {
+            "ts": family_train_phase("ts", "mamba2-370m", args.ssm_layers,
+                                     4, 512, workdir),
+            "th": family_train_phase("th", "zamba2-7b",
+                                     3 * args.hybrid_groups, 2, 512,
+                                     workdir),
+            "ta": family_train_phase("ta", "musicgen-large",
+                                     args.audio_layers, 8, 64, workdir),
+        }
+        for arch in CROSS_TRAIN_ARCHS:
+            train_cross_device(arch, workdir)
 
     serving = (
         counts_a,
@@ -2905,7 +3375,9 @@ def main(argv=None) -> int:
             route="cuda",
             source="src/repro_torch/csrc/sc_mac.cu",
             replaces="src/repro/kernels/sc_mac.py:101",
-            launches=train["counts"].get("sc_mac_fused", 0),
+            launches=train["counts"].get("sc_mac_fused", 0)
+            + sum(f["launches"].get("sc_mac_fused", 0)
+                  for f in families.values()),
             max_abs_err=mac["unembed"]["max_abs_err"],
             ms=mac["unembed"]["ms"],
             plain_ms=mac["unembed"]["plain_ms"],
@@ -2915,14 +3387,30 @@ def main(argv=None) -> int:
             library_ms=mac["unembed"]["library_ms"],
             shape="M=512 K=896 N=151936 f32 on the operand grid, w the "
             "K-major view table.T (tied unembed); max_abs_err relative to "
-            "max |out|; bound 3xTF32, 5 products a pair on the grid",
+            "max |out|; bound 3xTF32, 5 products a pair on the grid; "
+            "launches from phases T, TS, TH and TA; train_shapes: the "
+            "family phases' shapes (ts_ / th_ / ta_), each within 1e-5 of "
+            "its plain version",
+            train_shapes={
+                case: {k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms",
+                                         "library_ms")}
+                for case, r in mac_train.items()
+            },
+            family_steps={
+                tag: {k: f[k] for k in ("median_step_ms", "launches_per_step",
+                                        "idle_share")}
+                for tag, f in families.items()
+            },
         ),
         dict(
             name="sc_mac_reduce",
             route="cuda",
             source="src/repro_torch/csrc/sc_mac.cu",
             replaces="src/repro/kernels/sc_mac.py:101",
-            launches=train["counts"].get("sc_mac_reduce", 0),
+            launches=train["counts"].get("sc_mac_reduce", 0)
+            + sum(f["launches"].get("sc_mac_reduce", 0)
+                  for f in families.values()),
             max_abs_err=mac["reduce"]["max_abs_err"],
             ms=mac["reduce"]["ms"],
             plain_ms=mac["reduce"]["plain_ms"],

@@ -1,16 +1,15 @@
 """Static workload extraction: a ModelConfig's SC-routed matmuls.
 
-Port of ``repro.arch.workload`` for the families the port runs:
-``dense_workload(cfg, tokens)`` enumerates every matmul a forward pass
-routes through ``layers.dense`` / ``expert_dense`` with its per-layer
-multiplicity (MoE experts as the dense equivalent of the ``top_k``
-visits a token makes, plus the shared expert; the Mamba2 projections
-per backbone layer; zamba2's shared attention and MLP per invocation),
-and ``price_workload`` prices the whole pass on the array without
-running any numerics.  The attention score / value products and the
-SSM scan are not ``dense`` calls and are absent.  The frontend site
-comes with the frontend (ROADMAP queue 1 item 7), the sharded pricing
-with the sharded substrate (item 10).
+Port of ``repro.arch.workload``: ``dense_workload(cfg, tokens)``
+enumerates every matmul a forward pass routes through ``layers.dense`` /
+``expert_dense`` with its per-layer multiplicity (MoE experts as the
+dense equivalent of the ``top_k`` visits a token makes, plus the shared
+expert; the Mamba2 projections per backbone layer; zamba2's shared
+attention and MLP per invocation; the embeddings frontend's projection
+once), and ``price_workload`` prices the whole pass on the array
+without running any numerics.  The attention score / value products and
+the SSM scan are not ``dense`` calls and are absent.  The sharded
+pricing comes with the sharded substrate (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ def dense_workload(cfg, tokens: int) -> list[MatmulSite]:
     """All dense() matmuls of one forward pass over ``tokens`` tokens
     (the reference's site order and labels; the layer counts come from
     the ``lm`` assembly)."""
-    lm.require_ported(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     wi_cols = 2 * cfg.d_ff if cfg.mlp_variant == "swiglu" else cfg.d_ff
@@ -87,6 +85,8 @@ def dense_workload(cfg, tokens: int) -> list[MatmulSite]:
             ]
         else:
             shapes += mlp(count)
+    if cfg.frontend == "embeddings":
+        shapes.append(("frontend.proj", d, d, 1))
     shapes.append(("unembed", d, cfg.vocab, 1))
     return [MatmulSite(lbl, tokens, k, n, c) for lbl, k, n, c in shapes]
 

@@ -1,11 +1,9 @@
 """Model configuration schema (port of ``repro.configs.base``).
 
 The fields are the reference's, with torch dtypes, restricted to what the
-ported paths read: paged and fixed-slot serving of every family but
-audio, full-sequence training of the attention families (dense, moe,
-vlm).  ``frontend`` is carried so that the embeddings frontend, not
-ported yet, is refused by name (ROADMAP queue 1 item 7).  The
-reference's deprecated ``sc_mode`` alias is not carried over.
+ported paths read: paged and fixed-slot serving and full-sequence
+training of every family.  The reference's deprecated ``sc_mode`` alias
+is not carried over.
 """
 
 from __future__ import annotations
@@ -20,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm | ssm | hybrid (ported); audio later
+    family: str  # dense | audio | moe | vlm | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,7 +57,8 @@ class ModelConfig:
     # dtypes
     param_dtype: Any = torch.bfloat16
     act_dtype: Any = torch.bfloat16
-    # input frontend: "tokens" (ids) or "embeddings" (not ported yet)
+    # input frontend: "tokens" (ids) or "embeddings" (precomputed frame /
+    # patch embeddings through models/frontend.py's projection)
     frontend: str = "tokens"
     # remat policy per layer in training: none | full
     remat: str = "full"
@@ -80,9 +79,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The reference's architectures whose family the port runs; the audio
-# one (musicgen-large) comes with the frontend, ROADMAP queue 1 item 7.
 ARCH_IDS = [
+    "musicgen-large",
     "moonshot-v1-16b-a3b",
     "llama4-maverick-400b-a17b",
     "chameleon-34b",

@@ -1,1 +1,5 @@
-from repro_torch.data.pipeline import SyntheticLMData, make_batch  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    SyntheticLMData,
+    make_batch,
+    make_embedding_batch,
+)

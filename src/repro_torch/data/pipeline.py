@@ -12,6 +12,8 @@ The stream is structured so losses move: Zipf-distributed tokens, each
 repeating its predecessor half the time, with a BOS every
 ``max(s // 4, 8)`` positions from a random offset per row.  Labels are
 the inputs shifted left; the last target wraps to BOS.
+:func:`make_embedding_batch` is the embeddings-frontend variant: frame
+embeddings in place of the inputs, the same labels.
 """
 
 from __future__ import annotations
@@ -74,3 +76,18 @@ def make_batch(cfg: SyntheticLMData, step: int, shard: int = 0):
     labels = torch.roll(inputs, -1, dims=1)
     labels[:, -1] = BOS
     return {"inputs": inputs, "labels": labels}
+
+
+def make_embedding_batch(cfg: SyntheticLMData, d_model: int, step: int,
+                         shard: int = 0, dtype=torch.float32):
+    """``{"inputs": (b, s, d_model) dtype, "labels": (b, s) int32}``: the
+    labels are :func:`make_batch`'s, the inputs ``normal(fold_in(
+    fold_in(PRNGKey(seed ^ 0x5EED), step), shard)) · 0.02`` precomputed
+    frame embeddings, on the CPU."""
+    labels = make_batch(cfg, step, shard)["labels"]
+    key = ctr_rng.fold_in(
+        ctr_rng.fold_in(ctr_rng.prng_key(cfg.seed ^ 0x5EED), step), shard
+    )
+    shape = (cfg.shard_batch, cfg.seq_len, d_model)
+    emb = (ctr_rng.normal(key, shape) * 0.02).to(dtype)
+    return {"inputs": emb, "labels": labels}

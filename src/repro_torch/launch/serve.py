@@ -19,9 +19,10 @@ Engine flags are derived from ``serve.ServeOptions`` field metadata
 (``serve.add_cli_args``); the launcher adds its workload knobs
 (``--arch``, ``--smoke``, ``--requests``, ``--max-new``,
 ``--temperature``, ``--shared-prefix``), ``--device`` and the output
-paths.  ``--chaos`` serves a 2-shard paged fleet under
-``ft.FleetSupervisor`` with shard 1 degraded at fleet tick 2
-(``ChaosMonkey``) and prints the drain / resume ledger.
+paths.  Embeddings-frontend archs (musicgen-large) are refused, as the
+reference launcher refuses them.  ``--chaos`` serves a 2-shard paged
+fleet under ``ft.FleetSupervisor`` with shard 1 degraded at fleet tick
+2 (``ChaosMonkey``) and prints the drain / resume ledger.
 ``--metrics-out`` / ``--trace-out`` turn observability on (the global
 ``repro_torch.obs`` registry and an installed tracer) and write the
 Prometheus exposition (or, for a ``.json`` path, the JSON snapshot) and
@@ -113,6 +114,8 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(param_dtype=torch.float32, act_dtype=torch.float32)
+    if cfg.frontend == "embeddings":
+        raise SystemExit("serve demo uses token-frontend archs")
     gen = torch.Generator().manual_seed(options.seed)
     params = params_lib.init_params(
         lm.lm_param_specs(cfg), gen, device, cfg.param_dtype

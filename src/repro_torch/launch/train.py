@@ -10,7 +10,9 @@ the CPU.
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-sc \\
         --smoke --steps 2 --device cpu
 
-``--layers`` cuts the depth of the chosen config (its widths stay);
+``--layers`` cuts the depth of the chosen config (its widths stay); an
+embeddings-frontend config (musicgen-large) trains on
+``make_embedding_batch``'s frame embeddings;
 ``main`` returns ``(state, history)``, where ``history["steps"]`` lists
 each step that ran (replays included) with its loss, grad norm, lr and
 wall time in ms.
@@ -27,7 +29,7 @@ import torch
 
 from repro_torch import checkpoint, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.data import SyntheticLMData, make_batch
+from repro_torch.data import SyntheticLMData, make_batch, make_embedding_batch
 from repro_torch.ft import FaultInjector, Supervisor
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainConfig, make_train_step, train_state_init
@@ -95,6 +97,11 @@ def main(argv=None):
     state = train_state_init(args.seed, cfg, tcfg, device=device)
     step_fn = make_train_step(cfg, tcfg)
 
+    def batch_fn(step):
+        if cfg.frontend == "embeddings":
+            return make_embedding_batch(data, cfg.d_model, step)
+        return make_batch(data, step)
+
     start_step = 0
     if args.resume and checkpoint.latest_step(args.ckpt_dir) is not None:
         state, extra, _ = checkpoint.restore(args.ckpt_dir, state)
@@ -138,7 +145,7 @@ def main(argv=None):
         state,
         logged_step,
         args.steps,
-        make_batch=lambda step: make_batch(data, step),
+        make_batch=batch_fn,
         start_step=start_step,
     )
     history["steps"] = steps

@@ -4,22 +4,24 @@ paged cache, and one chunked decode/prefill step.
 
 Port of ``repro.models.lm``:
 
-  dense / vlm : N × (RMSNorm → GQA attn → RMSNorm → MLP)
-  moe         : N × (RMSNorm → GQA attn → RMSNorm → MoE FFN)
-  ssm         : N × (RMSNorm → Mamba2/SSD block, ``models/ssm.py``)
-  hybrid      : groups of ``attn_every`` Mamba2 layers, each group
-                followed by ONE weight-shared (attn + MLP) block with a
-                K/V cache of its own per invocation (zamba2: 81 "layers" =
-                54 ssm + 27 shared invocations).
+  dense / audio / vlm : N × (RMSNorm → GQA attn → RMSNorm → MLP)
+  moe                 : N × (RMSNorm → GQA attn → RMSNorm → MoE FFN)
+  ssm                 : N × (RMSNorm → Mamba2/SSD block, ``models/ssm.py``)
+  hybrid              : groups of ``attn_every`` Mamba2 layers, each group
+                        followed by ONE weight-shared (attn + MLP) block
+                        with a K/V cache of its own per invocation
+                        (zamba2: 81 "layers" = 54 ssm + 27 shared
+                        invocations).
 
 Layers are stacked on a leading axis and run by a Python loop (the
 reference's ``lax.scan``), each layer under activation checkpointing when
 ``cfg.remat == "full"`` (the reference's ``jax.checkpoint``).  Backbone
 layer ``i`` draws from ``fold_in(rng, i)``, shared invocation ``j`` from
-``fold_in(rng, 10_000 + j)``.  Every family serves; training
-(``lm_loss``) runs the attention families only, and the audio family
-and the embeddings frontend come with a later slice (ROADMAP queue 1
-item 7).
+``fold_in(rng, 10_000 + j)``.  Every family serves and trains.  Under
+``frontend="embeddings"`` (musicgen-large) ``encode``, ``forward`` and
+``prefill`` also take (b, s, d) frame embeddings, projected into the
+residual stream through ``models/frontend.py`` under the root ``rng``;
+serving feeds tokens through the embedding table.
 
 Recomputation is safe for the stochastic backends because their noise
 is a pure function of the per-layer, per-site key (``sc/ctr_rng.py``):
@@ -32,37 +34,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models import attention, frontend, layers, moe, ssm
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
-# The families the port serves; the ssm and hybrid ones carry recurrent
-# state (the reference's ``serve/kv_cache.py:CachePlan``).
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+# The families that carry recurrent state (the reference's
+# ``serve/kv_cache.py:CachePlan``); every other one is an attention stack.
 STATE_FAMILIES = ("ssm", "hybrid")
-TRAINABLE = ("dense", "moe", "vlm")
 SHARED_KEY_BASE = 10_000  # key fold of shared invocation j: base + j
-
-
-def require_ported(cfg, *, training: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP queue 1 item 7 for a
-    family or frontend the port does not run yet (with ``training``, a
-    family it serves but does not train)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            f"item 7); the port runs {', '.join(FAMILIES)}"
-        )
-    if training and cfg.family not in TRAINABLE:
-        raise NotImplementedError(
-            f"training family={cfg.family!r} is not ported yet (ROADMAP "
-            f"queue 1 item 7); the port trains {', '.join(TRAINABLE)} "
-            "and serves every family it runs"
-        )
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} needs the modality frontend, not "
-            "ported yet (ROADMAP queue 1 item 7)"
-        )
 
 
 def _norm_spec(cfg):
@@ -70,7 +48,6 @@ def _norm_spec(cfg):
 
 
 def block_specs(cfg):
-    require_ported(cfg)
     if cfg.family in STATE_FAMILIES:
         return {"ln1": _norm_spec(cfg), "ssm": ssm.ssm_specs(cfg)}
     return {
@@ -133,6 +110,8 @@ def lm_param_specs(cfg):
         sp["unembed"] = ParamSpec(shape, ("embed", "vocab"), "scaled")
     if cfg.family == "hybrid":
         sp["shared"] = shared_block_specs(cfg)
+    if cfg.frontend == "embeddings":
+        sp["frontend"] = frontend.frontend_specs(cfg)
     return sp
 
 
@@ -227,19 +206,25 @@ def _maybe_remat(fn, cfg):
 
 
 def _embed_inputs(params, inputs, cfg, rng=None):
-    if inputs.dim() == 3:
-        raise NotImplementedError(
-            "embedding inputs need the modality frontend, not ported yet "
-            "(ROADMAP queue 1 item 7)"
-        )
+    """Tokens (b, s) through the embedding table, or, under
+    ``frontend="embeddings"``, (b, s, d) embeddings through the
+    frontend's projection (site ``frontend_proj`` of the root ``rng``)."""
+    if cfg.frontend == "embeddings" and inputs.dim() == 3:
+        x = inputs.to(cfg.act_dtype)
+        if "frontend" in params:
+            x = frontend.project_embeddings(x, params["frontend"], cfg, rng)
+        return x
     return layers.embed(inputs, params["embed"]).to(cfg.act_dtype)
 
 
 def encode(params, inputs, cfg, *, rng=None):
-    """Backbone pass: tokens (b, s) -> final hidden states (b, s, d) after
-    the last norm.  Backbone layer ``idx`` draws from ``fold_in(rng,
-    idx)``, shared invocation ``j`` from ``fold_in(rng, 10_000 + j)``."""
-    require_ported(cfg)
+    """Backbone pass: tokens (b, s) or frontend embeddings (b, s, d) ->
+    final hidden states (b, s, d) after the last norm.  Backbone layer
+    ``idx`` draws from ``fold_in(rng, idx)``, shared invocation ``j``
+    from ``fold_in(rng, 10_000 + j)``.  Under ``remat="full"`` each
+    backbone layer and each shared invocation is its own (non-reentrant)
+    checkpoint; the shared block's parameters, a closure of each
+    invocation, get every invocation's gradient."""
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -283,10 +268,9 @@ def lm_loss(params, batch, cfg, *, rng=None):
     ``LOSS_SEQ_CHUNK`` under activation checkpointing, so the backward
     recomputes each chunk's logits instead of keeping them: peak memory
     is O(chunk·vocab), not O(s·vocab).  Chunk ``i`` draws from
-    ``fold_in(rng, i)``.  The SSM and hybrid families serve but do not
-    train yet (ROADMAP queue 1 item 7).
+    ``fold_in(rng, i)``.  ``batch["inputs"]`` is tokens, or frame
+    embeddings under ``frontend="embeddings"``.
     """
-    require_ported(cfg, training=True)
     x = encode(params, batch["inputs"], cfg, rng=rng)
     labels = batch["labels"]
     b, s, _ = x.shape
@@ -329,7 +313,6 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
     float32 state of every backbone layer (leading axis = layer).  Hybrid
     adds ``shared_k`` / ``shared_v`` of (invocations, batch, max_len,
     kv_heads, head_dim)."""
-    require_ported(cfg)
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     dtype = dtype or cfg.act_dtype
@@ -349,10 +332,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
 
 
 def prefill(params, inputs, cfg, max_len: int, *, rng=None):
-    """Run the prompt through the model.  inputs: (b, s) tokens with
-    ``s <= max_len``.  Returns ``(logits, cache, lengths)``: the last
-    token's logits (b, vocab) — the unembed runs on that one row — the
-    cache, and ``lengths`` (b,) = s.
+    """Run the prompt through the model.  inputs: (b, s) tokens, or (b, s,
+    d) embeddings under ``frontend="embeddings"``, with ``s <= max_len``.
+    Returns ``(logits, cache, lengths)``: the last token's logits (b,
+    vocab) — the unembed runs on that one row — the cache, and
+    ``lengths`` (b,) = s.
 
     Attention families: every layer's K/V zero-padded to ``max_len``
     (:func:`init_cache`'s layout).  SSM / hybrid: each backbone layer's
@@ -366,7 +350,6 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None):
     per SSD chunk inside an SSM layer); the unembed draws from ``rng``
     itself.
     """
-    require_ported(cfg)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
     if s > max_len:
@@ -421,7 +404,6 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
     row's bits depend on its neighbours (the fixed-slot engine's
     contract, unlike :func:`decode_paged`'s per-request keys).
     """
-    require_ported(cfg)
     x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
     positions = lengths.to(torch.int64)[:, None]
     new_lengths = lengths.to(torch.int64) + 1
@@ -473,7 +455,6 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, slots=None,
     the token budget; the tables go unread by the model).  Hybrid: both,
     with K/V pools only for the shared invocations.
     """
-    require_ported(cfg)
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     n_pools = cfg.n_layers
@@ -540,7 +521,6 @@ def decode_paged(
     state first.  Hybrid adds the shared attention block over its own
     K/V pools per invocation, under keys ``fold_in(10_000 + j)``.
     """
-    require_ported(cfg)
     if rng is None and cfg.paged_attn == "fused_sc":
         raise ValueError(
             "paged_attn='fused_sc' draws stochastic attention logits "

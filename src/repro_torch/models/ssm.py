@@ -178,7 +178,9 @@ def ssm_block(x, p, cfg, key=None, *, cache=None):
     b, s, _ = x.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_headdim
     if key is not None and key.dim() == 1 and s > 1:
-        ck = (torch.arange(s, device=x.device) // cfg.ssm_chunk)
+        # folded where the key lies (the trainer's keys stay on the host;
+        # the substrate moves each draw's keys to the operands' device)
+        ck = torch.arange(s, device=key.device) // cfg.ssm_chunk
         key = layers.fold_keys(key.expand(b, s, 2), ck[None].expand(b, s))
     z, xin, B, C, dt = _project(x, p, cfg, key)
     A = -torch.exp(p["A_log"].to(torch.float32))  # (h,) negative

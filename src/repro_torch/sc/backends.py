@@ -42,17 +42,34 @@ def exact(key, x, w, cfg: ScConfig):
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
-@register_backend("moment")
-def moment(key, x, w, cfg: ScConfig):
-    sx, px, scx = encoding.encode(x, cfg)
-    sw, pw, scw = encoding.encode(w, cfg)
+def _moment(xe, we, noise, cfg: ScConfig):
+    """The moment law in torch ops on encoded operands; ``noise`` is the
+    (M, N) standard-normal draw and the scales are a scalar or an
+    (M, 1) column for x."""
+    (sx, px, scx), (sw, pw, scw) = xe, we
     mean = (sx * px) @ (sw * pw)
     # Var of each product estimate = p(1-p)/nbit with p = p_x·p_w
     sum_p = px @ pw
     sum_p2 = (px * px) @ (pw * pw)
     var = torch.clamp_min(sum_p - sum_p2, 0.0) / cfg.nbit
-    noise = ctr_rng.normal(key, mean.shape, device=x.device)
     return (mean + noise * torch.sqrt(var)) * (scx * scw)
+
+
+@register_backend("moment")
+def moment(key, x, w, cfg: ScConfig):
+    noise = ctr_rng.normal(key, (x.shape[0], w.shape[1]), device=x.device)
+    return _moment(encoding.encode(x, cfg), encoding.encode(w, cfg), noise,
+                   cfg)
+
+
+@register_rows_backend("moment")
+def moment_rows(keys, x, w, cfg: ScConfig):
+    """Per-row-key ``moment``: row i equals ``moment(keys[i], x[i:i+1],
+    w)`` (its own scale, ``normal(keys[i], (1, N))``) up to the float
+    rounding of one batched matmul against a one-row one."""
+    noise = ctr_rng.normal_rows(keys, w.shape[1], device=x.device)
+    return _moment(encoding.encode(x, cfg, dim=1), encoding.encode(w, cfg),
+                   noise, cfg)
 
 
 def _key_seed(key) -> int:
@@ -99,20 +116,41 @@ def _moment_noise(key, m: int, n: int, device):
     return noise if n_pad == n else noise[:, :n]
 
 
+def _pallas_moment(xe, we, noise, cfg: ScConfig):
+    """One kernel-5 launch (and its split-K pass where the plan splits)
+    on the encoded operands, rescaled by ``scale_x · scale_w`` (scale_x
+    a scalar, or an (M, 1) column in rows mode)."""
+    (sx, px, scx), (sw, pw, scw) = xe, we
+    out = sc_mac_kernel.sc_mac_fused(
+        sx * px, sw * pw, noise, nbit=cfg.nbit,
+        on_grid=cfg.quantize and cfg.operand_bits <= 10,
+    )
+    return out * (scx * scw)
+
+
 @register_backend("pallas_moment")
 def pallas_moment(key, x, w, cfg: ScConfig):
     """The moment law through the fused moment kernel (any M, N, K: the
     kernel masks its ragged tiles, so only the noise follows the
     reference's padding).  On the operand grid at ``operand_bits`` <= 10
     every signed probability is exact in TF32 (``on_grid``)."""
-    sx, px, scx = encoding.encode(x, cfg)
-    sw, pw, scw = encoding.encode(w, cfg)
     noise = _moment_noise(key, x.shape[0], w.shape[1], x.device)
-    out = sc_mac_kernel.sc_mac_fused(
-        sx * px, sw * pw, noise, nbit=cfg.nbit,
-        on_grid=cfg.quantize and cfg.operand_bits <= 10,
-    )
-    return out * (scx * scw)
+    return _pallas_moment(encoding.encode(x, cfg), encoding.encode(w, cfg),
+                          noise, cfg)
+
+
+@register_rows_backend("pallas_moment")
+def pallas_moment_rows(keys, x, w, cfg: ScConfig):
+    """Per-row-key ``pallas_moment`` in ONE kernel-5 launch: row i is the
+    one-row call ``pallas_moment(keys[i], x[i:i+1], w)`` — its own
+    max-abs scale and grid, and its noise ``normal(keys[i], (1,
+    N_pad))[0, :N]``, whose element j is flat index j whatever the
+    padding (:func:`ctr_rng.normal_rows`).  The split-K plan depends on
+    M, so a row may round differently from its one-row call (float
+    tolerance), never draw other bits."""
+    noise = ctr_rng.normal_rows(keys, w.shape[1], device=x.device)
+    return _pallas_moment(encoding.encode(x, cfg, dim=1),
+                          encoding.encode(w, cfg), noise, cfg)
 
 
 # uniform words per step of ``pallas_bitexact``'s stream walk (each

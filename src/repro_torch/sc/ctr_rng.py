@@ -233,6 +233,20 @@ def normal_at(key, index) -> torch.Tensor:
     return torch.special.erfinv(u) * _SQRT2
 
 
+def normal_rows(keys, n: int, device=None) -> torch.Tensor:
+    """``normal(keys[i], (1, n))[0]`` for every row key at once: an
+    ``(M, n)`` draw whose row i is bit-equal to that one-row draw (its
+    element j is flat index j of row i's own stream).  keys: ``(M, 2)``
+    raw keys; the draw lies on ``device`` (default: the keys')."""
+    keys = raw_key(keys)
+    dev = keys.device if device is None else torch.device(device)
+    k = keys.to(device=dev, dtype=torch.int64)
+    j = torch.arange(n, dtype=torch.int64, device=dev)
+    x0, x1 = threefry2x32(k[:, 0, None], k[:, 1, None], 0, j[None])
+    u = _scaled_uniform(x0 ^ x1, _NORMAL_LO, 1.0)
+    return torch.special.erfinv(u) * _SQRT2
+
+
 def bernoulli(key, p, shape, device=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` (float32 ``p``)."""
     return uniform(key, shape, device=device) < torch.tensor(

@@ -19,14 +19,18 @@ import torch
 FX16_ONE = 1 << 16  # fixed-point unit of the packed-engine bias words
 
 
-def encode(v, cfg):
+def encode(v, cfg, dim=None):
     """float tensor -> (sign, probability, scale); v ≈ sign·p·scale.
 
     ``cfg`` needs ``quantize`` and ``operand_bits``.  The grid is the
-    paper's n-bit LUT index space, clamped to ``2^n - 1`` levels.
+    paper's n-bit LUT index space, clamped to ``2^n - 1`` levels.  With
+    ``dim`` the max-abs scale is taken along that axis (kept), so each
+    slice is encoded as the tensor of that slice alone would be.
     """
-    scale = torch.clamp_min(v.abs().amax(), 1e-30)
-    p = v.abs() / scale
+    a = v.abs()
+    scale = torch.clamp_min(a.amax() if dim is None
+                            else a.amax(dim, keepdim=True), 1e-30)
+    p = a / scale
     if cfg.quantize:
         p = quantize_grid(p, 1 << cfg.operand_bits)
     return torch.sign(v), p, scale

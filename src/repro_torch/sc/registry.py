@@ -28,8 +28,10 @@ from repro_torch.sc.config import ScConfig
 _BACKENDS: dict = {}
 
 # Optional batched per-row-key implementations: name -> fn(keys, x2d, w,
-# cfg) with keys (M, 2).  Backends without one fall back to a loop of
-# single-row calls in ``sc_dot_rows``.
+# cfg) with keys (M, 2), one kernel launch a call (``pallas_fused``,
+# ``pallas_moment``; ``moment`` in torch ops).  Backends without one fall
+# back to a loop of single-row calls in ``sc_dot_rows`` (the reference's
+# vmap of the single-key path).
 _ROW_BACKENDS: dict = {}
 
 # name -> bit-identical faster backend (``fast_backend``).

@@ -31,7 +31,6 @@ import dataclasses
 
 from repro_torch import resolve_device
 from repro_torch.core import physics
-from repro_torch.models import lm
 
 
 def _opt(default, help="", flag=None, metavar=None, cli=True):  # noqa: A002
@@ -225,7 +224,6 @@ def build_engine(
     options = options or ServeOptions()
     options.validate()
     device = resolve_device(device)
-    lm.require_ported(cfg)
     table = params["embed"]["table"]
     if table.device.type != device.type:
         raise ValueError(

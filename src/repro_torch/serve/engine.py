@@ -39,8 +39,9 @@ the aggregate (the jitted reference records once per COMPILED shape).
 ``close()`` (or a raise mid-tick) detaches the collector.
 
 Construct engines through ``serve.api.build_engine``; direct
-construction works but warns.  Every family the port runs is served
-(``lm.FAMILIES``).
+construction works but warns.  Every family serves on token prompts
+(an embeddings-frontend model, musicgen-large, through its embedding
+table).
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ a ``step(state, batch) -> (state, metrics)`` function; PyTorch runs it
 eagerly, so there is no ``jit`` around it.  Sharding (``mesh``,
 ``make_constrain``, ``make_param_constrain``) and the cross-pod int8
 gradient compression are the scale-out slice (ROADMAP queue 1 item 10)
-and raise here; so do the SSM and hybrid families, which the port
-serves but does not train yet (item 7).
+and raise here.  Every family trains: the attention stacks, MoE, the
+SSM and hybrid families (autograd through ``ssd_chunked``, the causal
+conv and zamba2's shared block), and the audio family on frame
+embeddings (``data.make_embedding_batch``).
 
 RNG: the step's root key is ``fold_in(PRNGKey(seed), opt.step)`` (none
 under the ``exact`` backend), microbatch ``i`` folds ``i`` into it, and
@@ -46,7 +48,6 @@ def train_state_init(key, cfg, tcfg: TrainConfig, *, device=None):
     one seed gives the same weights on every target."""
     if tcfg.cross_pod_compress:
         raise NotImplementedError(f"cross_pod_compress: {_SCALE_OUT}")
-    lm.require_ported(cfg, training=True)
     device = resolve_device(device)
     gen = key
     if not isinstance(gen, torch.Generator):
@@ -77,7 +78,6 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
         raise NotImplementedError(f"a device mesh: {_SCALE_OUT}")
     if tcfg.cross_pod_compress:
         raise NotImplementedError(f"cross_pod_compress: {_SCALE_OUT}")
-    lm.require_ported(cfg, training=True)
 
     def loss_fn(params, batch, rng):
         return lm.lm_loss(params, batch, cfg, rng=rng)
@@ -124,7 +124,6 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
 def make_eval_step(cfg, mesh=None):
     if mesh is not None:
         raise NotImplementedError(f"a device mesh: {_SCALE_OUT}")
-    lm.require_ported(cfg, training=True)
 
     def eval_step(params, batch):
         device = tree_leaves(params)[0].device

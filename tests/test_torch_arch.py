@@ -273,8 +273,16 @@ def test_workload_pricing_of_qwen2_0_5b_equals_reference():
         assert [tarch.report_dict(r) for _, r in tper] == [
             jarch.report_dict(r) for _, r in jper
         ]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tarch.dense_workload(tcfg.replace(family="audio"), 1)
+    # the audio family with the embeddings frontend: the reference's
+    # sites, the frontend's projection among them
+    js = jarch.dense_workload(jax_config("musicgen-large"), 5)
+    ts = tarch.dense_workload(torch_config("musicgen-large"), 5)
+    assert [dataclasses.asdict(s) for s in ts] == [
+        dataclasses.asdict(s) for s in js
+    ]
+    assert ("frontend.proj", 5, 2048, 2048, 1) in [
+        dataclasses.astuple(s) for s in ts
+    ]
 
 
 # ---------------------------------------------------------------------------

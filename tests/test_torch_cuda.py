@@ -17,7 +17,8 @@ tensor cores) within 1e-5 of max |out| of their plain versions (float32
 sums in another order), on and off the operand grid, with the tied
 unembed's K-major weight taken without a copy, and bit-equal from launch
 to launch at a split-K shape (one ``sc_mac_fused`` and one
-``sc_mac_reduce`` count per call); a
+``sc_mac_reduce`` count per call), and ``pallas_moment``'s row-key
+route one launch a call, each row within 1e-5 of its one-row call; a
 tiny model served on the card and on the CPU gives the same greedy
 tokens (also on the ``tiny`` faulty device, and through the fixed-slot
 engine), trains to the same losses within 1e-4, and a request drained
@@ -334,6 +335,37 @@ def test_sc_mac_split_k_is_deterministic_and_counted(cuda):
     red = cuda_lib.launches["sc_mac_reduce"]
     km.sc_mac_fused(x, w, z, nbit=1024, on_grid=True)
     assert cuda_lib.launches["sc_mac_reduce"] == red
+
+
+@pytest.mark.parametrize("m,k,n", [(48, 1024, 160), (300, 64, 4224)])
+def test_pallas_moment_row_keys_launch_once_and_equal_the_per_row_loop(
+        cuda, m, k, n):
+    """``sc_dot_rows`` on ``pallas_moment``: one kernel-5 launch (and one
+    split-K pass where the plan splits) for the whole batch, each row
+    within 1e-5 of max |out| of its own one-row call (another split plan
+    may round it differently, never draw other bits) and of the CPU's
+    rows route."""
+    from repro_torch import sc
+    from repro_torch.sc import ctr_rng
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    x = x * torch.exp(torch.randn((m, 1), generator=gen, device=cuda))
+    w = torch.randn((k, n), generator=gen, device=cuda) * 0.05
+    keys = ctr_rng.split(ctr_rng.prng_key(3, device=cuda), m)
+    cfg = sc.ScConfig(backend="pallas_moment")
+    loop = torch.cat([sc.sc_dot(keys[i], x[i:i + 1], w, cfg)
+                      for i in range(m)])
+    cuda_lib.reset_launches()
+    got = sc.sc_dot_rows(keys, x, w, cfg)
+    splits, _ = km.sc_mac_plan(m, n, k)
+    assert dict(cuda_lib.launches) == (
+        {"sc_mac_fused": 1, "sc_mac_reduce": 1} if splits > 1
+        else {"sc_mac_fused": 1})
+    scale = float(loop.abs().max())
+    assert float((got - loop).abs().max()) <= 1e-5 * scale
+    cpu = sc.sc_dot_rows(keys.cpu(), x.cpu(), w.cpu(), cfg)
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("on_grid", [True, False])

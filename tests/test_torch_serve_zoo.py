@@ -24,8 +24,10 @@ At the two SMOKE configs, float32, on the same numpy weights:
   reference's; ``launch/serve.py --smoke --arch mamba2-370m`` gives the
   reference engine's tokens on the launcher's weights and the reference
   launcher's prompts;
-* ``lm_loss``, the trainer and ``frontend="embeddings"`` still raise
-  ``NotImplementedError`` citing ROADMAP item 7.
+* ``lm_loss`` and the trainer run both families (their parity with the
+  reference is ``tests/test_torch_train_ssm.py``'s), and under
+  ``frontend="embeddings"`` the specs gain the reference's frontend
+  projection and token prompts still serve.
 """
 
 import dataclasses
@@ -531,21 +533,31 @@ def test_supported_shapes_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_and_the_embeddings_frontend_still_raise(arch):
-    _, tcfg = _cfgs(arch)
+def test_family_trains_and_takes_the_embeddings_frontend(arch):
+    """Both families train: ``lm_loss`` back-propagates to every leaf
+    and ``make_train_step`` takes a finite step from
+    ``train_state_init``.  Under ``frontend="embeddings"`` the specs
+    equal the reference's (the frontend's (d, d) projection added), and
+    the paged cache and the engine build for token prompts."""
+    jcfg, tcfg = _cfgs(arch)
     tp = _port_params(tcfg)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    batch = {"inputs": toks, "labels": toks}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlm.lm_loss(tp, batch, tcfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_train_step(tcfg, TrainConfig())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_state_init(0, tcfg, TrainConfig(), device="cpu")
-    emb = tcfg.replace(frontend="embeddings")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlm.lm_param_specs(emb)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        torch_build(tp, emb, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlm.init_paged_cache(emb, 4, 4, slots=1, device="cpu")
+    toks = torch.arange(8, dtype=torch.int32).reshape(1, 8) + 3
+    batch = {"inputs": toks, "labels": toks.roll(-1, 1)}
+    tracked = tparams.tree_map(lambda t: t.requires_grad_(True), tp)
+    loss = tlm.lm_loss(tracked, batch, tcfg)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(t.grad is not None for t in tparams.tree_leaves(tracked))
+    state = train_state_init(0, tcfg, TrainConfig(), device="cpu")
+    _, metrics = make_train_step(tcfg, TrainConfig())(state, batch)
+    assert torch.isfinite(metrics["loss"])
+    jemb, temb = (c.replace(frontend="embeddings") for c in (jcfg, tcfg))
+    want = jax.tree.map(lambda s: (s.shape, s.axes, s.init),
+                        jlm.lm_param_specs(jemb),
+                        is_leaf=lambda s: hasattr(s, "axes"))
+    got = tparams.tree_map_specs(lambda s: (s.shape, s.axes, s.init),
+                                 tlm.lm_param_specs(temb))
+    assert got == want and "frontend" in got
+    ep = _port_params(temb)
+    torch_build(ep, temb, TorchOptions(paged=True), device="cpu")
+    tlm.init_paged_cache(temb, 4, 4, slots=1, device="cpu")

@@ -5,7 +5,8 @@ that it mirrors the reference's public names.
   ``jax`` or anything of the JAX package ``repro``;
 * entry points default to the card and refuse to fall back to the CPU;
 * the ported modules keep the reference's names, and every model module
-  and config of the reference has its port but the audio frontend's.
+  and config of the reference has its port; the audio family and the
+  embeddings frontend run.
 """
 
 import ast
@@ -19,7 +20,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import lm, params
 from repro_torch.launch import train as launch_train
 from repro_torch.serve import ServeOptions, build_engine
-from repro_torch.train import TrainConfig, train_state_init
+from repro_torch.train import TrainConfig, make_train_step, train_state_init
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -115,9 +116,8 @@ def test_engine_refuses_params_on_another_device():
         build_engine(p, cfg, ServeOptions(paged=True), device="cpu")
 
 
-# What ``src/repro/{models,configs}`` has and the port lacks: the
-# modality frontend and its one config (ROADMAP queue 1 item 7).
-UNPORTED = {"models/frontend.py", "configs/musicgen_large.py"}
+# What ``src/repro/{models,configs}`` has and the port lacks: nothing.
+UNPORTED = set()
 
 
 def test_port_mirrors_the_reference_models_and_configs():
@@ -131,24 +131,54 @@ def test_port_mirrors_the_reference_models_and_configs():
     assert missing == UNPORTED
 
 
-def test_unported_families_raise_not_implemented():
-    _assert_unported(get_smoke_config("qwen2-0.5b").replace(family="audio"))
+def _smoke_params(cfg):
+    gen = torch.Generator().manual_seed(0)
+    return params.init_params(lm.lm_param_specs(cfg), gen, "cpu")
 
 
-def test_embeddings_frontend_raises_not_implemented():
-    cfg = get_smoke_config("qwen2-0.5b").replace(frontend="embeddings")
-    _assert_unported(cfg)
+def _batch(cfg, b=2, s=8):
+    toks = torch.arange(b * s, dtype=torch.int32).reshape(b, s) % cfg.vocab
+    return {"inputs": toks, "labels": toks.roll(-1, 1)}
 
 
-def _assert_unported(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.lm_param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_paged_cache(cfg, 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.encode({}, torch.zeros((1, 2), dtype=torch.int32), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine({}, cfg, device="cpu")
+def test_audio_family_is_the_dense_stack():
+    """The audio family is the dense stack: the same parameter specs,
+    the same loss on the same weights, and it trains and serves."""
+    dense = get_smoke_config("qwen2-0.5b").replace(
+        param_dtype=torch.float32, act_dtype=torch.float32)
+    audio = dense.replace(family="audio")
+    assert lm.lm_param_specs(audio) == lm.lm_param_specs(dense)
+    p = _smoke_params(dense)
+    batch = _batch(dense)
+    want = lm.lm_loss(p, batch, dense)
+    assert torch.equal(lm.lm_loss(p, batch, audio), want)
+    tcfg = TrainConfig()
+    state = train_state_init(0, audio, tcfg, device="cpu")
+    _, metrics = make_train_step(audio, tcfg)(state, batch)
+    assert torch.isfinite(metrics["loss"])
+    assert lm.init_paged_cache(audio, 4, 4, device="cpu")["k"].shape[0] == 2
+    assert build_engine(p, audio, device="cpu").cfg.family == "audio"
+
+
+def test_embeddings_frontend_projects_embeddings():
+    """``frontend="embeddings"`` adds the frontend's (d, d) projection to
+    the specs, and ``encode`` projects (b, s, d) embeddings through it:
+    the table's rows under an identity projection give the tokens'
+    hidden states.  Token prompts still serve."""
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        param_dtype=torch.float32, act_dtype=torch.float32,
+        frontend="embeddings")
+    proj = lm.lm_param_specs(cfg)["frontend"]["proj"]
+    assert (proj.shape, proj.axes, proj.init) == (
+        (cfg.d_model, cfg.d_model), ("embed", None), "scaled")
+    p = _smoke_params(cfg)
+    p["frontend"]["proj"] = torch.eye(cfg.d_model)
+    toks = _batch(cfg)["inputs"]
+    emb = p["embed"]["table"][toks.long()]
+    want = lm.encode(p, toks, cfg)
+    assert torch.allclose(lm.encode(p, emb, cfg), want, rtol=0, atol=1e-6)
+    assert lm.init_paged_cache(cfg, 4, 4, device="cpu")["k"].shape[0] == 2
+    assert build_engine(p, cfg, device="cpu").cfg.frontend == "embeddings"
 
 
 def test_full_width_config_matches_published_qwen2_0_5b():
