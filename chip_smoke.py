@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's paged and fixed-slot SC serving paths,
-its serve-fleet failover, the paper's cell model, MoE, SSM and hybrid
+its serve-fleet failover, serving on a device mesh of 4 ranks, the
+paper's cell model, MoE, SSM and hybrid
 serving, its trainer (dense, SSM, hybrid and audio), and its validation /
 faulty-device path on one GPU.
 
@@ -13,7 +14,8 @@ code is non-zero):
    and the build of every CUDA kernel from ``src/`` (one ``nvcc`` per
    source, all at once);
 2. each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (kernel 4 also at every size phase V launches;
+   main paths' shapes (kernel 4 also at every size phase V launches
+   and at a rank's block of phase FM's sharded wq call;
    ``sc_fused`` and ``sc_mul_popcount`` bit-equal; both paged-attention
    kernels within 1e-5 in float32 and bit-equal over two launches at
    phase A's decode and prefill shapes, over a 1,024-token cache and
@@ -26,8 +28,9 @@ code is non-zero):
    kernel's split-K pass within 1e-5 of max |out|, plus the in-kernel
    noise's mean and variance, and two launches of the moment kernel
    bit-equal; kernel 1 also with one key a call at phase F's prefill
-   shape, at phase M's expert, router and wq shapes and at phases S and
-   H's wz, wdt and out shapes, the plain version holding the first 128
+   shape and at a rank's blocks of phase FM (mlp_wi, mlp_wo, the
+   prefill's wq and unembed), at phase M's expert, router and wq shapes
+   and at phases S and H's wz, wdt and out shapes, the plain version holding the first 128
    columns of the wide ones; both attention kernels also at phase M's
    and phase H's heads), with its median time, the plain version's
    time, the least time the card could take (``bound_ms``; for the
@@ -78,6 +81,21 @@ code is non-zero):
    injected ones, A's tokens for A's prompts and one unfaulted engine's
    for the rest; then ``launch/serve.py --smoke`` on the card, plain and
    with ``--chaos``;
+   mesh phase FM: ``launch/serve.py --mesh``'s engine, ``build_engine(
+   ..., mesh=make_local_mesh(2), shard_rules=sc_shard_rules(mesh))``,
+   in 4 ranks of this script (``--fm-rank``) that it starts under
+   ``torchrun``, sharing the card over gloo: phase F's model on a data 2
+   x model 2 mesh, 4 slots, A's two prompts twice, 4 new tokens each,
+   every SC call split over the ranks (``sc.sc_dot_sharded``).  Every
+   rank's tokens equal; kernel 1's launches a rank equal to
+   ``mesh_kernel1_plan`` and no other kernel; each rank's prefill and
+   decode-step ms, peak memory and the ms of its merges.  Before it, a
+   world of one (no ``torchrun``: the trivial mesh) with phase F's
+   settings gives phase F's tokens; in the ranks, layer 0's wq on the
+   mesh: ``pallas_fused`` (kernel 1) bit-equal to ``pallas_bitexact``
+   (kernel 4) and ``pallas_moment`` (kernel 5, nbit 2^16) within 0.5 of
+   the exact product, and the tiny configuration on the mesh with its
+   ranks on the card and on the CPU: equal tokens;
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
 6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
@@ -166,8 +184,9 @@ code is non-zero):
     equal fixed-slot tokens; the SMOKE config on card and CPU;
 14. the kernels line and the device line.
 
-Launch counts are reset just before phases A, B, P, F, FT, T, TS, TH,
-TA, V, D, C, M, S and H and read just after each; a kernel of a phase's
+Launch counts are reset just before phases A, B, P, F, FT, FM (the
+world of one, and in each rank), T, TS, TH, TA, V, D, C, M, S and H and
+read just after each; a kernel of a phase's
 path that did not launch fails the run.  Without a CUDA device the
 script exits non-zero before printing any result.
 """
@@ -454,6 +473,14 @@ def check_sc_fused(rates: dict) -> dict:
         # phase H (zamba2-7b, 1 slot): wz and out of a decode tick
         ("hyb_wz", 1, 3584, 7168, 7168, True),
         ("hyb_out", 1, 7168, 3584, 3584, True),
+        # phase FM (data 2 x model 2 mesh, one key a call): a rank's
+        # block of a 4-slot decode step's mlp_wi and mlp_wo (2 rows, K
+        # halved), of the 12-token prefill's wq (6 rows) and of its
+        # unembed (1 row: the data axis drops, K still halves)
+        ("fm_mlp_wi", 2, 448, 9728, 9728, False),
+        ("fm_mlp_wo", 2, 2432, 896, 896, False),
+        ("fm_prefill_wq", 6, 448, 896, 896, False),
+        ("fm_unembed_window", 1, 448, 512, 151936, False),
     ]
     rows = {}
     for name, m, k, n, n_orig, row_keys in shapes:
@@ -475,7 +502,7 @@ def check_sc_fused(rates: dict) -> dict:
         # the plain version holds the first PLAIN_COLS columns (counters
         # depend on the column index and n_orig alone): all of a wide
         # expert or SSM projection would take it minutes
-        wide = name.startswith(("moe_", "ssm_", "hyb_"))
+        wide = name.startswith(("moe_", "ssm_", "hyb_", "fm_"))
         cols = min(n, PLAIN_COLS) if wide else n
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1198,6 +1225,10 @@ SC_MUL_CASES = (
     ("wk_tail", 49152),
     ("wq_tail", 16384),
     ("packed", 64),
+    # phase FM's sharded pallas_bitexact call: a rank's 2 x 448 block of
+    # layer 0's wq at a 4-slot decode step (the wq row's product count;
+    # walked as 12 chunks and a 16,384 tail)
+    ("fm_wq_shard", 2 * 448 * 896),
 )
 
 
@@ -1851,6 +1882,279 @@ def fleet_phase(params, cfg, opts, prompts_a, tokens_a, max_new) -> dict:
 # ---------------------------------------------------------------------------
 # Phases 8-9: validation (V) and serving on a faulty device (D)
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Phase FM: the fixed-slot engine on a device mesh (4 ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+FM_RANKS = 4
+FM_MODEL_PARALLEL = 2  # a data 2 x model 2 mesh
+FM_SLOTS = 4
+FM_NEW = 4
+FM_TIMEOUT = 600  # s, the 4-rank launch's limit
+# the reference's sharded moment check (tests/_sharded_subprocess.py):
+# nbit 2^16, within 0.5 of the exact product
+FM_MOMENT_NBIT = 1 << 16
+FM_MOMENT_BOUND = 0.5
+
+
+def mesh_kernel1_plan(cfg, requests: int, max_new: int) -> int:
+    """Kernel 1's launches on each rank of the mesh engine, derived from
+    the code: one a dense call (the rank's block under one key), a call
+    a site of the forward (``arch.dense_workload``), over one prefill a
+    request and ``max_new - 1`` decode steps (every request admitted in
+    the first tick)."""
+    from repro_torch import arch
+
+    per_forward = sum(s.count for s in arch.dense_workload(cfg, 1))
+    return per_forward * (requests + max_new - 1)
+
+
+class _GatherTimer:
+    """Wraps ``repro_torch.sc.sharded._gather`` (the SUM and the row
+    gather of every sharded call) while installed: the synced host ms of
+    each."""
+
+    def __enter__(self):
+        from repro_torch.sc import sharded
+
+        self.mod, self.orig, self.ms = sharded, sharded._gather, []
+
+        def timed(*args, **kw):
+            out, ms = _synced_ms(lambda: self.orig(*args, **kw))
+            self.ms.append(ms)
+            return out
+
+        sharded._gather = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._gather = self.orig
+
+
+def _fm_serve(params, cfg, mesh, prompts, slots: int, max_len: int,
+              max_new: int):
+    """An engine holding greedy ``prompts``, built by ``build_engine(...,
+    mesh=, shard_rules=)`` as ``launch/serve.py --mesh`` builds it."""
+    from repro_torch.serve import Request, ServeOptions, build_engine
+    from repro_torch.sharding import sc_shard_rules
+
+    opts = ServeOptions(mesh=True, model_parallel=mesh.shape["model"],
+                        slots=slots, max_len=max_len)
+    eng = build_engine(params, cfg, opts, device=mesh.device, mesh=mesh,
+                       shard_rules=sc_shard_rules(mesh))
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))
+    return eng
+
+
+def fm_sharded_kernels(params, mesh, prompts) -> dict:
+    """Phase FM, check 4 (on every rank): layer 0's wq on the mesh at a
+    decode step's width, the first token of each prompt embedded
+    (FM_SLOTS x 896 @ 896 x 896, a rank's block 2 x 448): ``pallas_fused``
+    (kernel 1) and ``pallas_bitexact`` (kernel 4, fed its stream) bit for
+    bit, and ``pallas_moment`` (kernel 5) at nbit 2^16 within the
+    reference's 0.5 of the exact product."""
+    from repro_torch import sc
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.sc import ctr_rng
+    from repro_torch.sharding import sc_shard_rules
+
+    table = params["embed"]["table"]
+    rows = torch.tensor([p[0] for p in prompts[:FM_SLOTS]])
+    x = table[rows.to(table.device)].float()
+    w = params["blocks"]["attn"]["wq"][0].float()
+    key = ctr_rng.prng_key(7).to(mesh.device)
+    rules = sc_shard_rules(mesh)
+    out, rec = {}, {}
+    for backend, nbit, kernel in (
+        ("pallas_fused", 1024, "sc_fused"),
+        ("pallas_bitexact", 1024, "sc_mul_popcount"),
+        ("pallas_moment", FM_MOMENT_NBIT, "sc_mac_fused"),
+    ):
+        cfg = sc.ScConfig(backend=backend, nbit=nbit)
+        cuda_lib.reset_launches()
+        out[backend], ms = _synced_ms(lambda: sc.sc_dot_sharded(
+            key, x, w, cfg, mesh=mesh, rules=rules))
+        counts = dict(cuda_lib.launches)
+        if counts.get(kernel, 0) <= 0:
+            raise AssertionError(f"serve_fm: {backend} did not launch "
+                                 f"{kernel}: {counts}")
+        rec[backend] = dict(ms=ms, launches=counts)
+    rec["shape"] = [x.shape[0], x.shape[1], w.shape[1]]
+    rec["fused_equals_bitexact"] = bool(
+        torch.equal(out["pallas_fused"], out["pallas_bitexact"]))
+    rec["moment_max_abs_err"] = float(
+        (out["pallas_moment"] - x @ w).abs().max())
+    return rec
+
+
+def fm_smoke(device: str) -> dict:
+    """Phase FM, check 3 (on every rank): the tiny configuration on the
+    2 x 2 mesh, its ranks on ``device``."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = _tiny_cfg()
+    mesh = make_local_mesh(FM_MODEL_PARALLEL, device=device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, 10).tolist()
+               for _ in range(FM_SLOTS)]
+    eng = _fm_serve(_qwen_params(cfg, mesh.device), cfg, mesh, prompts,
+                    FM_SLOTS, 32, FM_NEW)
+    return {str(r.rid): r.generated for r in eng.run_until_drained()}
+
+
+def fm_rank(outdir: str, layers: int) -> int:
+    """One rank of phase FM, started by :func:`mesh_phase` under
+    ``torchrun``: qwen2-0.5b at full width, depth ``layers``, bf16,
+    ``pallas_bitexact`` at nbit 1024, on the data 2 x model 2 mesh with
+    FM_SLOTS slots; then checks 4 and 3.  Writes
+    ``fm_rank<r>.json`` in ``outdir``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(outdir, "fm_in.json")) as f:
+        prompts = json.load(f)["prompts"]
+    mesh = make_local_mesh(FM_MODEL_PARALLEL)
+    cfg = get_config("qwen2-0.5b").replace(
+        n_layers=layers, sc_backend="pallas_bitexact", sc_nbit=1024)
+    params = _qwen_params(cfg, mesh.device)
+    rec = dict(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
+               mesh=mesh.shape, coords=mesh.coords)
+    eng = _fm_serve(params, cfg, mesh, prompts, FM_SLOTS, 64, FM_NEW)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    with _CallTimer("prefill", "decode_step") as timer, \
+            _GatherTimer() as gather:
+        fin, ms = _synced_ms(eng.run_until_drained)
+    rec.update(
+        launches=dict(cuda_lib.launches),
+        tokens={str(r.rid): r.generated for r in fin},
+        wall_ms=ms,
+        prefill_ms=timer.ms["prefill"],
+        decode_ms=timer.ms["decode_step"],
+        collective_ms=sum(gather.ms),
+        collectives=len(gather.ms),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    rec["kernels"] = fm_sharded_kernels(params, mesh, prompts)
+    rec["smoke"] = {dev: fm_smoke(dev) for dev in ("cuda", "cpu")}
+    with open(os.path.join(outdir, f"fm_rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_world_one(params, cfg, prompts, tokens_f) -> dict:
+    """Phase FM, check 2: ``--mesh`` in a world of one (no ``torchrun``)
+    is the trivial 1 x 1 mesh, where every sharded call is ``sc_dot``:
+    phase F's settings (2 slots, its prompts) give phase F's tokens."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1)
+    cuda_lib.reset_launches()
+    eng = _fm_serve(params, cfg, mesh, prompts, 2, 64, FM_NEW)
+    toks = {r.rid: list(r.generated) for r in eng.run_until_drained()}
+    counts = dict(cuda_lib.launches)
+    emit("serve_fm_world_one", mesh=mesh.shape, tokens=toks,
+         launches=counts)
+    if toks != tokens_f:
+        raise AssertionError(f"serve_fm: the trivial mesh's tokens {toks} "
+                             f"are not phase F's {tokens_f}")
+    return counts
+
+
+def _run_ranks(outdir: str, layers: int) -> float:
+    """Start FM_RANKS ranks of this script under ``torchrun`` and wait
+    for them (seconds); on failure or timeout, end them all and raise
+    with the end of their output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={FM_RANKS}", os.path.abspath(__file__),
+           "--fm-rank", outdir, "--layers", str(layers)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=FM_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        raise AssertionError(f"serve_fm: ranks ran past {FM_TIMEOUT} s:\n"
+                             f"{out[-6000:]}") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"serve_fm: ranks failed "
+                             f"({proc.returncode}):\n{out[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def mesh_phase(params, cfg, prompts, tokens_f, card: str,
+               layers: int) -> dict:
+    """Phase FM: the fixed-slot engine on a data 2 x model 2 mesh of 4
+    ranks sharing the card over gloo; see the module doc."""
+    counts_one = mesh_world_one(params, cfg, prompts, tokens_f)
+    fm_prompts = prompts + prompts  # phase A's two prompts, twice
+    plan = mesh_kernel1_plan(cfg, len(fm_prompts), FM_NEW)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fm_") as outdir:
+        with open(os.path.join(outdir, "fm_in.json"), "w") as f:
+            json.dump({"prompts": fm_prompts}, f)
+        seconds = _run_ranks(outdir, layers)
+        ranks = []
+        for r in range(FM_RANKS):
+            with open(os.path.join(outdir, f"fm_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for rec in ranks:
+        emit("serve_fm_rank", **{k: rec[k] for k in (
+            "rank", "device", "backend", "coords", "prefill_ms",
+            "decode_ms", "wall_ms", "collective_ms", "collectives",
+            "max_memory_allocated", "launches", "kernels")})
+    first = ranks[0]
+    summary = dict(
+        mesh=first["mesh"],
+        backend=first["backend"],
+        ranks=FM_RANKS,
+        card=card,
+        seconds=seconds,
+        tokens=first["tokens"],
+        kernel1_plan=plan,
+        collective_ms=[r["collective_ms"] for r in ranks],
+        smoke=first["smoke"],
+        world_one_launches=counts_one,
+    )
+    emit("serve_fm", **summary)
+    for ok, what in (
+        (all(r["tokens"] == first["tokens"] for r in ranks),
+         "the ranks' tokens differ"),
+        (all(len(t) == FM_NEW for t in first["tokens"].values())
+         and len(first["tokens"]) == len(fm_prompts),
+         "a request did not get its tokens"),
+        (all(0 <= t < cfg.vocab for ts in first["tokens"].values()
+             for t in ts), "token outside the vocabulary"),
+        (all(r["smoke"]["cuda"] == r["smoke"]["cpu"] == first["smoke"]["cpu"]
+             for r in ranks), "the SMOKE tokens differ between card and CPU"),
+        (all(r["kernels"]["fused_equals_bitexact"] for r in ranks),
+         "sharded pallas_fused differs from pallas_bitexact"),
+        (all(r["kernels"]["moment_max_abs_err"] < FM_MOMENT_BOUND
+             for r in ranks), "sharded pallas_moment past its bound"),
+        (all(r["launches"].get("sc_fused", 0) == plan for r in ranks),
+         f"kernel-1 launches {[r['launches'] for r in ranks]}, {plan} "
+         "planned a rank"),
+        (not any(r["launches"].get(k, 0) for r in ranks
+                 for k in NOT_KERNEL_1), "a kernel other than sc_fused "
+         "launched"),
+    ):
+        if not ok:
+            raise AssertionError(f"serve_fm: {what}")
+    return dict(summary, launches=first["launches"], ranks_detail=ranks,
+                counts_one=counts_one)
 
 
 def _synced_ms(fn):
@@ -3157,10 +3461,14 @@ def main(argv=None) -> int:
                     "one shared invocation (<= 27)")
     ap.add_argument("--audio-layers", type=int, default=2,
                     help="phase TA's depth (<= 48)")
+    # one rank of phase FM (the script starts its ranks itself)
+    ap.add_argument("--fm-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.fm_rank:
+        return fm_rank(args.fm_rank, args.layers)
     if not 1 <= args.layers <= 24:
         raise SystemExit("--layers must be in 1..24")
     if not 1 <= args.moe_layers <= 48:
@@ -3231,6 +3539,8 @@ def main(argv=None) -> int:
     serve_p = prefix_spec_phase(params, cfg, opts, prompts, tokens_a)
     serve_f = fixed_slot_phase(params, cfg, prompts, 4)
     serve_ft = fleet_phase(params, cfg, opts, prompts, tokens_a, 4)
+    serve_fm = mesh_phase(params, cfg, prompts, serve_f["tokens"], card,
+                          args.layers)
     val = validation_phase(params, cfg)
     faulty = faulty_serve_phase(
         params, cfg.replace(sc_backend="exact", paged_attn="unfused"),
@@ -3265,6 +3575,8 @@ def main(argv=None) -> int:
         serve_p["launches"],
         serve_f["launches"],
         serve_ft["launches"],
+        serve_fm["launches"],
+        serve_fm["counts_one"],
         faulty["counts"],
         serve_m["counts_bitexact"],
         serve_m["counts_exact"],
@@ -3295,8 +3607,17 @@ def main(argv=None) -> int:
             bound_by="operations",
             library_ms=None,
             shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi); "
-            "launches from phases A, B, P, F (one key a call), FT, M, S "
-            "and H",
+            "launches from phases A, B, P, F (one key a call), FT, FM "
+            "(rank 0 of the mesh and the world of one), M, S and H; "
+            "mesh: a rank's block on phase FM's 2 x 2 mesh, one key a "
+            "call",
+            mesh={
+                case: {k: fused[case][k] for k in
+                       ("shape", "n_orig", "ms", "plain_ms", "plain_cols",
+                        "bound_ms")}
+                for case in ("fm_mlp_wi", "fm_mlp_wo", "fm_prefill_wq",
+                             "fm_unembed_window")
+            },
             moe_expert={
                 k: fused["moe_wi"][k]
                 for k in ("shape", "ms", "plain_ms", "plain_cols", "bound_ms")
@@ -3368,7 +3689,10 @@ def main(argv=None) -> int:
             library_ms=None,
             shape="M=65536 MULs W=32 (nbit 1024): one chunk of "
             "pallas_bitexact's stream walk, the size of most of phase "
-            "V's launches; launches from phase V",
+            "V's launches; launches from phase V; mesh_shard: a rank's "
+            "block of phase FM's sharded wq call, whole",
+            mesh_shard={k: muls["fm_wq_shard"][k] for k in
+                        ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
         ),
         dict(
             name="sc_mac_fused",

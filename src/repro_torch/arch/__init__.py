@@ -62,4 +62,6 @@ from repro_torch.arch.workload import (  # noqa: F401
     MatmulSite,
     dense_workload,
     price_workload,
+    price_workload_sharded,
+    shard_site,
 )

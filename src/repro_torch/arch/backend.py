@@ -20,13 +20,18 @@ reference's caps:
 
 A non-ideal ``cfg.device`` profile replaces them with
 :func:`_device_numerics`.  The active ArraySpec / CostParams are ambient
-(``use_spec`` / ``use_params``).  The sharded substrate is not ported,
-so every call prices one shard.
+(``use_spec`` / ``use_params``).  Inside a sharded call
+(``sc.sc_dot_sharded``) every rank's call is one shard's slice: its
+record carries the shard multiplicity (``CallRecord.shards``) and its
+fault census counts every shard, as the reference's one trace of the
+``shard_map`` body does, so rank 0's records and registry are the
+reference's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 
 import numpy as np
@@ -42,6 +47,7 @@ from repro_torch.core import physics
 from repro_torch.core.costmodel import DEFAULT_PARAMS, CostParams
 from repro_torch.sc import backends as sc_backends
 from repro_torch.sc import ctr_rng, encoding
+from repro_torch.sc import sharded as sc_sharded
 from repro_torch.sc.config import ScConfig
 from repro_torch.sc.registry import register_backend
 
@@ -216,10 +222,11 @@ def _cell_population(key, sx, px, sw, pw, prof, nbit: int):
     return out
 
 
-def _note_bit_errors(profile: physics.DeviceProfile, cells: int) -> None:
+def _note_bit_errors(profile: physics.DeviceProfile, cells: int,
+                     shards: int) -> None:
     """Export one call's fault census (``accounting.bit_error_census``)
-    to the default registry as ``arch_bit_errors_total{kind,shard}``
-    (one shard: the sharded substrate is not ported)."""
+    of ``cells`` cells a shard to the default registry as
+    ``arch_bit_errors_total{kind,shard}``, times ``shards``."""
     reg = obs.default_registry()
     if not reg.enabled:
         return
@@ -229,7 +236,7 @@ def _note_bit_errors(profile: physics.DeviceProfile, cells: int) -> None:
         "modeled bit errors injected at the array backend, by fault kind",
     )
     for kind in ("stuck0", "stuck1", "retention"):
-        c.inc(census[kind], kind=kind, shard="1")
+        c.inc(census[kind] * shards, kind=kind, shard=str(shards))
 
 
 def _note_pricing(rec: trace.CallRecord) -> None:
@@ -264,13 +271,18 @@ def array(key, x, w, cfg: ScConfig):
     listens), then the size-matched numerics."""
     m, k = x.shape
     n = w.shape[1]
+    shards = sc_sharded.current_shard_count()
     if trace.active():
         rec = schedule_call(m, k, n, cfg.nbit)
+        if shards != 1:
+            # x / w are this rank's shard: the record carries the
+            # concurrency multiplicity
+            rec = dataclasses.replace(rec, shards=shards)
         trace.record(rec)
         _note_pricing(rec)
     else:
         # a call the active spec cannot hold fails even untraced
         tile_matmul(m, k, n, cfg.nbit, current_spec())
     if cfg.device is not None and not cfg.device.is_ideal:
-        _note_bit_errors(cfg.device, m * k * n * cfg.nbit)
+        _note_bit_errors(cfg.device, m * k * n * cfg.nbit, shards)
     return _numerics(key, x, w, cfg)

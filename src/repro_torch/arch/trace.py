@@ -36,8 +36,8 @@ from repro_torch.arch.tiler import TilePlan, plan_summary
 class CallRecord:
     """One ``sc_dot`` call on the array: plan + trace + price.
 
-    ``shards`` is the mesh-shard multiplicity of the call (the sharded
-    substrate is not ported, so the port's records carry 1);
+    ``shards`` is the mesh-shard multiplicity of the call (set inside
+    ``sc.sc_dot_sharded``, whose records are one shard's slice);
     ``effective_report`` merges that many concurrent slices.
     """
 

@@ -7,16 +7,22 @@ dense equivalent of the ``top_k`` visits a token makes, plus the shared
 expert; the Mamba2 projections per backbone layer; zamba2's shared
 attention and MLP per invocation; the embeddings frontend's projection
 once), and ``price_workload`` prices the whole pass on the array
-without running any numerics.  The attention score / value products and
-the SSM scan are not ``dense`` calls and are absent.  The sharded
-pricing comes with the sharded substrate (ROADMAP queue 1 item 10).
+without running any numerics; ``price_workload_sharded`` prices it
+executed on a ``data x model`` mesh (each site as one shard's slice,
+the shards merged as concurrent banks), as ``sc.sc_dot_sharded`` runs
+it.  The attention score / value products and the SSM scan are not
+``dense`` calls and are absent.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.arch.accounting import TraceReport, merge_reports
+from repro_torch.arch.accounting import (
+    TraceReport,
+    merge_concurrent_reports,
+    merge_reports,
+)
 from repro_torch.arch.backend import schedule_call
 from repro_torch.arch.spec import ArraySpec
 from repro_torch.core.costmodel import CostParams
@@ -107,5 +113,47 @@ def price_workload(
     for s in sites:
         one = schedule_call(s.m, s.k, s.n, nbit, spec, params).report
         per_site.append((s, merge_reports([one] * s.count)))
+    total = merge_reports(r for _, r in per_site)
+    return per_site, total
+
+
+def shard_site(site: MatmulSite, data: int = 1, model: int = 1) -> MatmulSite:
+    """One mesh slice's share of ``site`` under the SC sharding rules:
+    rows (m) split over the ``data`` span, contraction (k) over ``model``
+    (ceil-division — indivisible dims cost the padded shard)."""
+    def ceil(a, b):
+        return -(-a // b)
+
+    return dataclasses.replace(site, m=ceil(site.m, max(data, 1)),
+                               k=ceil(site.k, max(model, 1)))
+
+
+def price_workload_sharded(
+    sites,
+    nbit: int,
+    *,
+    data: int = 1,
+    model: int = 1,
+    spec: ArraySpec | None = None,
+    params: CostParams | None = None,
+):
+    """Price a workload executed mesh-sharded: ``data x model`` chips,
+    each running one shard of every matmul concurrently.
+
+    Each site is priced as its per-shard slice (:func:`shard_site`), the
+    shard reports merge as CONCURRENT banks (makespan = slowest shard,
+    energy and products add; the SUM merge itself is free, like MERGE in
+    the single-chip trace), and sites serialize as usual.  With ``data
+    == model == 1`` this is exactly :func:`price_workload`.  Returns
+    ``(per_site, total)`` shaped like :func:`price_workload`.
+    """
+    n_shards = max(data, 1) * max(model, 1)
+    per_site: list[tuple[MatmulSite, TraceReport]] = []
+    for s in sites:
+        piece = shard_site(s, data, model)
+        one = schedule_call(piece.m, piece.k, piece.n, nbit, spec,
+                            params).report
+        sharded = merge_concurrent_reports([one] * n_shards)
+        per_site.append((s, merge_reports([sharded] * s.count)))
     total = merge_reports(r for _, r in per_site)
     return per_site, total

@@ -1,8 +1,7 @@
 """Serving launcher: a serving engine over synthetic requests.
 
-Port of ``repro.launch.serve`` without ``--mesh`` (ROADMAP queue 1 item
-10).  Runs on the card unless ``--device cpu`` asks for the plain
-versions of the kernels on the CPU.
+Port of ``repro.launch.serve``.  Runs on the card unless ``--device
+cpu`` asks for the plain versions of the kernels on the CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
         --requests 8 --slots 4 --device cpu      # fixed-slot engine
@@ -14,6 +13,8 @@ versions of the kernels on the CPU.
         --metrics-out metrics.prom --trace-out trace.jsonl --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
         --arch mamba2-370m --device cpu     # SSM (zamba2-7b: hybrid)
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --smoke --arch paper-sc --mesh --model-parallel 2 --device cpu
 
 Engine flags are derived from ``serve.ServeOptions`` field metadata
 (``serve.add_cli_args``); the launcher adds its workload knobs
@@ -27,6 +28,16 @@ fleet under ``ft.FleetSupervisor`` with shard 1 degraded at fleet tick
 ``repro_torch.obs`` registry and an installed tracer) and write the
 Prometheus exposition (or, for a ``.json`` path, the JSON snapshot) and
 the span JSONL after the drain.
+
+``--mesh`` serves the fixed-slot engine on a device mesh of the world's
+ranks, ``(data = world / --model-parallel, model = --model-parallel)``
+(``launch.mesh.make_local_mesh``): one process per rank, started by
+``torchrun``, each holding the whole model and cache and running the
+same requests, with every SC call split over the mesh
+(``sc.sc_dot_sharded``).  Each rank prints its device and the
+process-group backend (NCCL when every rank owns a card, gloo on the
+CPU or when ranks share one); only rank 0 prints the rest and writes
+the outputs.  Without ``torchrun`` the mesh is the trivial 1 x 1 one.
 
 The prompts come from ``ctr_rng.split`` / ``randint``, bit-equal to
 ``jax.random``, so the prompt list equals the reference launcher's for
@@ -42,13 +53,16 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs, resolve_device, serve
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import lm
 from repro_torch.models import params as params_lib
 from repro_torch.sc import ctr_rng
 from repro_torch.serve import Request
+from repro_torch.sharding import sc_shard_rules
 
 
 def synthetic_prompts(seed: int, n: int, vocab: int, shared_prefix: int = 0):
@@ -110,7 +124,26 @@ def main(argv=None):
         options.validate()
     except ValueError as e:
         raise SystemExit(f"bad flag combination: {e}") from None
+    joined = dist.is_initialized()
+    try:
+        return _serve(args, options)
+    finally:
+        if dist.is_initialized() and not joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, options):
     device = resolve_device(args.device)
+    mesh = rules = None
+    if options.mesh:
+        mesh = make_local_mesh(options.model_parallel, device=args.device)
+        device, rules = mesh.device, sc_shard_rules(mesh)
+        print(f"rank {mesh.rank}: device {device}, backend {mesh.backend}")
+    # on a mesh every rank serves the same requests; rank 0 reports
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"serving on mesh {dict(mesh.shape)}")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(param_dtype=torch.float32, act_dtype=torch.float32)
@@ -128,7 +161,7 @@ def main(argv=None):
         tracer = obs.install_tracer(obs.Tracer())
     if options.fault_profile:
         p = options.resolve_profile()
-        print(
+        say(
             f"device profile '{options.fault_profile}': "
             f"sigma_delta={p.sigma_delta} sigma_ic={p.sigma_ic} "
             f"ber={p.ber_stuck0}/{p.ber_stuck1}/{p.ber_retention}"
@@ -140,10 +173,10 @@ def main(argv=None):
     else:
         engine = serve.build_engine(
             params, cfg, options, device=device, metrics=metrics,
-            tracer=tracer,
+            tracer=tracer, mesh=mesh, shard_rules=rules,
         )
         if options.paged:
-            print(
+            say(
                 f"paged engine: block_size={options.block_size} "
                 f"pool={engine.kv.cfg.num_blocks} blocks "
                 f"(chunked prefill {options.prefill_chunk}"
@@ -171,12 +204,12 @@ def main(argv=None):
     finished = target.run_until_drained()
     dt = time.time() - t0
     total_tokens = sum(len(r.generated) for r in finished)
-    print(
+    say(
         f"served {len(finished)} requests, {total_tokens} tokens "
         f"in {dt:.1f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s)"
     )
     if fleet is not None:
-        print(
+        say(
             f"  fleet: {fleet.shards} shards, {fleet.drains} drained, "
             f"{fleet.resumed} requests resumed, "
             f"{fleet.readmissions} readmitted"
@@ -184,20 +217,20 @@ def main(argv=None):
     elif options.paged:
         _print_paged(engine, options)
     for r in sorted(finished, key=lambda r: r.rid)[:4]:
-        print(
+        say(
             f"  req {r.rid}: prompt[:6]={r.prompt[:6]} "
             f"generated={r.generated}"
         )
-    if args.metrics_out:
+    if args.metrics_out and lead:
         with open(args.metrics_out, "w") as f:
             if args.metrics_out.endswith(".json"):
                 f.write(metrics.snapshot_json())
             else:
                 f.write(metrics.exposition())
-        print(f"  metrics -> {args.metrics_out}")
-    if args.trace_out:
+        say(f"  metrics -> {args.metrics_out}")
+    if args.trace_out and lead:
         tracer.write_jsonl(args.trace_out)
-        print(f"  trace   -> {args.trace_out} ({len(tracer.spans)} spans)")
+        say(f"  trace   -> {args.trace_out} ({len(tracer.spans)} spans)")
     if tracer is not None:
         obs.uninstall_tracer(tracer)
         obs.disable()

@@ -100,7 +100,9 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
 
     Stochastic backends REQUIRE a key (raw ``(2,)``, or per-row keys whose
     leading dims match ``x``'s, making each row's output a function of its
-    own key and data only).
+    own key and data only).  Inside ``sc.use_mesh`` a one-key call goes
+    through ``sc.sc_dot_sharded`` on that mesh; per-row keys keep
+    precedence.
     """
     if cfg.sc_backend == "exact":
         y = x @ w.to(x.dtype)
@@ -114,8 +116,15 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
         if key.dim() > 1:
             y = _dense_rows(key, x, w, sc_cfg)
         else:
-            xf = x.to(torch.float32)
-            y = sc.sc_dot(key, xf, w.to(torch.float32), sc_cfg).to(x.dtype)
+            xf, wf = x.to(torch.float32), w.to(torch.float32)
+            scope = sc.active_mesh()
+            if scope is not None:
+                mesh, rules = scope
+                y = sc.sc_dot_sharded(key, xf, wf, sc_cfg, mesh=mesh,
+                                      rules=rules)
+            else:
+                y = sc.sc_dot(key, xf, wf, sc_cfg)
+            y = y.to(x.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -8,8 +8,8 @@ materializes it from an explicit ``torch.Generator`` and
 on a leading layer axis) into tensors, which is how the parity tests
 give both packages the same weights — and the same full train state
 (``params``, ``opt.m`` / ``opt.v`` with their int8 ``{"q", "scale"}``
-leaves, the int32 ``opt.step``).  The logical axes ride along for
-the sharding slice; nothing reads them yet.
+leaves, the int32 ``opt.step``).  :func:`partition_specs` maps each
+leaf's logical axes onto mesh axes (``sharding/rules.py``).
 """
 
 from __future__ import annotations
@@ -120,3 +120,32 @@ def params_from_numpy(tree, device=None, dtype=None):
             t = t.to(dtype)
         _set(out, path, t.to(device))
     return out
+
+
+def partition_specs(specs, rules: dict):
+    """Map logical axes -> mesh axes per ``rules`` ({logical: mesh|None}).
+
+    One tuple per leaf, one entry per dimension (what the reference's
+    ``PartitionSpec`` holds).  A logical axis missing from the rules maps
+    to None (replicated), and so does a dimension that its mesh axes'
+    span (from the rules' ``__sizes__`` entry) does not divide.
+    """
+    sizes = rules.get("__sizes__", {})
+
+    def one(s: ParamSpec):
+        entries = []
+        for dim, ax in zip(s.shape, s.axes):
+            mesh_ax = rules.get(ax)
+            if mesh_ax is None:
+                entries.append(None)
+                continue
+            size = sizes.get(mesh_ax)
+            if isinstance(mesh_ax, tuple):
+                size = math.prod(sizes.get(a, 1) for a in mesh_ax)
+            if size and dim % size != 0:
+                entries.append(None)  # indivisible -> replicate this dim
+            else:
+                entries.append(mesh_ax)
+        return tuple(entries)
+
+    return tree_map_specs(one, specs)

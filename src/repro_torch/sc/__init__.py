@@ -12,6 +12,12 @@ architecture simulator (``repro_torch.arch``).  ``use_device_profile``
 scopes a device-realism profile over every ``ScConfig`` the model stack
 builds.  ``draft_backend`` names the cheap backend speculative decoding
 drafts with for a verify backend (``register_draft_pair`` sets one).
+
+Scale-out lives in :mod:`repro_torch.sc.sharded`: ``sc_dot_sharded``
+splits one contraction over a ``torch.distributed`` device mesh (rows
+over the data axes, the contraction over the model axis with a SUM
+merge), and ``use_mesh`` makes the model stack route every one-key
+stochastic matmul through it.
 """
 
 from repro_torch.sc import backends as _backends  # noqa: F401  (registers)
@@ -32,4 +38,15 @@ from repro_torch.sc.registry import (  # noqa: F401
     register_rows_backend,
     sc_dot,
     sc_dot_rows,
+)
+from repro_torch.sc.sharded import (  # noqa: F401
+    DEFAULT_RULES,
+    ScShardRules,
+    active_mesh,
+    current_shard_count,
+    resolve_rules,
+    sc_dot_sharded,
+    shard_counts,
+    shard_scope,
+    use_mesh,
 )

@@ -1,0 +1,222 @@
+"""Mesh-sharded SC execution: one ``sc_dot`` split over device-mesh axes.
+
+Port of ``repro.sc.sharded`` onto ``torch.distributed``.  The design is
+SPMD: every rank of a :class:`~repro_torch.launch.mesh.DeviceMesh` runs
+the same program on the same replicated operands, and a sharded call
+splits only its own SC contraction:
+
+* the flattened row dimension M of ``x`` over the *batch* axes
+  (``("pod", "data")`` by default): rank (b, c) takes rows block b;
+* the contraction dimension K over the *contract* axes (``("model",)``):
+  it takes K block c, pop-counts its own slice of the K products, and
+  the partial signed accumulations merge with a SUM over the contract
+  group, as per-subarray POPCOUNTs merge through the adder tree (§IV);
+* then every rank gathers the row blocks over the batch group, so each
+  ends with the whole ``(M, N)`` product, as the reference's
+  ``shard_map`` output is.
+
+Both merges are exact copies of every rank's block (an integer SUM over
+zero-padded slots, the only collective, which gloo and NCCL both run on
+CUDA tensors), and the partial accumulations are then added in
+coordinate order, as XLA's ``psum`` adds them on the reference's CPU
+devices: so every rank holds the same bits, and they are the
+reference's.
+
+RNG semantics are the reference's: every rank folds the caller's key
+with its coordinate along each live axis, in the order ``rules.batch +
+rules.contract`` (``fold_in(key, axis_index(ax))``).  Axes of size one,
+absent axes and axes that do not divide their dimension are dropped by
+:func:`resolve_rules` and do not perturb the key, so a trivial mesh (or
+rules naming no live axis) is exactly ``sc_dot(key, x, w, cfg)``.
+
+Gradients: the straight-through ``autograd.Function`` of ``sc_dot``
+wraps the whole sharded call, so the gradient is the exact-product
+jacobian of the full operands (``g @ wᵀ``, ``xᵀ @ g``), which is what
+the reference's ``psum`` transposes to.
+
+``models/layers.py:dense`` routes a one-key stochastic matmul here
+whenever a :func:`use_mesh` scope is active.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sc import ctr_rng
+from repro_torch.sc.config import ScConfig
+from repro_torch.sc.registry import _dispatch, _StraightThrough, sc_dot
+
+
+@dataclasses.dataclass(frozen=True)
+class ScShardRules:
+    """Which mesh axes shard an ``sc_dot``.
+
+    ``batch`` axes split the flattened row dimension M of ``x`` (pure
+    data parallelism); ``contract`` axes split the contraction dimension
+    K (the partial accumulations merge with a SUM).  Axis names that are
+    absent from the mesh, have size one, or do not divide their
+    dimension are dropped per call by :func:`resolve_rules`.
+    """
+
+    batch: tuple = ("pod", "data")
+    contract: tuple = ("model",)
+
+
+DEFAULT_RULES = ScShardRules()
+
+
+def resolve_rules(mesh, m: int, k: int,
+                  rules: ScShardRules | None = None) -> ScShardRules:
+    """Concretize ``rules`` against ``mesh`` and the call shape: keep
+    only axes present in the mesh with size > 1 whose product divides
+    the dimension they shard (M for batch axes, K for contract axes)."""
+    rules = rules if rules is not None else DEFAULT_RULES
+    sizes = dict(mesh.shape)
+
+    def live(axes, dim):
+        kept = []
+        span = 1
+        for ax in axes:
+            sz = sizes.get(ax, 1)
+            if sz > 1 and dim % (span * sz) == 0:
+                kept.append(ax)
+                span *= sz
+        return tuple(kept)
+
+    return ScShardRules(batch=live(tuple(rules.batch), m),
+                        contract=live(tuple(rules.contract), k))
+
+
+def _axis_span(mesh, axes) -> int:
+    sizes = dict(mesh.shape)
+    return math.prod(sizes[a] for a in axes) if axes else 1
+
+
+def shard_counts(mesh, m: int, k: int,
+                 rules: ScShardRules | None = None) -> tuple:
+    """(batch shards, contract shards) a call would actually split into."""
+    r = resolve_rules(mesh, m, k, rules)
+    return _axis_span(mesh, r.batch), _axis_span(mesh, r.contract)
+
+
+def _coord(mesh, axes) -> int:
+    """This rank's row-major block index over ``axes``."""
+    c = 0
+    for ax in axes:
+        c = c * mesh.shape[ax] + mesh.coords[ax]
+    return c
+
+
+def _gather(t, mesh, axes):
+    """Every rank's ``t`` along ``axes``, stacked in block order:
+    ``(span, *t.shape)``.  One integer SUM over zero-padded slots per
+    axis, minor axis first, so the bits are copied exactly."""
+    out = t.contiguous().view(torch.int32)[None]
+    for ax in reversed(axes):
+        n = mesh.shape[ax]
+        buf = torch.zeros((n, *out.shape), dtype=torch.int32,
+                          device=out.device)
+        buf[mesh.coords[ax]] = out
+        dist.all_reduce(buf, group=mesh.group(ax))
+        out = buf.reshape(n * out.shape[0], *out.shape[1:])
+    return out.view(t.dtype)
+
+
+def _sharded_dispatch(key, x2, w, cfg, *, mesh, rules):
+    """This rank's block through the registry's dispatch, then the SUM
+    over the contract axes and the gather over the batch axes."""
+    m, k = x2.shape
+    rows = m // _axis_span(mesh, rules.batch)
+    cols = k // _axis_span(mesh, rules.contract)
+    b, c = _coord(mesh, rules.batch), _coord(mesh, rules.contract)
+    xs = x2[b * rows:(b + 1) * rows, c * cols:(c + 1) * cols]
+    ws = w[c * cols:(c + 1) * cols]
+    for ax in rules.batch + rules.contract:
+        key = ctr_rng.fold_in(key, mesh.coords[ax])
+    y = _dispatch(key, xs, ws, cfg)
+    if rules.contract:
+        parts = _gather(y, mesh, rules.contract)
+        y = parts[0]
+        for p in parts[1:]:  # coordinate order, as XLA's psum adds
+            y = y + p
+    if rules.batch:
+        y = _gather(y, mesh, rules.batch).reshape(m, -1)
+    return y
+
+
+def sc_dot_sharded(key, x, w, cfg: ScConfig = ScConfig(), *, mesh,
+                   rules: ScShardRules | None = None):
+    """``x @ w`` through the SC substrate, sharded over ``mesh``.
+
+    x: (..., K) float32; w: (K, N) float32, both whole on every rank;
+    returns (..., N) float32, whole on every rank, exactly like
+    ``sc_dot``.  Leading dims of ``x`` flatten to M, which shards over
+    ``rules.batch``; K shards over ``rules.contract``.  When no axis
+    survives :func:`resolve_rules` this is ``sc_dot(key, x, w, cfg)``.
+    """
+    lead = x.shape[:-1]
+    k_dim = x.shape[-1]
+    m = math.prod(lead) if lead else 1
+    r = resolve_rules(mesh, m, k_dim, rules)
+    if not r.batch and not r.contract:
+        return sc_dot(key, x, w, cfg)
+    n_shards = _axis_span(mesh, r.batch) * _axis_span(mesh, r.contract)
+    dispatch = functools.partial(_sharded_dispatch, mesh=mesh, rules=r)
+    with shard_scope(n_shards):
+        y = _StraightThrough.apply(x.reshape(m, k_dim), w, key, cfg,
+                                   dispatch)
+    return y.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Ambient mesh scope — what makes dense() route here with no caller changes
+# ---------------------------------------------------------------------------
+
+_MESH_STACK: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: ScShardRules | None = None):
+    """Scope within which ``models.layers.dense`` routes every one-key
+    stochastic matmul through :func:`sc_dot_sharded` on ``mesh``."""
+    _MESH_STACK.append((mesh, rules))
+    try:
+        yield mesh
+    finally:
+        _MESH_STACK.pop()
+
+
+def active_mesh():
+    """(mesh, rules) of the innermost :func:`use_mesh`, or ``None``."""
+    return _MESH_STACK[-1] if _MESH_STACK else None
+
+
+# ---------------------------------------------------------------------------
+# Shard multiplicity scope — read by the `array` backend's trace records
+# ---------------------------------------------------------------------------
+
+_SHARD_COUNT: list = [1]
+
+
+@contextlib.contextmanager
+def shard_scope(n: int):
+    """Mark that ``sc_dot`` dispatches inside run as one of ``n``
+    concurrent mesh shards: the ``array`` backend stamps each CallRecord
+    with this multiplicity (its shape is one shard's), so the accountant
+    merges the shards as concurrent banks, and multiplies the fault
+    census by it."""
+    _SHARD_COUNT.append(n)
+    try:
+        yield
+    finally:
+        _SHARD_COUNT.pop()
+
+
+def current_shard_count() -> int:
+    return _SHARD_COUNT[-1]

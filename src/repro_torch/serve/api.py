@@ -17,8 +17,11 @@ Port of ``repro.serve.api``.
 
 ``validate`` rejects the reference's invalid combinations with
 ``ValueError``.  ``chaos`` validates: ``launch/serve.py`` acts on it
-with a 2-shard fleet.  ``mesh`` (sharded serving) is not ported and
-raises ``NotImplementedError`` naming its ROADMAP item.
+with a 2-shard fleet.  ``mesh`` validates too: the launcher builds the
+device mesh (``launch.mesh.make_local_mesh(model_parallel)``) and
+passes it with its SC rules to ``build_engine(..., mesh=,
+shard_rules=)``, which shards every SC call of the fixed-slot engine
+over it.
 
     from repro_torch.serve import ServeOptions, build_engine
     engine = build_engine(params, cfg, ServeOptions(paged=True),
@@ -97,12 +100,12 @@ class ServeOptions:
     )
     mesh: bool = _opt(
         False,
-        "shard the SC substrate over a device mesh (fixed-slot engine "
-        "only; not ported: ROADMAP queue 1 item 10)",
-        cli=False,
+        "shard the SC substrate over a device mesh of the torchrun "
+        "world's ranks (slots map to data shards; needs a stochastic "
+        "--arch sc_backend; fixed-slot engine only)",
     )
     model_parallel: int = _opt(
-        1, "model axis size of the mesh (--mesh)", cli=False
+        1, "model axis size of the mesh (--mesh)"
     )
     fault_profile: str = _opt(
         "",
@@ -122,8 +125,7 @@ class ServeOptions:
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
-        """Raise ``ValueError`` on knob combinations that cannot serve,
-        ``NotImplementedError`` on ``mesh`` (not ported)."""
+        """Raise ``ValueError`` on knob combinations that cannot serve."""
         if self.paged and self.mesh:
             raise ValueError(
                 "paged and mesh are mutually exclusive (the paged engine "
@@ -147,11 +149,6 @@ class ServeOptions:
                 f"{self.rng_mode!r}"
             )
         self.resolve_profile()  # raises ValueError on unknown names
-        if self.mesh:
-            raise NotImplementedError(
-                "ServeOptions mesh (sharded serving) is not ported yet "
-                "(ROADMAP queue 1 item 10)"
-            )
 
     def resolve_profile(self) -> physics.DeviceProfile | None:
         """``fault_profile`` as a DeviceProfile (None when unset; an
@@ -210,6 +207,8 @@ def build_engine(
     device=None,
     metrics=None,
     tracer=None,
+    mesh=None,
+    shard_rules=None,
 ):
     """THE serve-engine constructor: options -> the right engine.
 
@@ -217,7 +216,8 @@ def build_engine(
     ``device="cpu"``) holds the caches and runs every step; the
     parameters must already lie there.  ``collect_arch_trace`` installs
     an arch trace collector when the model runs on ``array``
-    (``engine.arch_report()``).
+    (``engine.arch_report()``).  ``mesh`` / ``shard_rules`` ride along
+    to the fixed-slot engine, which shards every SC call over the mesh.
     """
     from repro_torch.serve import engine as engine_mod
 
@@ -269,6 +269,9 @@ def build_engine(
                 eos_id=options.eos_id,
                 seed=options.seed,
             )
-            engine = engine_mod.ServingEngine(params, cfg, scfg, **build)
+            engine = engine_mod.ServingEngine(
+                params, cfg, scfg, mesh=mesh, shard_rules=shard_rules,
+                **build
+            )
     engine.device_profile = profile
     return engine

@@ -14,7 +14,9 @@ telemetry and ``health_snapshot``):
   substrate every call draws from one engine-level key chain
   (``_next_key``): one key per admission prefill, per sampled admission,
   per decode tick, and per tick in which a slot samples, in the
-  reference's order, so each SC call draws the reference's bits.
+  reference's order, so each SC call draws the reference's bits.  On a
+  device mesh (``mesh=``) each rank runs the same engine and every SC
+  call splits over the ranks (``sc.sc_dot_sharded``).
 * :class:`PagedServingEngine` — continuous batching over a block-pool
   paged KV cache with chunked prefill, eviction-on-OOM, and per-request
   rng.  ``step()`` is a thin loop over ``scheduler.Scheduler``: plan →
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 import warnings
 
@@ -268,6 +271,14 @@ class ServingEngine(_ArchTracedEngine):
     and ``finished`` are plain lists; ``lengths`` and ``last_token`` are
     host lists of ints, one per slot, moved to the device once per
     call.
+
+    With a ``mesh`` (``launch.mesh.make_local_mesh``; ``shard_rules``
+    from ``sharding.sc_shard_rules``) on a stochastic substrate, every
+    prefill and decode step runs under ``sc.use_mesh``: each one-key SC
+    call splits over the mesh's ranks (``sc.sc_dot_sharded``), while the
+    parameters, the cache and the scheduler stay whole on every rank,
+    which runs the same requests and ends with the same tokens.  The
+    slots must be a multiple of the rules' batch span.
     """
 
     def __init__(
@@ -278,6 +289,8 @@ class ServingEngine(_ArchTracedEngine):
         *,
         device,
         collect_arch_trace: bool = False,
+        mesh=None,
+        shard_rules=None,
         metrics=None,
         tracer=None,
     ):
@@ -286,7 +299,19 @@ class ServingEngine(_ArchTracedEngine):
         self.cfg = cfg
         self.scfg = scfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.shard_rules = shard_rules
         self._stochastic_substrate = cfg.sc_backend != "exact"
+        if mesh is not None and self._stochastic_substrate:
+            batch_axes = (shard_rules or sc.DEFAULT_RULES).batch
+            sizes = dict(mesh.shape)
+            dp = math.prod(sizes.get(a, 1) for a in batch_axes)
+            if dp > 1 and scfg.slots % dp != 0:
+                raise ValueError(
+                    f"slots={scfg.slots} must be a multiple of the rules' "
+                    f"batch span {dp} on this mesh so slots map onto "
+                    f"mesh shards"
+                )
         self.cache = lm.init_cache(
             cfg, scfg.slots, scfg.max_len, device=self.device
         )
@@ -312,6 +337,14 @@ class ServingEngine(_ArchTracedEngine):
         self._g_active = m.gauge(
             "serve_active_requests", "requests holding a slot"
         )
+
+    def _substrate_scope(self):
+        """The mesh scope entered around prefill and decode, so that
+        ``dense`` routes every one-key SC call through
+        ``sc.sc_dot_sharded``."""
+        if self.mesh is not None and self._stochastic_substrate:
+            return sc.use_mesh(self.mesh, self.shard_rules)
+        return contextlib.nullcontext()
 
     def _next_key(self):
         """The next key of the engine's chain, on the device."""
@@ -352,13 +385,14 @@ class ServingEngine(_ArchTracedEngine):
                 continue
             req = self.queue.pop(0)
             rng = self._next_key() if self._stochastic_substrate else None
-            logits, cache1, _ = lm.prefill(
-                self.params,
-                self._tensor([req.prompt]),
-                self.cfg,
-                self.scfg.max_len,
-                rng=rng,
-            )
+            with self._substrate_scope():
+                logits, cache1, _ = lm.prefill(
+                    self.params,
+                    self._tensor([req.prompt]),
+                    self.cfg,
+                    self.scfg.max_len,
+                    rng=rng,
+                )
             tok = self._sample_slots(logits, [req.temperature])[0]
             req.generated.append(tok)
             self.active[slot] = req
@@ -398,14 +432,15 @@ class ServingEngine(_ArchTracedEngine):
             return False
         self._m_ticks.inc(kind="decode")
         rng = self._next_key() if self._stochastic_substrate else None
-        logits, self.cache = lm.decode_step(
-            self.params,
-            self.cache,
-            self._tensor(self.last_token),
-            self._tensor(self.lengths),
-            self.cfg,
-            rng=rng,
-        )
+        with self._substrate_scope():
+            logits, self.cache = lm.decode_step(
+                self.params,
+                self.cache,
+                self._tensor(self.last_token),
+                self._tensor(self.lengths),
+                self.cfg,
+                rng=rng,
+            )
         for slot, req in enumerate(self.active):
             self.lengths[slot] += req is not None
         temps = [0.0 if r is None else r.temperature for r in self.active]

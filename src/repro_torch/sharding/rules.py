@@ -1,0 +1,110 @@
+"""Logical-axis -> mesh-axis sharding rules (FSDP x TP x EP x SP).
+
+Port of ``repro.sharding.rules``.  The mesh is ``(data, model)``, with an
+optional leading ``pod`` axis (pure data parallelism across pods).
+
+Parameter rules are FSDP ∘ TP: a weight's parallelism axis (heads / mlp
+/ experts / vocab) maps to ``model`` and its embed axis to ``data``;
+indivisible dims replicate per tensor (``params.partition_specs``).
+Activation rules are DP on batch (pod x data), TP on heads / mlp /
+experts, and SP on the long-context cache sequence.
+
+A spec here is a tuple with one entry per dimension (a mesh axis name, a
+tuple of them, or None), what the reference's ``PartitionSpec`` holds.
+The serving half of the port reads :func:`sc_shard_rules` only: the
+mesh engine shards each SC contraction and replicates every parameter
+and cache, as the reference's does.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models import params as params_lib
+
+# Parameter logical axes.
+PARAM_RULES = {
+    "embed": "data",  # FSDP shard dimension
+    "vocab": "model",
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": "model",  # falls back to replicated when indivisible
+    "head_dim": None,
+    "kv_embed": "model",  # KV proj: TP moves to embed when kv_heads small
+    "experts": "model",
+    "expert_mlp": None,  # expert-internal FFN dim (EP owns model)
+    "layers": None,  # stacked leading layer axis: never sharded
+    "ssm_state": None,
+    "ssm_inner": "model",
+    "conv": None,
+    None: None,
+}
+
+# Activation logical axes.
+ACT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    # Megatron-style sequence parallelism of the residual stream between
+    # layers; indivisible lengths replicate per tensor.
+    "resid_seq": "model",
+    "cache_seq": "data",  # SP: long-context KV cache sharded over data
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "vocab": "model",
+    "ssm_inner": "model",
+    "ssm_state": None,
+    None: None,
+}
+
+
+def logical_rules(mesh, kind: str = "param") -> dict:
+    """Rules dict + mesh axis sizes (so indivisible dims can replicate)."""
+    base = dict(PARAM_RULES if kind == "param" else ACT_RULES)
+    sizes = dict(mesh.shape)
+    if "pod" not in sizes and kind == "act":
+        # single-pod mesh: the batch rule must not name the pod axis
+        base["batch"] = "data"
+    base["__sizes__"] = sizes
+    return base
+
+
+def param_partition_specs(specs, mesh):
+    return params_lib.partition_specs(specs, logical_rules(mesh, "param"))
+
+
+def sc_shard_rules(mesh, *, batch=None, contract=None):
+    """SC-substrate sharding rules adapted to ``mesh``: rows over the DP
+    axes (``("pod", "data")``), the contraction over the TP axis
+    (``"model"``) with a SUM merge.  Axes absent from the mesh are
+    dropped here; size-1 and indivisible axes degrade per call inside
+    ``sc_dot_sharded``."""
+    from repro_torch.sc.sharded import DEFAULT_RULES, ScShardRules
+
+    sizes = dict(mesh.shape)
+    batch = tuple(batch if batch is not None else DEFAULT_RULES.batch)
+    contract = tuple(
+        contract if contract is not None else DEFAULT_RULES.contract
+    )
+    return ScShardRules(
+        batch=tuple(a for a in batch if a in sizes),
+        contract=tuple(a for a in contract if a in sizes),
+    )
+
+
+def act_spec(mesh, *axes) -> tuple:
+    """An activation's spec from logical axis names."""
+    rules = logical_rules(mesh, "act")
+    sizes = rules["__sizes__"]
+    entries = []
+    for ax in axes:
+        mesh_ax = rules.get(ax)
+        if isinstance(mesh_ax, tuple):
+            mesh_ax = tuple(a for a in mesh_ax if a in sizes) or None
+            if mesh_ax is not None and len(mesh_ax) == 1:
+                mesh_ax = mesh_ax[0]  # as PartitionSpec normalizes it
+        elif mesh_ax is not None and mesh_ax not in sizes:
+            mesh_ax = None
+        entries.append(mesh_ax)
+    return tuple(entries)

@@ -128,9 +128,22 @@ def test_serving_exact_fused_greedy_tokens_match_reference():
     ],
 )
 def test_unported_options_raise_not_implemented(kw):
+    """``mesh`` was the last serve option left unported: it now builds the
+    fixed-slot engine, which shards over the mesh the caller passes (the
+    launcher makes one; with none it serves unsharded, as the
+    reference's does).  The trainer's mesh path is what still raises,
+    naming its ROADMAP item."""
+    from repro_torch.models import lm as tlm
+    from repro_torch.serve import ServingEngine
+    from repro_torch.train import TrainConfig, make_train_step
+
     cfg = torch_smoke("qwen2-0.5b")
+    gen = torch.Generator().manual_seed(0)
+    params = tparams.init_params(tlm.lm_param_specs(cfg), gen, "cpu")
+    eng = torch_build(params, cfg, TorchOptions(**kw), device="cpu")
+    assert isinstance(eng, ServingEngine) and eng.mesh is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_build({}, cfg, TorchOptions(**kw), device="cpu")
+        make_train_step(cfg, TrainConfig(), mesh=object())
 
 
 def test_sample_rows_greedy_and_gumbel_max_statistics():

@@ -86,9 +86,11 @@ def test_validate_accepts_what_the_reference_accepts(good):
 
 
 def test_mesh_alone_is_not_ported():
+    """``mesh`` alone validates in both packages now that the sharded
+    substrate is ported (``tests/test_torch_sharded.py`` serves on it)."""
     JaxOptions(mesh=True).validate()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServeOptions(mesh=True).validate()
+    ServeOptions(mesh=True).validate()
+    ServeOptions(mesh=True, model_parallel=2).validate()
 
 
 def test_options_have_the_reference_fields_and_defaults():
@@ -122,8 +124,9 @@ def test_cli_flags_are_the_reference_flags_without_mesh():
 
     want = flags(jax_add_cli_args)
     got = flags(add_cli_args)
-    assert got == {k: v for k, v in want.items()
-                   if k not in ("--mesh", "--model-parallel")}
+    # --mesh / --model-parallel are ported too: the flags are the same
+    assert {"--mesh", "--model-parallel"} <= set(got)
+    assert got == want
 
 
 def test_build_engine_selects_engine_class(setup):

@@ -2,13 +2,15 @@
 attention shapes, for a checkout given by its ``src`` directory.
 
     python3 tools/paged_attention_bench.py [--src DIR] [--tag NAME]
+                                           [--heads qwen|moe|hyb]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 so the same inputs can time an unpacked parent tree and this one in
 turns (parent, change, change, parent: one process each).  The shapes,
 inputs, timers and the SDPA yardstick are ``chip_smoke.py``'s
 (``ATTN_CASES``, ``_attn_inputs``, ``time_ms``, ``device_trace``,
-``_sdpa_ms``).  Prints the card's name and power limit, then one JSON
+``_sdpa_ms``); ``--heads moe`` / ``hyb`` take phase M's / H's heads and
+cases (``MOE_ATTN_CASES``, ``HYB_ATTN_CASES``) instead of qwen2-0.5b's.  Prints the card's name and power limit, then one JSON
 line per (shape, kernel): the median CUDA-event ms of a call of
 ``paged_attention_fused`` (exact QK^T) or ``paged_attention_fused_sc``
 (nbit 1024), the device ms and launches of its ``paged_attn`` kernels in
@@ -48,6 +50,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--heads", choices=("qwen", "moe", "hyb"),
+                    default="qwen")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # puts this checkout's src first on the path
@@ -66,9 +70,15 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    for case, sc, lengths, nb in cs.ATTN_CASES:
+    cases, heads = {
+        "qwen": (cs.ATTN_CASES, cs.QWEN_HEADS),
+        "moe": (cs.MOE_ATTN_CASES, cs.MOE_HEADS),
+        "hyb": (cs.HYB_ATTN_CASES, cs.HYB_HEADS),
+    }[args.heads]
+    for case, sc, lengths, nb in cases:
         rng = np.random.default_rng(2)
-        keys, q, kp, vp, bt, ln = cs._attn_inputs(rng, sc, lengths, nb)
+        keys, q, kp, vp, bt, ln = cs._attn_inputs(rng, sc, lengths, nb,
+                                                  heads=heads)
         calls = {
             "paged_attention_fused": (
                 lambda: pa.paged_attention_fused(q, kp, vp, bt, ln)),
