@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port's paged and fixed-slot SC serving paths,
 its serve-fleet failover, serving on a device mesh of 4 ranks, the
 paper's cell model, MoE, SSM and hybrid
-serving, its trainer (dense, SSM, hybrid and audio), and its validation /
-faulty-device path on one GPU.
+serving, its trainer (dense, SSM, hybrid and audio; and on a device mesh
+of 4 ranks), and its validation / faulty-device path on one GPU.
 
     python3 chip_smoke.py [--layers N] [--moe-layers N] [--ssm-layers N]
                           [--hybrid-groups N] [--audio-layers N]
@@ -127,6 +127,27 @@ code is non-zero):
    (1e-4); with the grid on, the independent runs through
    ``launch/train.py`` (held within 1e-4 for paper-sc, printed for the
    families);
+   train phase TM (after T): training on a device mesh.  TM-d, in this
+   process (a world of one): ``make_train_step(cfg, tcfg,
+   make_local_mesh())`` against the single-device step on T's model,
+   batch and optimizer, 2 steps: losses and every leaf bit for bit, and
+   the losses T's.  Then 4 ranks of this script under ``torchrun``
+   (``--tm-rank DIR``), sharing the card over gloo: TM-a, qwen2-0.5b at
+   full width, depth ``--layers``, float32, ``pallas_moment`` nbit 1024,
+   remat, global batch 8 x 64 on a data 2 x model 2 mesh, 3 steps (each
+   rank its 4 rows, each SC call its K half and a SUM over the model
+   pair, the gradient all-reduced over the data pair): every rank's
+   step ms, peak memory, the gradient all-reduce's and the SC merges'
+   shares of a step (tracer spans, the device synchronised around
+   each), the bytes all-reduced, kernel 5's launches a step against
+   ``kernel5_plan`` at a rank's rows and K blocks, and an exact
+   checksum of every parameter and optimizer leaf after each step,
+   equal on every rank; TM-b, the SMOKE trainer on the same mesh, card
+   against CPU (the ranks' CPU mesh, plain versions) with the operand
+   grid off: losses and gradient leaves within 1e-4; TM-c, pod 2 x data
+   1 x model 2 with ``cross_pod_compress``, 2 steps: equal finite losses
+   and residuals on every rank, the residual non-zero with a leading
+   pod dim of 2;
 8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
    decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
    kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
@@ -185,7 +206,8 @@ code is non-zero):
 14. the kernels line and the device line.
 
 Launch counts are reset just before phases A, B, P, F, FT, FM (the
-world of one, and in each rank), T, TS, TH, TA, V, D, C, M, S and H and
+world of one, and in each rank), T, TM (in each rank), TS, TH, TA, V,
+D, C, M, S and H and
 read just after each; a kernel of a phase's
 path that did not launch fails the run.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -1094,6 +1116,12 @@ SC_MAC_TRAIN_SHAPES = (
     ("ta_mlp_wi", 512, 2048, 8192, False, False),
     ("ta_mlp_wo", 512, 8192, 2048, False, False),
     ("ta_frontend_proj", 512, 2048, 2048, False, False),
+    # phase TM: a rank's blocks on the data 2 x model 2 mesh (4 of the
+    # 8 x 64 rows, half of K)
+    ("tm_unembed", 256, 448, 151936, True, False),
+    ("tm_mlp_wi", 256, 448, 9728, False, False),
+    ("tm_mlp_wo", 256, 2432, 896, False, False),
+    ("tm_wq", 256, 448, 896, False, False),
 )
 
 
@@ -2072,26 +2100,27 @@ def mesh_world_one(params, cfg, prompts, tokens_f) -> dict:
     return counts
 
 
-def _run_ranks(outdir: str, layers: int) -> float:
-    """Start FM_RANKS ranks of this script under ``torchrun`` and wait
-    for them (seconds); on failure or timeout, end them all and raise
-    with the end of their output."""
+def _run_ranks(outdir: str, layers: int, *, flag: str = "--fm-rank",
+               what: str = "serve_fm", timeout: int = FM_TIMEOUT) -> float:
+    """Start FM_RANKS ranks of this script under ``torchrun`` (each
+    entering ``flag``) and wait for them (seconds); on failure or
+    timeout, end them all and raise with the end of their output."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={FM_RANKS}", os.path.abspath(__file__),
-           "--fm-rank", outdir, "--layers", str(layers)]
+           flag, outdir, "--layers", str(layers)]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=FM_TIMEOUT)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         out, _ = proc.communicate()
-        raise AssertionError(f"serve_fm: ranks ran past {FM_TIMEOUT} s:\n"
+        raise AssertionError(f"{what}: ranks ran past {timeout} s:\n"
                              f"{out[-6000:]}") from None
     if proc.returncode != 0:
-        raise AssertionError(f"serve_fm: ranks failed "
+        raise AssertionError(f"{what}: ranks failed "
                              f"({proc.returncode}):\n{out[-6000:]}")
     return time.perf_counter() - t0
 
@@ -2551,7 +2580,7 @@ def step_parts(state, cfg, tcfg) -> dict:
 FAMILY_STEPS = 3  # steps a family phase trains
 
 
-def kernel5_plan(cfg, batch: int, seq: int) -> dict:
+def kernel5_plan(cfg, batch: int, seq: int, model_parallel: int = 1) -> dict:
     """Kernel-5 and split-K launches of one ``pallas_moment`` training
     step, derived from the code before the run.  Each site of
     ``arch.dense_workload`` is one ``sc_dot`` or ``sc_dot_rows`` call,
@@ -2560,7 +2589,9 @@ def kernel5_plan(cfg, batch: int, seq: int) -> dict:
     recomputes every backbone layer and shared invocation (twice), the
     frontend's projection runs once (outside the checkpoints), and each
     loss chunk twice (its checkpoint).  A call launches
-    ``sc_mac_reduce`` once where ``sc_mac_plan`` splits its K."""
+    ``sc_mac_reduce`` once where ``sc_mac_plan`` splits its K.  On a
+    mesh, ``batch`` is a rank's rows and a site's K is its block over
+    ``model_parallel`` ranks wherever they divide it."""
     from repro_torch.arch import dense_workload
     from repro_torch.kernels import sc_mac as km
     from repro_torch.models import lm
@@ -2578,7 +2609,10 @@ def kernel5_plan(cfg, batch: int, seq: int) -> dict:
             calls, m = 1, tokens
         else:
             calls, m = site.count * remat, tokens
-        k4 = max(4, -(-site.k // 4) * 4)
+        k = site.k
+        if k % model_parallel == 0:
+            k //= model_parallel
+        k4 = max(4, -(-k // 4) * 4)
         plan["sc_mac_fused"] += calls
         if km.sc_mac_plan(m, site.n, k4)[0] > 1:
             plan["sc_mac_reduce"] += calls
@@ -2860,6 +2894,333 @@ def family_train_phase(tag: str, arch: str, layers: int, batch: int,
     if not all(math.isfinite(v) for v in losses + [alt_loss]):
         raise AssertionError(f"train_{tag}: a loss is not finite: {losses}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase TM: training on a device mesh (4 ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+TM_RANKS = 4
+TM_MODEL_PARALLEL = 2  # a data 2 x model 2 mesh
+TM_BATCH, TM_SEQ = 8, 64  # phase T's global batch
+TM_STEPS = 3
+TM_COMPRESS_STEPS = 2
+TM_SMOKE_STEPS = 2
+TM_TIMEOUT = 600  # s, the 4-rank launch's limit
+# phase T's optimizer (launch/train.py --steps 4): TM-d is held to T's
+# losses
+TM_ADAM = dict(lr=1e-3, total_steps=4, warmup_steps=1)
+
+
+def _tm_cfg(layers: int):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-0.5b").replace(
+        n_layers=layers, sc_backend="pallas_moment",
+        param_dtype=torch.float32, act_dtype=torch.float32)
+    if cfg.remat != "full" or cfg.sc_nbit != 1024:
+        raise AssertionError(f"train_tm: remat {cfg.remat}, nbit "
+                             f"{cfg.sc_nbit}")
+    return cfg
+
+
+def _tm_batch(cfg, step: int, batch: int = TM_BATCH, seq: int = TM_SEQ):
+    from repro_torch.data import SyntheticLMData, make_batch
+
+    return make_batch(SyntheticLMData(cfg.vocab, seq, batch, seed=0), step)
+
+
+def state_checksums(state) -> list:
+    """An exact checksum of every leaf of ``state`` (the sum of its bits
+    as integers), in sorted-key order: equal lists mean equal bits but
+    for a cancellation no float rounding can make."""
+    from repro_torch.models.params import _leaves
+
+    out = []
+    for _, t in _leaves(state):
+        t = t.detach().contiguous()
+        if t.is_floating_point():
+            t = t.view(torch.int32) if t.element_size() == 4 else \
+                t.view(torch.int16)
+        out.append(int(t.to(torch.int64).sum()))
+    return out
+
+
+def _span_totals(tracer, names) -> dict:
+    """Seconds and bytes of the tracer's spans by name, then cleared."""
+    out = {n: {"s": 0.0, "bytes": 0, "count": 0} for n in names}
+    for sp in tracer.spans:
+        if sp.name in out:
+            out[sp.name]["s"] += sp.dur_ns / 1e9
+            out[sp.name]["bytes"] += int(sp.attrs.get("bytes", 0))
+            out[sp.name]["count"] += 1
+    tracer.spans.clear()
+    return out
+
+
+def tm_steps(mesh, cfg, tcfg, steps: int, state=None) -> dict:
+    """``steps`` mesh train steps from seed 0's weights (or ``state``):
+    each step's loss, ms (the ranks start it together), the collective
+    spans and every leaf's checksum after it."""
+    import torch.distributed as dist
+
+    from repro_torch.obs.trace import Tracer, install_tracer, uninstall_tracer
+    from repro_torch.train import make_train_step, train_state_init
+
+    if state is None:
+        state = train_state_init(0, cfg, tcfg, device=mesh.device)
+    step = make_train_step(cfg, tcfg, mesh)
+    tracer = install_tracer(Tracer())
+    rec = {"loss": [], "ms": [], "spans": [], "checksums": []}
+    try:
+        for i in range(steps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, _tm_batch(cfg, i))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["loss"].append(loss)
+            rec["spans"].append(_span_totals(
+                tracer, ("train.grad_allreduce", "sc.merge",
+                         "train.pod_exchange", "train.ef_exchange")))
+            rec["checksums"].append(state_checksums(state))
+    finally:
+        uninstall_tracer(tracer)
+    rec["state"] = state
+    return rec
+
+
+def tm_smoke(mesh_cuda, mesh_cpu) -> dict:
+    """Phase TM-b (in every rank): the SMOKE trainer on the 2 x 2 mesh,
+    card against CPU with the operand grid off on both (the plain
+    versions on the CPU, through the same world): each step's loss and
+    every gradient leaf from the card's state on both devices (1e-4),
+    and the independent runs' losses (1e-4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        TrainConfig,
+        make_train_step,
+        train_state_init,
+    )
+
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        param_dtype=torch.float32, act_dtype=torch.float32,
+        sc_backend="pallas_moment")
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM))
+    step_card = make_train_step(cfg, tcfg, mesh_cuda)
+    step_cpu = make_train_step(cfg, tcfg, mesh_cpu)
+    card = train_state_init(0, cfg, tcfg, device=mesh_cuda.device)
+    host = train_state_init(0, cfg, tcfg, device="cpu")
+    rec = {"card": [], "cpu_same_state": [], "cpu": [], "grads": []}
+    with operand_grid_off():
+        for i in range(TM_SMOKE_STEPS):
+            batch = _tm_batch(cfg, i, 8, 16)
+            before = tree_map(lambda t: t.cpu(), card)
+            l_same, g_same, _ = step_cpu.loss_and_grads(before, batch)
+            _, g_card, _ = step_card.loss_and_grads(card, batch)
+            card, m = step_card(card, batch)
+            host, m_host = step_cpu(host, batch)
+            rec["card"].append(float(m["loss"]))
+            rec["cpu_same_state"].append(float(l_same))
+            rec["cpu"].append(float(m_host["loss"]))
+            rec["grads"].append(_leaf_gap(g_card, g_same))
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    rec["same_state_max_rel"] = rel(rec["card"], rec["cpu_same_state"])
+    rec["trajectory_max_rel"] = rel(rec["card"], rec["cpu"])
+    rec["ok"] = bool(rec["same_state_max_rel"] <= 1e-4
+                     and rec["trajectory_max_rel"] <= 1e-4
+                     and max(g for _, g in rec["grads"]) <= 1e-4)
+    return rec
+
+
+def tm_rank(outdir: str, layers: int) -> int:
+    """One rank of phase TM, started by :func:`train_mesh_phase` under
+    ``torchrun``: TM-a (qwen2-0.5b at full width, depth ``layers``, on
+    the data 2 x model 2 mesh, TM_STEPS steps), TM-b (the SMOKE trainer
+    on the same mesh, card against CPU) and TM-c (pod 2 x data 1 x
+    model 2 with the cross-pod compression).  Writes ``tm_rank<r>.json``
+    in ``outdir``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_error_feedback
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import DeviceMesh, make_local_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, train_state_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tm_cfg(layers)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM))
+    mesh = make_local_mesh(TM_MODEL_PARALLEL)
+    rec = dict(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
+               mesh=mesh.shape, coords=mesh.coords)
+    t_init = time.perf_counter()
+    state = train_state_init(0, cfg, tcfg, device=mesh.device)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t_init
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    run = tm_steps(mesh, cfg, tcfg, TM_STEPS, state)
+    launches = dict(cuda_lib.launches)
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del state, run["state"]
+    torch.cuda.empty_cache()
+    rec.update(launches=launches, loss=run["loss"], step_ms=run["ms"],
+               spans=run["spans"], checksums=run["checksums"])
+
+    rec["smoke"] = tm_smoke(mesh, make_local_mesh(TM_MODEL_PARALLEL,
+                                                  device="cpu"))
+
+    pod = DeviceMesh((2, 1, 2), ("pod", "data", "model"))
+    ctcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM),
+                        cross_pod_compress=True)
+    cstate = train_state_init(0, cfg, ctcfg, device=pod.device)
+    cstate["ef"] = init_error_feedback(cstate["params"], 2)
+    crun = tm_steps(pod, cfg, ctcfg, TM_COMPRESS_STEPS, cstate)
+    ef = crun["state"]["ef"]
+    rec["compress"] = dict(
+        coords=pod.coords, loss=crun["loss"], step_ms=crun["ms"],
+        spans=crun["spans"],
+        ef_checksums=state_checksums(ef),
+        ef_max_abs=max(float(t.abs().max()) for t in tree_leaves(ef)),
+        ef_lead=sorted({t.shape[0] for t in tree_leaves(ef)}),
+    )
+    del crun, cstate, ef
+    torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"tm_rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tm_world_one(layers: int, t_losses: dict) -> dict:
+    """Phase TM-d: in this process (a world of one), the mesh step on
+    ``make_local_mesh()`` against the single-device step, 2 steps of
+    phase T's run from the same seed: losses and every leaf bit for
+    bit, and the losses phase T's."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        TrainConfig,
+        make_train_step,
+        train_state_init,
+    )
+
+    cfg = _tm_cfg(layers)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM))
+    out = {}
+    for name, mesh in (("single", None), ("mesh", make_local_mesh())):
+        state = train_state_init(0, cfg, tcfg)
+        step = make_train_step(cfg, tcfg, mesh)
+        losses = []
+        for i in range(2):
+            state, m = step(state, _tm_batch(cfg, i))
+            losses.append(float(m["loss"]))
+        out[name] = dict(loss=losses, checksums=state_checksums(state))
+        del state, step
+        torch.cuda.empty_cache()
+    rec = dict(mesh_losses=out["mesh"]["loss"],
+               single_losses=out["single"]["loss"],
+               t_losses=[t_losses[1], t_losses[2]],
+               bit_equal=out["mesh"] == out["single"])
+    emit("train_tm_world_one", **rec)
+    if not rec["bit_equal"]:
+        raise AssertionError("train_tm: the trivial mesh's step differs "
+                             "from the single-device step")
+    if rec["mesh_losses"] != rec["t_losses"]:
+        raise AssertionError(f"train_tm: the trivial mesh's losses "
+                             f"{rec['mesh_losses']} are not phase T's "
+                             f"{rec['t_losses']}")
+    return rec
+
+
+def train_mesh_phase(layers: int, card: str, t_losses: dict) -> dict:
+    """Phase TM: training on a device mesh; see the module doc."""
+    world_one = tm_world_one(layers, t_losses)
+    cfg = _tm_cfg(layers)
+    plan = kernel5_plan(cfg, TM_BATCH // (TM_RANKS // TM_MODEL_PARALLEL),
+                        TM_SEQ, model_parallel=TM_MODEL_PARALLEL)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tm_") as outdir:
+        seconds = _run_ranks(outdir, layers, flag="--tm-rank",
+                             what="train_tm", timeout=TM_TIMEOUT)
+        ranks = []
+        for r in range(TM_RANKS):
+            with open(os.path.join(outdir, f"tm_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for rec in ranks:
+        spans = rec["spans"]
+        step_s = [ms / 1e3 for ms in rec["step_ms"]]
+        ar = [s["train.grad_allreduce"]["s"] for s in spans]
+        merge = [s["sc.merge"]["s"] for s in spans]
+        rec["median_step_ms"] = float(np.median(rec["step_ms"]))
+        rec["allreduce_share"] = float(np.median(
+            [a / s for a, s in zip(ar, step_s)]))
+        rec["merge_share"] = float(np.median(
+            [a / s for a, s in zip(merge, step_s)]))
+        rec["allreduce_bytes_per_step"] = spans[0]["train.grad_allreduce"][
+            "bytes"]
+        rec["merges_per_step"] = spans[0]["sc.merge"]["count"]
+        rec["launches_per_step"] = {
+            k: rec["launches"].get(k, 0) / TM_STEPS for k in plan}
+        emit("train_tm_rank", **{k: rec[k] for k in (
+            "rank", "device", "backend", "coords", "init_s", "loss",
+            "step_ms", "median_step_ms", "allreduce_share", "merge_share",
+            "allreduce_bytes_per_step", "merges_per_step",
+            "max_memory_allocated", "launches_per_step", "smoke",
+            "compress")})
+    first = ranks[0]
+    summary = dict(
+        mesh=first["mesh"], backend=first["backend"], ranks=TM_RANKS,
+        card=card, seconds=seconds, loss=first["loss"],
+        median_step_ms=[r["median_step_ms"] for r in ranks],
+        allreduce_share=[r["allreduce_share"] for r in ranks],
+        merge_share=[r["merge_share"] for r in ranks],
+        allreduce_bytes_per_step=first["allreduce_bytes_per_step"],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        kernel5_plan=plan,
+        launches_per_step=first["launches_per_step"],
+        compress_loss=first["compress"]["loss"],
+        compress_ef_max_abs=first["compress"]["ef_max_abs"],
+        world_one=world_one,
+    )
+    emit("train_tm", **summary)
+    comp = [r["compress"] for r in ranks]
+    for ok, what in (
+        (all(r["checksums"] == first["checksums"] for r in ranks),
+         "the ranks' parameters or optimizer states differ"),
+        (all(r["loss"] == first["loss"] for r in ranks),
+         "the ranks' losses differ"),
+        (all(math.isfinite(v) for v in first["loss"]), "a loss is not "
+         "finite"),
+        (all(r["launches_per_step"] == plan for r in ranks),
+         f"kernel-5 launches a step {[r['launches_per_step'] for r in ranks]}"
+         f", planned {plan}"),
+        (all(set(r["launches"]) <= set(plan) for r in ranks),
+         "a kernel other than kernel 5 launched"),
+        (all(r["smoke"]["ok"] for r in ranks),
+         f"the SMOKE trainer differs between card and CPU: "
+         f"{[r['smoke'] for r in ranks]}"),
+        (all(c["ef_checksums"] == comp[0]["ef_checksums"] for c in comp),
+         "the ranks' error-feedback residuals differ"),
+        (all(c["loss"] == comp[0]["loss"] for c in comp)
+         and all(math.isfinite(v) for v in comp[0]["loss"]),
+         "the compressed losses differ or are not finite"),
+        (comp[0]["ef_max_abs"] > 0 and comp[0]["ef_lead"] == [2],
+         f"the residual is {comp[0]['ef_max_abs']}, leading dims "
+         f"{comp[0]['ef_lead']}"),
+    ):
+        if not ok:
+            raise AssertionError(f"train_tm: {what}")
+    return dict(summary, launches=first["launches"], ranks_detail=ranks)
 
 
 # ---------------------------------------------------------------------------
@@ -3463,12 +3824,16 @@ def main(argv=None) -> int:
                     help="phase TA's depth (<= 48)")
     # one rank of phase FM (the script starts its ranks itself)
     ap.add_argument("--fm-rank", metavar="DIR", help=argparse.SUPPRESS)
+    # one rank of phase TM
+    ap.add_argument("--tm-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     if args.fm_rank:
         return fm_rank(args.fm_rank, args.layers)
+    if args.tm_rank:
+        return tm_rank(args.tm_rank, args.layers)
     if not 1 <= args.layers <= 24:
         raise SystemExit("--layers must be in 1..24")
     if not 1 <= args.moe_layers <= 48:
@@ -3557,6 +3922,9 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = train_phase(args.layers, workdir)
+        torch.cuda.empty_cache()
+        train_tm = train_mesh_phase(
+            args.layers, card, {r["step"]: r["loss"] for r in train["steps"]})
         families = {
             "ts": family_train_phase("ts", "mamba2-370m", args.ssm_layers,
                                      4, 512, workdir),
@@ -3700,6 +4068,7 @@ def main(argv=None) -> int:
             source="src/repro_torch/csrc/sc_mac.cu",
             replaces="src/repro/kernels/sc_mac.py:101",
             launches=train["counts"].get("sc_mac_fused", 0)
+            + train_tm["launches"].get("sc_mac_fused", 0)
             + sum(f["launches"].get("sc_mac_fused", 0)
                   for f in families.values()),
             max_abs_err=mac["unembed"]["max_abs_err"],
@@ -3712,9 +4081,10 @@ def main(argv=None) -> int:
             shape="M=512 K=896 N=151936 f32 on the operand grid, w the "
             "K-major view table.T (tied unembed); max_abs_err relative to "
             "max |out|; bound 3xTF32, 5 products a pair on the grid; "
-            "launches from phases T, TS, TH and TA; train_shapes: the "
-            "family phases' shapes (ts_ / th_ / ta_), each within 1e-5 of "
-            "its plain version",
+            "launches from phases T, TM (rank 0), TS, TH and TA; "
+            "train_shapes: the family phases' shapes (ts_ / th_ / ta_) and "
+            "a rank's blocks of phase TM (tm_), each within 1e-5 of its "
+            "plain version; mesh_steps: phase TM's steps a rank",
             train_shapes={
                 case: {k: r[k] for k in ("shape", "max_abs_err", "ms",
                                          "plain_ms", "bound_ms",
@@ -3726,6 +4096,9 @@ def main(argv=None) -> int:
                                         "idle_share")}
                 for tag, f in families.items()
             },
+            mesh_steps={k: train_tm[k] for k in (
+                "median_step_ms", "launches_per_step", "kernel5_plan",
+                "allreduce_share", "merge_share")},
         ),
         dict(
             name="sc_mac_reduce",
@@ -3733,6 +4106,7 @@ def main(argv=None) -> int:
             source="src/repro_torch/csrc/sc_mac.cu",
             replaces="src/repro/kernels/sc_mac.py:101",
             launches=train["counts"].get("sc_mac_reduce", 0)
+            + train_tm["launches"].get("sc_mac_reduce", 0)
             + sum(f["launches"].get("sc_mac_reduce", 0)
                   for f in families.values()),
             max_abs_err=mac["reduce"]["max_abs_err"],

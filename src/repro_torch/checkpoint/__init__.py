@@ -1,5 +1,6 @@
 from repro_torch.checkpoint.ckpt import (  # noqa: F401
     latest_step,
     restore,
+    restore_resharded,
     save,
 )

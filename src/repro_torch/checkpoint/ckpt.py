@@ -9,6 +9,12 @@ after every leaf and the metadata are written and ``META.json`` is
 fsync'd, so :func:`latest_step` only ever sees complete directories.
 A checkpoint written by either package restores in the other.
 
+On a ``torch.distributed`` world every rank holds the whole state, so
+:func:`save` writes from rank 0 alone and the others wait at a barrier
+until the rename is done: no rank restores from, or lists, a half-written
+step.  :func:`restore_resharded` restores a checkpoint whatever mesh
+saved it and places every leaf as the current mesh says.
+
 bfloat16 leaves: numpy has no bfloat16.  The JAX package saves them
 through ``ml_dtypes``, whose ``.npy`` header reads ``'<V2'`` (raw
 2-byte words, manifest dtype ``bfloat16``); :func:`restore` reads those
@@ -26,6 +32,7 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.params import _leaves
 
@@ -45,9 +52,20 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomically write ``tree`` as step ``step``.  Returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write ``tree`` as step ``step``.  Returns the path.  In
+    a world of several ranks rank 0 writes and every rank returns after
+    the checkpoint is complete."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, tree, extra)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, final, step, tree, extra)
+
+
+def _write(ckpt_dir: str, final: str, step: int, tree, extra) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -125,3 +143,26 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None):
         node[parts[-1]] = _to_tensor(arr, entry, leaf)
     return out, meta["extra"], step
 
+
+def restore_resharded(ckpt_dir: str, tree_like, shardings,
+                      step: int | None = None):
+    """Elastic restore: :func:`restore`, then every leaf placed by the
+    matching leaf of ``shardings`` (``sharding.param_shardings``'s
+    :class:`~repro_torch.sharding.Placement` tree, built from the
+    CURRENT mesh, whatever mesh saved the checkpoint).  Every rank holds
+    each leaf whole, so placing is moving it to the rank's device.  As in
+    the reference, the leaves are placed only when ``shardings`` has as
+    many leaves as the state."""
+    tree, extra, step = restore(ckpt_dir, tree_like, step)
+    flat_t = list(_leaves(tree))
+    flat_s = [s for _, s in _leaves(shardings)]
+    if len(flat_s) == len(flat_t):
+        out: dict = {}
+        for (path, v), s in zip(flat_t, flat_s):
+            device = getattr(s, "device", None)
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = v if device is None else v.to(device)
+        tree = out
+    return tree, extra, step

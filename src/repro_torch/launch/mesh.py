@@ -30,6 +30,7 @@ silently.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -37,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.obs.trace import current_tracer
 
 
 class AbstractMesh:
@@ -154,10 +156,39 @@ def make_local_mesh(model_parallel: int = 1, *, device=None) -> DeviceMesh:
                       ("data", "model"), device=device)
 
 
+# The data-parallel axes: a batch's rows split over them, pod-major.
+BATCH_AXES = ("pod", "data")
+
+
 def mesh_axis_sizes(mesh) -> dict:
     return dict(mesh.shape)
 
 
+def batch_axes(mesh) -> tuple:
+    """The mesh's data-parallel axes of size > 1, in ``BATCH_AXES``
+    order: the axes a training batch's rows are split over."""
+    return tuple(a for a in BATCH_AXES if mesh.shape.get(a, 1) > 1)
+
+
 def data_parallel_size(mesh) -> int:
     sizes = mesh_axis_sizes(mesh)
-    return math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+    return math.prod(sizes.get(a, 1) for a in BATCH_AXES)
+
+
+@contextlib.contextmanager
+def collective_span(name: str, t: torch.Tensor, **attrs):
+    """A span of the installed tracer around a collective on ``t``.
+
+    With no tracer (or a disabled one) this is a no-op.  With one, the
+    device is synchronised first and last, so the span holds the
+    collective alone and not the work queued before it."""
+    tr = current_tracer()
+    if tr is None or not tr.enabled:
+        yield
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    with tr.span(name, **attrs):
+        yield
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)

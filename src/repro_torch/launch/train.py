@@ -1,14 +1,22 @@
 """Training launcher.
 
-Port of ``repro.launch.train`` on one device: real training of a model
-config, every matmul on the configured SC substrate, under the
-fault-tolerance supervisor with checkpointing and deterministic data.
-Parameters and activations are float32, as in the reference launcher.
-Runs on the card unless ``--device cpu`` asks for the plain versions on
-the CPU.
+Port of ``repro.launch.train``: real training of a model config, every
+matmul on the configured SC substrate, under the fault-tolerance
+supervisor with checkpointing and deterministic data, on the mesh of the
+``torchrun`` world (``launch/mesh.py:make_local_mesh``: data = world,
+model = 1; a world of one without ``torchrun``).  Every rank builds the
+global batch of each step and the train step keeps its rows
+(``train/step.py``); on a stochastic backend the step enters the
+mesh-sharded SC substrate itself.  Only rank 0 prints and writes
+checkpoints; every rank runs the supervisor, so an injected failure
+recovers on all ranks together.  Parameters and activations are
+float32, as in the reference launcher.  Runs on the card unless
+``--device cpu`` asks for the plain versions on the CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-sc \\
         --smoke --steps 2 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --smoke --steps 3 --device cpu
 
 ``--layers`` cuts the depth of the chosen config (its widths stay); an
 embeddings-frontend config (musicgen-large) trains on
@@ -27,10 +35,11 @@ import time
 
 import torch
 
-from repro_torch import checkpoint, resolve_device
+from repro_torch import checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import SyntheticLMData, make_batch, make_embedding_batch
 from repro_torch.ft import FaultInjector, Supervisor
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainConfig, make_train_step, train_state_init
 
@@ -70,7 +79,8 @@ def main(argv=None):
         "versions of the kernels)",
     )
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = make_local_mesh(device=args.device)
+    log = print if mesh.rank == 0 else (lambda *a, **k: None)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(param_dtype=torch.float32, act_dtype=torch.float32)
@@ -94,8 +104,8 @@ def main(argv=None):
         global_batch=args.batch,
         seed=args.seed,
     )
-    state = train_state_init(args.seed, cfg, tcfg, device=device)
-    step_fn = make_train_step(cfg, tcfg)
+    state = train_state_init(args.seed, cfg, tcfg, device=mesh.device)
+    step_fn = make_train_step(cfg, tcfg, mesh)
 
     def batch_fn(step):
         if cfg.frontend == "embeddings":
@@ -106,7 +116,7 @@ def main(argv=None):
     if args.resume and checkpoint.latest_step(args.ckpt_dir) is not None:
         state, extra, _ = checkpoint.restore(args.ckpt_dir, state)
         start_step = extra["data_step"]
-        print(f"resumed from step {start_step}")
+        log(f"resumed from step {start_step}")
 
     injector = None
     if args.inject_failure_at is not None:
@@ -133,7 +143,7 @@ def main(argv=None):
         )
         steps.append(rec)
         if step % 5 == 0 or step == 1:
-            print(
+            log(
                 f"step {step:5d} loss {loss:.4f} "
                 f"gnorm {rec['grad_norm']:.3f} lr {rec['lr']:.2e} "
                 f"({(time.time() - t0) / len(steps):.2f}s/step)",
@@ -149,7 +159,7 @@ def main(argv=None):
         start_step=start_step,
     )
     history["steps"] = steps
-    print(
+    log(
         f"done: first loss {history['loss'][0]:.4f} -> "
         f"last {history['loss'][-1]:.4f}; "
         f"recoveries={len(history['recoveries'])}"

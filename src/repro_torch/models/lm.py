@@ -217,16 +217,25 @@ def _embed_inputs(params, inputs, cfg, rng=None):
     return layers.embed(inputs, params["embed"]).to(cfg.act_dtype)
 
 
-def encode(params, inputs, cfg, *, rng=None):
+def encode(params, inputs, cfg, *, rng=None, constrain=None,
+           constrain_params=None):
     """Backbone pass: tokens (b, s) or frontend embeddings (b, s, d) ->
     final hidden states (b, s, d) after the last norm.  Backbone layer
     ``idx`` draws from ``fold_in(rng, idx)``, shared invocation ``j``
     from ``fold_in(rng, 10_000 + j)``.  Under ``remat="full"`` each
     backbone layer and each shared invocation is its own (non-reentrant)
     checkpoint; the shared block's parameters, a closure of each
-    invocation, get every invocation's gradient."""
+    invocation, get every invocation's gradient.
+
+    ``constrain(v, *logical_axes)`` sees the residual stream after the
+    embedding and after every layer, ``constrain_params`` each layer's
+    weights (``train.step.make_constrain`` / ``make_param_constrain``);
+    both return their input and change no value."""
+    cst = constrain or (lambda v, *a: v)
+    cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
+    x = cst(x, "batch", "resid_seq", None)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def body(xc, lp, key):
@@ -238,18 +247,22 @@ def encode(params, inputs, cfg, *, rng=None):
     body, shared = _maybe_remat(body, cfg), _maybe_remat(shared, cfg)
     for idx in range(n_backbone_layers(cfg)):
         key = layers.fold_keys(rng, idx)
-        x = body(x, _layer(params["blocks"], idx), key)
+        x = body(x, cstp(_layer(params["blocks"], idx)), key)
         inv = _shared_after(cfg, idx)
         if inv is not None:
             x = shared(x, layers.fold_keys(rng, SHARED_KEY_BASE + inv))
+        x = cst(x, "batch", "resid_seq", None)
     return layers.rms_norm(x, params["final_norm"])
 
 
-def forward(params, inputs, cfg, *, rng=None):
+def forward(params, inputs, cfg, *, rng=None, constrain=None,
+            constrain_params=None):
     """Full logits (b, s, vocab).  Prefer :func:`lm_loss` for training:
     it never holds the whole logits tensor."""
-    x = encode(params, inputs, cfg, rng=rng)
-    return _logits(x, params, cfg, rng)
+    cst = constrain or (lambda v, *a: v)
+    x = encode(params, inputs, cfg, rng=rng, constrain=constrain,
+               constrain_params=constrain_params)
+    return cst(_logits(x, params, cfg, rng), "batch", "seq", "vocab")
 
 
 LOSS_SEQ_CHUNK = 1024
@@ -261,7 +274,8 @@ def _chunk_nll(xi, li, params, cfg, key):
     return -torch.gather(logp, -1, li[..., None].long())[..., 0].sum()
 
 
-def lm_loss(params, batch, cfg, *, rng=None):
+def lm_loss(params, batch, cfg, *, rng=None, constrain=None,
+            constrain_params=None):
     """Causal next-token cross-entropy, sequence-chunked.
 
     The unembed, log-softmax and gather run per sequence chunk of
@@ -269,9 +283,11 @@ def lm_loss(params, batch, cfg, *, rng=None):
     recomputes each chunk's logits instead of keeping them: peak memory
     is O(chunk·vocab), not O(s·vocab).  Chunk ``i`` draws from
     ``fold_in(rng, i)``.  ``batch["inputs"]`` is tokens, or frame
-    embeddings under ``frontend="embeddings"``.
+    embeddings under ``frontend="embeddings"``.  ``constrain`` /
+    ``constrain_params`` go to :func:`encode`.
     """
-    x = encode(params, batch["inputs"], cfg, rng=rng)
+    x = encode(params, batch["inputs"], cfg, rng=rng, constrain=constrain,
+               constrain_params=constrain_params)
     labels = batch["labels"]
     b, s, _ = x.shape
     c = min(LOSS_SEQ_CHUNK, s)

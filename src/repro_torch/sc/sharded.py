@@ -15,6 +15,16 @@ splits only its own SC contraction:
   ends with the whole ``(M, N)`` product, as the reference's
   ``shard_map`` output is.
 
+Training holds only its own rows (``ScShardRules.local_rows``): rank
+(b, c) is handed row block b already, the rows of its batch shard, since
+``lm_loss`` flattens ``(batch, seq)`` batch-major; it runs the same K
+block and SUM merge, and gathers nothing, so its output is its own row
+block of the product.  Rules are resolved against the global M (the
+local M times the span of the mesh's batch axes), so a rank drops an
+axis exactly where the reference does; a call whose rules would leave a
+batch axis of the mesh unsplit would need every row on every rank, and
+raises instead of gathering.
+
 Both merges are exact copies of every rank's block (an integer SUM over
 zero-padded slots, the only collective, which gloo and NCCL both run on
 CUDA tensors), and the partial accumulations are then added in
@@ -32,7 +42,10 @@ rules naming no live axis) is exactly ``sc_dot(key, x, w, cfg)``.
 Gradients: the straight-through ``autograd.Function`` of ``sc_dot``
 wraps the whole sharded call, so the gradient is the exact-product
 jacobian of the full operands (``g @ wᵀ``, ``xᵀ @ g``), which is what
-the reference's ``psum`` transposes to.
+the reference's ``psum`` transposes to.  Under ``local_rows`` it is the
+jacobian of the rank's rows (``g_local @ wᵀ``, ``x_localᵀ @ g_local``):
+w's part is partial over the batch group, and the train step's gradient
+all-reduce completes it.
 
 ``models/layers.py:dense`` routes a one-key stochastic matmul here
 whenever a :func:`use_mesh` scope is active.
@@ -48,6 +61,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.mesh import batch_axes, collective_span
 from repro_torch.sc import ctr_rng
 from repro_torch.sc.config import ScConfig
 from repro_torch.sc.registry import _dispatch, _StraightThrough, sc_dot
@@ -62,10 +76,15 @@ class ScShardRules:
     K (the partial accumulations merge with a SUM).  Axis names that are
     absent from the mesh, have size one, or do not divide their
     dimension are dropped per call by :func:`resolve_rules`.
+
+    ``local_rows``: ``x`` holds only this rank's rows, its block over
+    the mesh's batch axes (``launch.mesh.batch_axes``), and the output
+    is its block of the product (training's data parallelism).
     """
 
     batch: tuple = ("pod", "data")
     contract: tuple = ("model",)
+    local_rows: bool = False
 
 
 DEFAULT_RULES = ScShardRules()
@@ -90,7 +109,8 @@ def resolve_rules(mesh, m: int, k: int,
         return tuple(kept)
 
     return ScShardRules(batch=live(tuple(rules.batch), m),
-                        contract=live(tuple(rules.contract), k))
+                        contract=live(tuple(rules.contract), k),
+                        local_rows=rules.local_rows)
 
 
 def _axis_span(mesh, axes) -> int:
@@ -116,38 +136,71 @@ def _coord(mesh, axes) -> int:
 def _gather(t, mesh, axes):
     """Every rank's ``t`` along ``axes``, stacked in block order:
     ``(span, *t.shape)``.  One integer SUM over zero-padded slots per
-    axis, minor axis first, so the bits are copied exactly."""
-    out = t.contiguous().view(torch.int32)[None]
+    axis, minor axis first, so the bits are copied exactly (float32
+    through its int32 view, integer tensors in their own type)."""
+    word = t.dtype if not t.is_floating_point() else torch.int32
+    out = t.contiguous().view(word)[None]
     for ax in reversed(axes):
         n = mesh.shape[ax]
-        buf = torch.zeros((n, *out.shape), dtype=torch.int32,
-                          device=out.device)
+        if n == 1:
+            continue
+        buf = torch.zeros((n, *out.shape), dtype=word, device=out.device)
         buf[mesh.coords[ax]] = out
         dist.all_reduce(buf, group=mesh.group(ax))
         out = buf.reshape(n * out.shape[0], *out.shape[1:])
     return out.view(t.dtype)
 
 
+def sum_in_order(parts):
+    """``parts[0] + parts[1] + ...`` in coordinate order, as XLA's
+    ``psum`` adds on the reference's CPU devices."""
+    y = parts[0]
+    for p in parts[1:]:
+        y = y + p
+    return y
+
+
 def _sharded_dispatch(key, x2, w, cfg, *, mesh, rules):
     """This rank's block through the registry's dispatch, then the SUM
-    over the contract axes and the gather over the batch axes."""
+    over the contract axes and (unless the rows are local) the gather
+    over the batch axes."""
     m, k = x2.shape
-    rows = m // _axis_span(mesh, rules.batch)
     cols = k // _axis_span(mesh, rules.contract)
-    b, c = _coord(mesh, rules.batch), _coord(mesh, rules.contract)
+    c = _coord(mesh, rules.contract)
+    if rules.local_rows:
+        rows, b = m, 0
+    else:
+        rows, b = m // _axis_span(mesh, rules.batch), _coord(mesh, rules.batch)
     xs = x2[b * rows:(b + 1) * rows, c * cols:(c + 1) * cols]
     ws = w[c * cols:(c + 1) * cols]
     for ax in rules.batch + rules.contract:
         key = ctr_rng.fold_in(key, mesh.coords[ax])
     y = _dispatch(key, xs, ws, cfg)
     if rules.contract:
-        parts = _gather(y, mesh, rules.contract)
-        y = parts[0]
-        for p in parts[1:]:  # coordinate order, as XLA's psum adds
-            y = y + p
-    if rules.batch:
-        y = _gather(y, mesh, rules.batch).reshape(m, -1)
+        span = _axis_span(mesh, rules.contract)
+        with collective_span("sc.merge", y, axes=rules.contract,
+                                         bytes=4 * span * y.numel()):
+            y = sum_in_order(_gather(y, mesh, rules.contract))
+    if rules.batch and not rules.local_rows:
+        span = _axis_span(mesh, rules.batch)
+        with collective_span("sc.merge", y, axes=rules.batch,
+                                         bytes=4 * span * y.numel()):
+            y = _gather(y, mesh, rules.batch).reshape(m, -1)
     return y
+
+
+def _resolve_local(mesh, m: int, k: int, rules: ScShardRules):
+    """``resolve_rules`` for a call holding this rank's rows: against the
+    global M, and every batch axis of the mesh must stay live."""
+    split = batch_axes(mesh)
+    r = resolve_rules(mesh, m * _axis_span(mesh, split), k, rules)
+    if r.batch != split:
+        raise ValueError(
+            f"sc_dot_sharded: this rank holds {m} rows, its block over the "
+            f"mesh's batch axes {split} of {dict(mesh.shape)}, but the rules "
+            f"{rules} shard the rows over {r.batch}: the call would need "
+            "every row on every rank (a row gather)")
+    return r
 
 
 def sc_dot_sharded(key, x, w, cfg: ScConfig = ScConfig(), *, mesh,
@@ -159,11 +212,17 @@ def sc_dot_sharded(key, x, w, cfg: ScConfig = ScConfig(), *, mesh,
     ``sc_dot``.  Leading dims of ``x`` flatten to M, which shards over
     ``rules.batch``; K shards over ``rules.contract``.  When no axis
     survives :func:`resolve_rules` this is ``sc_dot(key, x, w, cfg)``.
+    Under ``rules.local_rows`` x holds this rank's rows and the result
+    is their rows of the product.
     """
     lead = x.shape[:-1]
     k_dim = x.shape[-1]
     m = math.prod(lead) if lead else 1
-    r = resolve_rules(mesh, m, k_dim, rules)
+    rules = rules if rules is not None else DEFAULT_RULES
+    if rules.local_rows:
+        r = _resolve_local(mesh, m, k_dim, rules)
+    else:
+        r = resolve_rules(mesh, m, k_dim, rules)
     if not r.batch and not r.contract:
         return sc_dot(key, x, w, cfg)
     n_shards = _axis_span(mesh, r.batch) * _axis_span(mesh, r.contract)

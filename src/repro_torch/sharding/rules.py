@@ -11,12 +11,16 @@ experts, and SP on the long-context cache sequence.
 
 A spec here is a tuple with one entry per dimension (a mesh axis name, a
 tuple of them, or None), what the reference's ``PartitionSpec`` holds.
-The serving half of the port reads :func:`sc_shard_rules` only: the
-mesh engine shards each SC contraction and replicates every parameter
-and cache, as the reference's does.
+The mesh engine and the mesh train step shard each SC contraction
+(:func:`sc_shard_rules`) and replicate every parameter on every rank:
+:func:`param_shardings` is where a leaf's shard would lie, and
+``checkpoint.restore_resharded`` places each leaf on its rank's device.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 from repro_torch.models import params as params_lib
 
@@ -72,6 +76,47 @@ def logical_rules(mesh, kind: str = "param") -> dict:
 
 def param_partition_specs(specs, mesh):
     return params_lib.partition_specs(specs, logical_rules(mesh, "param"))
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A leaf's place on a mesh (the reference's ``NamedSharding``): the
+    mesh and one entry per dimension (a mesh axis, a tuple, or None)."""
+
+    mesh: object
+    spec: tuple
+
+    @property
+    def device(self):
+        """The device this rank holds the leaf on (None for a mesh of
+        sizes alone)."""
+        return getattr(self.mesh, "device", None)
+
+    def shard_shape(self, global_shape) -> tuple:
+        """One shard's shape, as ``NamedSharding.shard_shape`` gives it:
+        each dimension over the span of its mesh axes."""
+        sizes = dict(self.mesh.shape)
+        out = []
+        for i, dim in enumerate(global_shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            axes = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            span = math.prod(sizes[a] for a in axes)
+            if dim % span:
+                raise ValueError(
+                    f"dimension {i} of {tuple(global_shape)} does not split "
+                    f"over {axes} ({span})")
+            out.append(dim // span)
+        return tuple(out)
+
+
+def param_shardings(specs, mesh):
+    """A :class:`Placement` per leaf of ``specs``, from
+    :func:`param_partition_specs`."""
+    rules = logical_rules(mesh, "param")
+    return params_lib.tree_map_specs(
+        lambda s: Placement(mesh, params_lib.partition_specs(s, rules)),
+        specs)
 
 
 def sc_shard_rules(mesh, *, batch=None, contract=None):

@@ -1,15 +1,41 @@
 """The train step: straight-through gradients of ``lm.lm_loss``,
-microbatched accumulation, and the AdamW update.
+microbatched accumulation, data parallelism over a device mesh, the
+optional cross-pod int8 gradient compression, and the AdamW update.
 
-Port of ``repro.train.step`` on one device.  ``make_train_step`` returns
-a ``step(state, batch) -> (state, metrics)`` function; PyTorch runs it
-eagerly, so there is no ``jit`` around it.  Sharding (``mesh``,
-``make_constrain``, ``make_param_constrain``) and the cross-pod int8
-gradient compression are the scale-out slice (ROADMAP queue 1 item 10)
-and raise here.  Every family trains: the attention stacks, MoE, the
-SSM and hybrid families (autograd through ``ssd_chunked``, the causal
-conv and zamba2's shared block), and the audio family on frame
-embeddings (``data.make_embedding_batch``).
+Port of ``repro.train.step``.  ``make_train_step`` returns a
+``step(state, batch) -> (state, metrics)`` function; PyTorch runs it
+eagerly, so there is no ``jit`` around it.  Every family trains: the
+attention stacks, MoE, the SSM and hybrid families (autograd through
+``ssd_chunked``, the causal conv and zamba2's shared block), and the
+audio family on frame embeddings (``data.make_embedding_batch``).
+
+On a mesh (``launch/mesh.py:DeviceMesh``, one process a rank) the step
+is SPMD and numerically the reference's mesh step, the single-device
+step with every one-key SC matmul sharded:
+
+* every rank is handed the GLOBAL batch and keeps its rows: with ``n``
+  microbatches, rank (pod, data) takes row block ``(pod, data)`` of
+  each microbatch, ``batch.reshape(n, dp, b / (n·dp), ...)[:, d]``
+  (under the cross-pod compression the pods split the batch first, as
+  the reference's ``shard_map`` over ``pod`` does); a batch that does
+  not divide raises;
+* everything per row (embedding, norms, attention, the loss chunks)
+  runs on those rows alone; each one-key SC matmul runs under
+  ``sc.use_mesh`` with ``local_rows`` rules: the rank's K block over
+  ``model``, its key folded with its coordinates, the partial sums
+  merged over ``model`` in coordinate order, no row gather;
+* a rank's loss is the mean over its tokens; the loss and every
+  gradient leaf are then summed over the batch group (``pod`` x
+  ``data``) and divided by its span, before ``adamw_update``, so the
+  grad-norm clip sees the full gradient and every rank applies the same
+  update to its replica of the parameters (parameters and optimizer
+  state stay whole on every rank);
+* with ``cross_pod_compress`` and a ``pod`` axis the sum runs over
+  ``data`` only and the pods exchange int8 gradients with error
+  feedback (``distributed/compression.py``; ``state["ef"]`` must hold
+  :func:`~repro_torch.distributed.init_error_feedback`'s residual).
+
+A trivial mesh (a world of one) is the single-device step bit for bit.
 
 RNG: the step's root key is ``fold_in(PRNGKey(seed), opt.step)`` (none
 under the ``exact`` backend), microbatch ``i`` folds ``i`` into it, and
@@ -19,18 +45,22 @@ key chain, so both packages draw the same noise for the same step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 
 import torch
+import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sc
+from repro_torch.distributed import compression
+from repro_torch.launch.mesh import batch_axes, collective_span
 from repro_torch.models import lm
 from repro_torch.models import params as params_lib
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import _leaves, _set, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.sc import ctr_rng
-
-_SCALE_OUT = "ROADMAP queue 1 item 10 (scale-out)"
+from repro_torch.sharding import sc_shard_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,20 +71,56 @@ class TrainConfig:
     seed: int = 0
 
 
+def make_constrain(mesh):
+    """The activation constraint of a mesh step (None without a mesh).
+
+    ``cst(v, *logical_axes)`` returns ``v``: activations are not laid
+    out by constraints here but by the rows each rank holds.  It checks
+    that a tensor whose first logical axis is ``"batch"`` holds this
+    rank's rows of the batch (``cst.batch``, set by the step), and
+    carries ``cst.axis_sizes`` for model code that adapts to the mesh."""
+    if mesh is None:
+        return None
+
+    def cst(v, *axes):
+        if axes and axes[0] == "batch" and cst.batch is not None \
+                and v.shape[0] != cst.batch:
+            raise ValueError(
+                f"constrain: a 'batch' dim of {v.shape[0]} rows, but this "
+                f"rank holds {cst.batch} rows of the batch on "
+                f"{dict(mesh.shape)}")
+        return v
+
+    cst.axis_sizes = dict(mesh.shape)
+    cst.batch = None
+    return cst
+
+
+def make_param_constrain(mesh, cfg):
+    """The per-layer weight constraint (None without a mesh): the
+    identity, since every rank holds every parameter whole."""
+    if mesh is None:
+        return None
+    return lambda layer_tree: layer_tree
+
+
 def train_state_init(key, cfg, tcfg: TrainConfig, *, device=None):
     """The full train state ``{"params", "opt"}`` on ``device`` (the card
     unless the caller asks for the CPU).  ``key`` is an int seed or a
     ``torch.Generator``; weights are drawn on the generator's device, so
-    one seed gives the same weights on every target."""
-    if tcfg.cross_pod_compress:
-        raise NotImplementedError(f"cross_pod_compress: {_SCALE_OUT}")
+    one seed gives the same weights on every target.  With
+    ``cross_pod_compress`` the state also has ``"ef": None``, for the
+    caller to fill with ``init_error_feedback(params, n_pods)``."""
     device = resolve_device(device)
     gen = key
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(key))
     specs = lm.lm_param_specs(cfg)
     params = params_lib.init_params(specs, gen, device, cfg.param_dtype)
-    return {"params": params, "opt": adamw_init(params, tcfg.optimizer)}
+    state = {"params": params, "opt": adamw_init(params, tcfg.optimizer)}
+    if tcfg.cross_pod_compress:
+        state["ef"] = None
+    return state
 
 
 def _value_and_grad(loss_fn, params, *args):
@@ -72,18 +138,79 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _span(mesh, axes) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def shard_batch(batch, mesh, microbatches: int = 1, *,
+                pods_first: bool = False):
+    """This rank's rows of the global ``batch``, microbatch-major: row
+    block ``(pod, data)`` of each of the ``microbatches`` splits, or,
+    with ``pods_first``, the pod's contiguous block split into
+    microbatches and each of those split over ``data``."""
+    axes = batch_axes(mesh)
+    dp, n = _span(mesh, axes), microbatches
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        b = v.shape[0]
+        if b % (n * dp):
+            raise ValueError(
+                f"a batch of {b} rows does not split into {n} microbatches "
+                f"over the {dp} data-parallel ranks of {dict(mesh.shape)}")
+        r = b // (n * dp)
+        if pods_first and "pod" in axes:
+            pods = mesh.shape["pod"]
+            rows = v.reshape(pods, n, dp // pods, r, *v.shape[1:])
+            rows = rows[mesh.coords["pod"], :, mesh.coords.get("data", 0)]
+        else:
+            rows = v.reshape(n, dp, r, *v.shape[1:])
+            d = 0
+            for ax in axes:
+                d = d * mesh.shape[ax] + mesh.coords[ax]
+            rows = rows[:, d]
+        out[k] = rows.reshape(n * r, *v.shape[1:])
+    return out
+
+
+def _mean_over(loss, grads, mesh, axes):
+    """``loss`` and every leaf of ``grads`` summed over the ranks of
+    ``axes`` and divided by their span: one float32 all-reduce an axis
+    over all of them together."""
+    if not axes:
+        return loss, grads
+    leaves = list(_leaves(grads))
+    flat = torch.cat([g.to(torch.float32).reshape(-1) for _, g in leaves]
+                     + [loss.to(torch.float32).reshape(1)])
+    with collective_span("train.grad_allreduce", flat,
+                                     bytes=4 * flat.numel(), axes=axes):
+        for ax in axes:
+            dist.all_reduce(flat, group=mesh.group(ax))
+    flat = flat / _span(mesh, axes)
+    out: dict = {}
+    off = 0
+    for path, g in leaves:
+        _set(out, path, flat[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+    return flat[-1], out
+
+
 def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
-    """Returns ``step(state, batch) -> (state, metrics)``."""
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh: {_SCALE_OUT}")
-    if tcfg.cross_pod_compress:
-        raise NotImplementedError(f"cross_pod_compress: {_SCALE_OUT}")
+    """Returns ``step(state, batch) -> (state, metrics)``; on ``mesh``
+    every rank is handed the global batch (see the module doc)."""
+    cst = make_constrain(mesh)
+    cstp = make_param_constrain(mesh, cfg)
+    compress = (tcfg.cross_pod_compress and mesh is not None
+                and "pod" in mesh.axis_names)
+    axes = () if mesh is None else batch_axes(mesh)
+    reduce_axes = tuple(a for a in axes if a != "pod") if compress else axes
+    n = max(tcfg.microbatches, 1)
 
     def loss_fn(params, batch, rng):
-        return lm.lm_loss(params, batch, cfg, rng=rng)
+        return lm.lm_loss(params, batch, cfg, rng=rng, constrain=cst,
+                          constrain_params=cstp)
 
     def grads_of(params, batch, rng):
-        n = tcfg.microbatches
         if n <= 1:
             return _value_and_grad(loss_fn, params, batch, rng)
         micro = {
@@ -101,33 +228,72 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
             loss = loss + li
         return loss / n, tree_map(lambda g: g / n, g_acc)
 
-    def step(state, batch):
+    def substrate():
+        # each one-key SC matmul of a rank's rows: its K block, no gather
+        if mesh is None or cfg.sc_backend == "exact":
+            return contextlib.nullcontext()
+        rules = dataclasses.replace(sc_shard_rules(mesh), local_rows=True)
+        return sc.use_mesh(mesh, rules)
+
+    def loss_and_grads(state, batch):
+        """The step's loss, gradient (reduced over the batch group) and
+        new error-feedback residual, before the update."""
         params = state["params"]
         device = tree_leaves(params)[0].device
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, n, pods_first=compress)
+            cst.batch = next(iter(batch.values())).shape[0] // n
         batch = _to_device(batch, device)
         # the SC substrate is the only rng consumer in the loss
         rng = None
         if cfg.sc_backend != "exact":
             root = ctr_rng.prng_key(tcfg.seed)
             rng = ctr_rng.fold_in(root, int(state["opt"]["step"]))
-        loss, grads = grads_of(params, batch, rng)
+
+        def pod_grads(p, b):
+            return _mean_over(*grads_of(p, b, rng), mesh, reduce_axes)
+
+        with substrate():
+            if compress:
+                fn = compression.compressed_grads(pod_grads, mesh)
+                loss, grads, new_ef = fn(params, batch, state.get("ef"))
+            else:
+                loss, grads = pod_grads(params, batch)
+                new_ef = state.get("ef")
+        return loss, grads, new_ef
+
+    def step(state, batch):
+        params = state["params"]
+        loss, grads, new_ef = loss_and_grads(state, batch)
         grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
         new_params, new_opt, metrics = adamw_update(
             grads, state["opt"], params, tcfg.optimizer
         )
         metrics["loss"] = loss
-        return {"params": new_params, "opt": new_opt}, metrics
+        new_state = {"params": new_params, "opt": new_opt}
+        if "ef" in state:
+            new_state["ef"] = new_ef
+        return new_state, metrics
 
+    step.loss_and_grads = loss_and_grads  # what the update is applied to
     return step
 
 
 def make_eval_step(cfg, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh: {_SCALE_OUT}")
+    """``eval_step(params, batch) -> loss`` without a graph; on ``mesh``
+    each rank takes its rows of the global batch and the loss is the
+    mean over the batch group."""
+    cst = make_constrain(mesh)
+    axes = () if mesh is None else batch_axes(mesh)
 
     def eval_step(params, batch):
         device = tree_leaves(params)[0].device
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+            cst.batch = next(iter(batch.values())).shape[0]
         with torch.no_grad():
-            return lm.lm_loss(params, _to_device(batch, device), cfg)
+            loss = lm.lm_loss(params, _to_device(batch, device), cfg,
+                              constrain=cst)
+            return _mean_over(loss, {}, mesh, axes)[0]
 
     return eval_step

@@ -131,19 +131,28 @@ def test_unported_options_raise_not_implemented(kw):
     """``mesh`` was the last serve option left unported: it now builds the
     fixed-slot engine, which shards over the mesh the caller passes (the
     launcher makes one; with none it serves unsharded, as the
-    reference's does).  The trainer's mesh path is what still raises,
-    naming its ROADMAP item."""
+    reference's does).  The trainer's mesh path no longer raises either:
+    on the world of one's mesh a step is the single-device step."""
+    from repro_torch.data import SyntheticLMData, make_batch
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import lm as tlm
     from repro_torch.serve import ServingEngine
     from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train import train_state_init
 
     cfg = torch_smoke("qwen2-0.5b")
     gen = torch.Generator().manual_seed(0)
     params = tparams.init_params(tlm.lm_param_specs(cfg), gen, "cpu")
     eng = torch_build(params, cfg, TorchOptions(**kw), device="cpu")
     assert isinstance(eng, ServingEngine) and eng.mesh is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, TrainConfig(), mesh=object())
+    batch = make_batch(SyntheticLMData(cfg.vocab, 8, 2), 0)
+    losses = [
+        float(make_train_step(cfg, TrainConfig(), mesh=mesh)(
+            train_state_init(0, cfg, TrainConfig(), device="cpu"),
+            batch)[1]["loss"])
+        for mesh in (None, make_local_mesh(device="cpu"))
+    ]
+    assert losses[0] == losses[1]
 
 
 def test_sample_rows_greedy_and_gumbel_max_statistics():

@@ -132,14 +132,24 @@ def test_port_mirrors_the_reference_models_and_configs():
 
 
 # The scale-out modules the port holds, and the reference's public
-# names each still lacks (the HLO tooling and the training half's
-# sharded placements come later).
+# names each still lacks: the HLO tooling's production mesh comes
+# later; the port's activation constraint lays nothing out (no
+# ``act_spec``), and its train step enters the sharded SC substrate
+# itself, so the launcher imports neither ``sc`` nor ``sc_shard_rules``.
 SCALE_OUT = {
     "sc/sharded.py": set(),
     "sharding/__init__.py": set(),
-    "sharding/rules.py": {"param_shardings"},
+    "sharding/rules.py": set(),
     "launch/mesh.py": {"make_production_mesh"},
+    "distributed/__init__.py": set(),
+    "distributed/compression.py": set(),
+    "train/step.py": {"act_spec"},
+    "checkpoint/ckpt.py": set(),
+    "launch/train.py": {"sc", "sc_shard_rules"},
 }
+# JAX machinery the reference's modules import by name
+JAX_NAMES = {"annotations", "jax", "NamedSharding", "PartitionSpec", "P",
+             "partial", "shard_map_compat"}
 
 
 def _public_names(path: pathlib.Path) -> set:
@@ -162,7 +172,7 @@ def test_port_holds_the_scale_out_modules(rel):
     port = PORT / rel
     assert port.exists(), rel
     missing = _public_names(ref) - _public_names(port)
-    missing -= {"annotations", "jax", "NamedSharding", "PartitionSpec"}
+    missing -= JAX_NAMES
     assert missing == SCALE_OUT[rel]
 
 

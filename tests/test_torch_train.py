@@ -377,16 +377,6 @@ def test_eval_step_is_the_loss_without_a_graph():
     assert float(got) == float(want)
 
 
-def test_train_step_refuses_the_scale_out_options():
-    _, tcfg = _configs("paper-sc")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmake_train_step(tcfg, TTrain(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmake_train_step(tcfg, TTrain(cross_pod_compress=True))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmake_eval_step(tcfg, mesh=object())
-
-
 # ---------------------------------------------------------------------------
 # Data, checkpoints, recovery, the launcher
 # ---------------------------------------------------------------------------
