@@ -2,7 +2,8 @@
 its serve-fleet failover, serving on a device mesh of 4 ranks, the
 paper's cell model, MoE, SSM and hybrid
 serving, its trainer (dense, SSM, hybrid and audio; and on a device mesh
-of 4 ranks), and its validation / faulty-device path on one GPU.
+of 4 ranks), its validation / faulty-device path, and the dry-run's
+cost account against two measured cells on one GPU.
 
     python3 chip_smoke.py [--layers N] [--moe-layers N] [--ssm-layers N]
                           [--hybrid-groups N] [--audio-layers N]
@@ -83,8 +84,9 @@ code is non-zero):
    with ``--chaos``;
    mesh phase FM: ``launch/serve.py --mesh``'s engine, ``build_engine(
    ..., mesh=make_local_mesh(2), shard_rules=sc_shard_rules(mesh))``,
-   in 4 ranks of this script (``--fm-rank``) that it starts under
-   ``torchrun``, sharing the card over gloo: phase F's model on a data 2
+   in 4 ranks of this script (``--mesh-rank``) that it starts under
+   ``torchrun`` once for phases FM and TM (each rank serves FM, then
+   trains TM), sharing the card over gloo: phase F's model on a data 2
    x model 2 mesh, 4 slots, A's two prompts twice, 4 new tokens each,
    every SC call split over the ranks (``sc.sc_dot_sharded``).  Every
    rank's tokens equal; kernel 1's launches a rank equal to
@@ -131,8 +133,8 @@ code is non-zero):
    process (a world of one): ``make_train_step(cfg, tcfg,
    make_local_mesh())`` against the single-device step on T's model,
    batch and optimizer, 2 steps: losses and every leaf bit for bit, and
-   the losses T's.  Then 4 ranks of this script under ``torchrun``
-   (``--tm-rank DIR``), sharing the card over gloo: TM-a, qwen2-0.5b at
+   the losses T's.  The 4 ranks (phase FM's launch, ``--mesh-rank
+   DIR``), sharing the card over gloo, ran TM-a, qwen2-0.5b at
    full width, depth ``--layers``, float32, ``pallas_moment`` nbit 1024,
    remat, global batch 8 x 64 on a data 2 x model 2 mesh, 3 steps (each
    rank its 4 rows, each SC call its K half and a SUM over the model
@@ -203,11 +205,23 @@ code is non-zero):
     launches are held to the attention plan where it shows them all);
     float32 ``exact`` with ``fused`` attention (kernel 2): paged tokens
     equal fixed-slot tokens; the SMOKE config on card and CPU;
-14. the kernels line and the device line.
+14. phase R, the dry-run's cost account (``launch/dryrun.py``,
+    ``launch/cost_analysis.py``): R-a traces qwen2-0.5b's ``train_4k``,
+    ``prefill_32k`` and ``decode_32k`` and moonshot-v1-16b-a3b's
+    ``decode_32k`` for rank 0 of the 16 x 16 production mesh on
+    ``meta`` (per-rank GB, bound and roofline terms; nothing may be
+    allocated off ``meta``); R-b runs qwen2-0.5b cut to ``--layers``
+    at ``train_4k`` 8 x 4,096 and ``decode_32k`` 128 x 32,768 on the
+    card (``launch/profile_cell.py:measure``): the matmul FLOPs
+    ``FlopCounterMode`` counts on the card equal the meta trace's for
+    the same cut cell, the device time is at least 0.95 of the
+    roofline's largest term, and the measured and predicted peak
+    memory are printed; no kernel of the package may launch;
+15. the kernels line and the device line.
 
 Launch counts are reset just before phases A, B, P, F, FT, FM (the
 world of one, and in each rank), T, TM (in each rank), TS, TH, TA, V,
-D, C, M, S and H and
+D, C, M, S, H and R and
 read just after each; a kernel of a phase's
 path that did not launch fails the run.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -1920,7 +1934,7 @@ FM_RANKS = 4
 FM_MODEL_PARALLEL = 2  # a data 2 x model 2 mesh
 FM_SLOTS = 4
 FM_NEW = 4
-FM_TIMEOUT = 600  # s, the 4-rank launch's limit
+MESH_TIMEOUT = 900  # s, the limit of the 4-rank launch of FM and TM
 # the reference's sharded moment check (tests/_sharded_subprocess.py):
 # nbit 2^16, within 0.5 of the exact product
 FM_MOMENT_NBIT = 1 << 16
@@ -2075,9 +2089,41 @@ def fm_rank(outdir: str, layers: int) -> int:
     rec["smoke"] = {dev: fm_smoke(dev) for dev in ("cuda", "cpu")}
     with open(os.path.join(outdir, f"fm_rank{mesh.rank}.json"), "w") as f:
         json.dump(rec, f)
+    del eng, params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return 0
+
+
+def mesh_rank(outdir: str, layers: int) -> int:
+    """One rank of phases FM and TM, started by :func:`mesh_ranks` under
+    ``torchrun``: FM's serving (:func:`fm_rank`), then TM's training
+    (:func:`tm_rank`), in one launch of the ranks."""
+    import torch.distributed as dist
+
+    fm_rank(outdir, layers)
+    tm_rank(outdir, layers)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def mesh_ranks(prompts, layers: int) -> tuple:
+    """Start the FM_RANKS ranks of phases FM and TM once (FM's requests:
+    phase A's prompts twice) and read what each wrote.  Returns (FM's
+    rank records, TM's rank records, the launch's seconds)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as outdir:
+        with open(os.path.join(outdir, "fm_in.json"), "w") as f:
+            json.dump({"prompts": prompts + prompts}, f)
+        seconds = _run_ranks(outdir, layers)
+        ranks = {}
+        for tag in ("fm", "tm"):
+            ranks[tag] = []
+            for r in range(FM_RANKS):
+                with open(os.path.join(outdir, f"{tag}_rank{r}.json")) as f:
+                    ranks[tag].append(json.load(f))
+    emit("mesh_ranks", ranks=FM_RANKS, seconds=seconds)
+    return ranks["fm"], ranks["tm"], seconds
 
 
 def mesh_world_one(params, cfg, prompts, tokens_f) -> dict:
@@ -2100,14 +2146,14 @@ def mesh_world_one(params, cfg, prompts, tokens_f) -> dict:
     return counts
 
 
-def _run_ranks(outdir: str, layers: int, *, flag: str = "--fm-rank",
-               what: str = "serve_fm", timeout: int = FM_TIMEOUT) -> float:
+def _run_ranks(outdir: str, layers: int) -> float:
     """Start FM_RANKS ranks of this script under ``torchrun`` (each
-    entering ``flag``) and wait for them (seconds); on failure or
+    entering ``--mesh-rank``) and wait for them (seconds); on failure or
     timeout, end them all and raise with the end of their output."""
+    what, timeout = "serve_fm / train_tm", MESH_TIMEOUT
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={FM_RANKS}", os.path.abspath(__file__),
-           flag, outdir, "--layers", str(layers)]
+           "--mesh-rank", outdir, "--layers", str(layers)]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
@@ -2125,21 +2171,14 @@ def _run_ranks(outdir: str, layers: int, *, flag: str = "--fm-rank",
     return time.perf_counter() - t0
 
 
-def mesh_phase(params, cfg, prompts, tokens_f, card: str,
-               layers: int) -> dict:
+def mesh_phase(params, cfg, prompts, tokens_f, card: str, ranks: list,
+               seconds: float) -> dict:
     """Phase FM: the fixed-slot engine on a data 2 x model 2 mesh of 4
-    ranks sharing the card over gloo; see the module doc."""
+    ranks sharing the card over gloo (``ranks``: what each wrote in
+    :func:`mesh_ranks`' launch); see the module doc."""
     counts_one = mesh_world_one(params, cfg, prompts, tokens_f)
     fm_prompts = prompts + prompts  # phase A's two prompts, twice
     plan = mesh_kernel1_plan(cfg, len(fm_prompts), FM_NEW)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fm_") as outdir:
-        with open(os.path.join(outdir, "fm_in.json"), "w") as f:
-            json.dump({"prompts": fm_prompts}, f)
-        seconds = _run_ranks(outdir, layers)
-        ranks = []
-        for r in range(FM_RANKS):
-            with open(os.path.join(outdir, f"fm_rank{r}.json")) as f:
-                ranks.append(json.load(f))
     for rec in ranks:
         emit("serve_fm_rank", **{k: rec[k] for k in (
             "rank", "device", "backend", "coords", "prefill_ms",
@@ -2906,7 +2945,6 @@ TM_BATCH, TM_SEQ = 8, 64  # phase T's global batch
 TM_STEPS = 3
 TM_COMPRESS_STEPS = 2
 TM_SMOKE_STEPS = 2
-TM_TIMEOUT = 600  # s, the 4-rank launch's limit
 # phase T's optimizer (launch/train.py --steps 4): TM-d is held to T's
 # losses
 TM_ADAM = dict(lr=1e-3, total_steps=4, warmup_steps=1)
@@ -3098,7 +3136,6 @@ def tm_rank(outdir: str, layers: int) -> int:
     with open(os.path.join(outdir, f"tm_rank{mesh.rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.barrier()
-    dist.destroy_process_group()
     return 0
 
 
@@ -3143,19 +3180,14 @@ def tm_world_one(layers: int, t_losses: dict) -> dict:
     return rec
 
 
-def train_mesh_phase(layers: int, card: str, t_losses: dict) -> dict:
-    """Phase TM: training on a device mesh; see the module doc."""
+def train_mesh_phase(layers: int, card: str, t_losses: dict, ranks: list,
+                     seconds: float) -> dict:
+    """Phase TM: training on a device mesh (``ranks``: what each rank
+    wrote in :func:`mesh_ranks`' launch); see the module doc."""
     world_one = tm_world_one(layers, t_losses)
     cfg = _tm_cfg(layers)
     plan = kernel5_plan(cfg, TM_BATCH // (TM_RANKS // TM_MODEL_PARALLEL),
                         TM_SEQ, model_parallel=TM_MODEL_PARALLEL)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tm_") as outdir:
-        seconds = _run_ranks(outdir, layers, flag="--tm-rank",
-                             what="train_tm", timeout=TM_TIMEOUT)
-        ranks = []
-        for r in range(TM_RANKS):
-            with open(os.path.join(outdir, f"tm_rank{r}.json")) as f:
-                ranks.append(json.load(f))
     for rec in ranks:
         spans = rec["spans"]
         step_s = [ms / 1e3 for ms in rec["step_ms"]]
@@ -3221,6 +3253,70 @@ def train_mesh_phase(layers: int, card: str, t_losses: dict) -> dict:
         if not ok:
             raise AssertionError(f"train_tm: {what}")
     return dict(summary, launches=first["launches"], ranks_detail=ranks)
+
+
+# ---------------------------------------------------------------------------
+# Phase R: the dry-run's cost account, and two cells measured against it
+# ---------------------------------------------------------------------------
+
+# R-a: cells traced on ``meta`` for rank 0 of the 16 x 16 production mesh
+R_DRYRUN = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "prefill_32k"),
+            ("qwen2-0.5b", "decode_32k"), ("moonshot-v1-16b-a3b",
+                                           "decode_32k"))
+# R-b: (shape, global batch, sequence) of qwen2-0.5b cut to --layers
+R_MEASURE = (("train_4k", 8, 4096), ("decode_32k", 128, 32768))
+R_FLOOR = 0.95  # measured device time >= this x the largest roofline term
+
+
+def cost_phase(layers: int, card: str) -> None:
+    """Phase R: R-a traces the production cells of ``R_DRYRUN`` on
+    ``meta`` (``launch/dryrun.py:lower_cell``, nothing allocated) and
+    prints each one's per-rank GB, bound and terms; R-b runs the cells
+    of ``R_MEASURE`` on the card (``launch/profile_cell.py:measure``):
+    the matmul FLOPs ``FlopCounterMode`` counts on the card must equal
+    the meta trace's for the same cut cell, and the device time must be
+    at least R_FLOOR of the roofline's largest term; measured and
+    predicted peak memory are printed beside each other."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import dryrun, profile_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    for arch, shape in R_DRYRUN:
+        t0 = time.perf_counter()
+        r = dryrun.lower_cell(arch, shape, make_production_mesh())
+        rec = dict(
+            arch=arch, shape=shape, mesh=r["mesh"],
+            trace_s=time.perf_counter() - t0,
+            per_rank_gb=r["memory"]["total_per_device_gb"],
+            reference_layout_gb=r["memory"]["reference_layout_gb"],
+            **{k: r["roofline"][k] for k in ("bound", "compute_s",
+                                              "memory_s", "collective_s")},
+            off_meta=r["cost"]["off_meta"])
+        emit("cost_r_dryrun", **rec)
+        if rec["off_meta"]:
+            raise AssertionError(f"cost_r: {arch} x {shape}'s trace "
+                                 "allocated off meta")
+    cuda_lib.reset_launches()
+    for shape, batch, seq in R_MEASURE:
+        m = profile_cell.measure("qwen2-0.5b", shape, layers=layers,
+                                 batch=batch, seq=seq)
+        torch.cuda.empty_cache()
+        pred = m["predicted"]
+        largest = max(pred["compute_ms"], pred["memory_ms"])
+        rec = dict(m, card=card, largest_term_ms=largest,
+                   device_over_largest=(m["device_ms"] or 0) / largest)
+        emit("cost_r_measure", **rec)
+        if m["flops"] != pred["flops"]:
+            raise AssertionError(
+                f"cost_r: {shape}: the card's matmul FLOPs {m['flops']} "
+                f"are not the meta trace's {pred['flops']}")
+        if m["device_ms"] is None or m["device_ms"] < R_FLOOR * largest:
+            raise AssertionError(
+                f"cost_r: {shape}: device {m['device_ms']} ms under "
+                f"{R_FLOOR} x the largest roofline term {largest} ms")
+    if any(cuda_lib.launches.values()):
+        raise AssertionError(f"cost_r: a kernel launched "
+                             f"{dict(cuda_lib.launches)} (exact path)")
 
 
 # ---------------------------------------------------------------------------
@@ -3822,18 +3918,14 @@ def main(argv=None) -> int:
                     "one shared invocation (<= 27)")
     ap.add_argument("--audio-layers", type=int, default=2,
                     help="phase TA's depth (<= 48)")
-    # one rank of phase FM (the script starts its ranks itself)
-    ap.add_argument("--fm-rank", metavar="DIR", help=argparse.SUPPRESS)
-    # one rank of phase TM
-    ap.add_argument("--tm-rank", metavar="DIR", help=argparse.SUPPRESS)
+    # one rank of phases FM and TM (the script starts its ranks itself)
+    ap.add_argument("--mesh-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    if args.fm_rank:
-        return fm_rank(args.fm_rank, args.layers)
-    if args.tm_rank:
-        return tm_rank(args.tm_rank, args.layers)
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank, args.layers)
     if not 1 <= args.layers <= 24:
         raise SystemExit("--layers must be in 1..24")
     if not 1 <= args.moe_layers <= 48:
@@ -3904,8 +3996,9 @@ def main(argv=None) -> int:
     serve_p = prefix_spec_phase(params, cfg, opts, prompts, tokens_a)
     serve_f = fixed_slot_phase(params, cfg, prompts, 4)
     serve_ft = fleet_phase(params, cfg, opts, prompts, tokens_a, 4)
+    fm_ranks, tm_ranks, mesh_seconds = mesh_ranks(prompts, args.layers)
     serve_fm = mesh_phase(params, cfg, prompts, serve_f["tokens"], card,
-                          args.layers)
+                          fm_ranks, mesh_seconds)
     val = validation_phase(params, cfg)
     faulty = faulty_serve_phase(
         params, cfg.replace(sc_backend="exact", paged_attn="unfused"),
@@ -3924,7 +4017,8 @@ def main(argv=None) -> int:
         train = train_phase(args.layers, workdir)
         torch.cuda.empty_cache()
         train_tm = train_mesh_phase(
-            args.layers, card, {r["step"]: r["loss"] for r in train["steps"]})
+            args.layers, card, {r["step"]: r["loss"] for r in train["steps"]},
+            tm_ranks, mesh_seconds)
         families = {
             "ts": family_train_phase("ts", "mamba2-370m", args.ssm_layers,
                                      4, 512, workdir),
@@ -3936,6 +4030,7 @@ def main(argv=None) -> int:
         }
         for arch in CROSS_TRAIN_ARCHS:
             train_cross_device(arch, workdir)
+    cost_phase(args.layers, card)
 
     serving = (
         counts_a,

@@ -11,7 +11,12 @@ ranks that differ from this one on that axis alone (``mesh.group``).
 
 :class:`AbstractMesh` is the sizes alone, with no process and no device,
 as ``jax.sharding.AbstractMesh``: what the pure sharding functions
-(``resolve_rules``, ``sharding/rules.py``) read.
+(``resolve_rules``, ``sharding/rules.py``) read, and
+:func:`make_production_mesh` gives the reference's production sizes.
+:class:`RecordingMesh` is an abstract mesh that stands as rank 0 and
+records the collectives of a traced step instead of running them;
+:func:`all_reduce` is the one entry point every collective of the port
+goes through.
 
 The process group is made once per process by :func:`init_world`:
 ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -99,6 +104,36 @@ class DeviceMesh(AbstractMesh):
         return self._groups.get(axis)
 
 
+class RecordingMesh(AbstractMesh):
+    """An abstract mesh that stands as rank 0 (``coords`` all zero) and
+    records the collectives run on it: :func:`all_reduce` appends
+    ``(kind, axis, bytes)`` to ``records`` and returns its input
+    unchanged.  What the dry-run (``launch/dryrun.py``) traces one rank
+    of a production mesh on."""
+
+    def __init__(self, sizes, axis_names):
+        super().__init__(sizes, axis_names)
+        self.coords = {ax: 0 for ax in self.axis_names}
+        self.records = []
+
+    @classmethod
+    def of(cls, mesh) -> "RecordingMesh":
+        return cls(tuple(mesh.shape.values()), mesh.axis_names)
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """SUM ``t`` in place over the ranks of ``mesh`` along ``axis``: the
+    one entry point of the port's collectives.  On a
+    :class:`RecordingMesh` it records ``("all-reduce", axis, bytes)`` and
+    leaves ``t`` as it is."""
+    if isinstance(mesh, RecordingMesh):
+        mesh.records.append(
+            ("all-reduce", axis, t.numel() * t.element_size()))
+        return t
+    dist.all_reduce(t, group=mesh.group(axis))
+    return t
+
+
 def _unravel(rank: int, dims) -> tuple:
     """A rank's coordinates on a row-major mesh of ``dims``."""
     out = []
@@ -142,6 +177,14 @@ def _backend(device) -> str:
     if device.type == "cuda" and local <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh, sizes alone: ``(data 16, model
+    16)`` = 256 ranks, or with a leading ``pod`` axis of 2 (512)."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_local_mesh(model_parallel: int = 1, *, device=None) -> DeviceMesh:

@@ -148,7 +148,11 @@ def moe_ffn(x, p, cfg, key=None):
 def load_balancing_loss(router_probs, eidx, n_experts: int):
     """Switch-style auxiliary loss: E · Σ_e f_e · P_e."""
     b, s, k = eidx.shape
-    counts = torch.bincount(eidx.reshape(-1).long(), minlength=n_experts)
+    # a scatter-add count (``bincount`` has no meta kernel: the dry-run
+    # traces this on ``meta``)
+    idx = eidx.reshape(-1).long()
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=idx.device)
+    counts = counts.scatter_add(0, idx, torch.ones_like(idx))
     f = counts.to(torch.float32) / (b * s * k)
     pmean = router_probs.mean(dim=(0, 1))
     return n_experts * torch.sum(f * pmean)

@@ -101,6 +101,14 @@ def init_params(specs, generator, device=None, dtype=torch.float32):
     return out
 
 
+def abstract_params(specs, dtype=torch.float32):
+    """A tree of ``meta`` tensors, each spec's own dtype where it has one:
+    shapes and dtypes with no allocation (what the dry-run traces with)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                              device="meta"), specs)
+
+
 def params_from_numpy(tree, device=None, dtype=None):
     """A nested dict of numpy arrays -> the same tree of tensors.
 

@@ -36,6 +36,11 @@ def encode(v, cfg, dim=None):
     return torch.sign(v), p, scale
 
 
+def decode(sign, p, scale):
+    """Inverse of :func:`encode` (up to quantization)."""
+    return sign * p * scale
+
+
 def quantize_grid(p, levels: int):
     """Snap probabilities onto the paper's n-bit LUT/DTC operand grid."""
     return torch.clamp(torch.round(p * levels), 0, levels - 1) / levels

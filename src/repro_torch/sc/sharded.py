@@ -59,9 +59,8 @@ import functools
 import math
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.launch.mesh import batch_axes, collective_span
+from repro_torch.launch.mesh import all_reduce, batch_axes, collective_span
 from repro_torch.sc import ctr_rng
 from repro_torch.sc.config import ScConfig
 from repro_torch.sc.registry import _dispatch, _StraightThrough, sc_dot
@@ -146,7 +145,7 @@ def _gather(t, mesh, axes):
             continue
         buf = torch.zeros((n, *out.shape), dtype=word, device=out.device)
         buf[mesh.coords[ax]] = out
-        dist.all_reduce(buf, group=mesh.group(ax))
+        all_reduce(buf, mesh, ax)
         out = buf.reshape(n * out.shape[0], *out.shape[1:])
     return out.view(t.dtype)
 

@@ -50,11 +50,10 @@ import dataclasses
 import math
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import resolve_device, sc
 from repro_torch.distributed import compression
-from repro_torch.launch.mesh import batch_axes, collective_span
+from repro_torch.launch.mesh import all_reduce, batch_axes, collective_span
 from repro_torch.models import lm
 from repro_torch.models import params as params_lib
 from repro_torch.models.params import _leaves, _set, tree_leaves, tree_map
@@ -185,7 +184,7 @@ def _mean_over(loss, grads, mesh, axes):
     with collective_span("train.grad_allreduce", flat,
                                      bytes=4 * flat.numel(), axes=axes):
         for ax in axes:
-            dist.all_reduce(flat, group=mesh.group(ax))
+            all_reduce(flat, mesh, ax)
     flat = flat / _span(mesh, axes)
     out: dict = {}
     off = 0

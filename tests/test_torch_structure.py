@@ -18,6 +18,7 @@ import torch
 import repro_torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import lm, params
+from repro_torch.launch import profile_cell
 from repro_torch.launch import train as launch_train
 from repro_torch.serve import ServeOptions, build_engine
 from repro_torch.train import TrainConfig, make_train_step, train_state_init
@@ -84,6 +85,14 @@ def test_entry_points_default_to_the_card():
         launch_train.main(["--arch", "paper-sc", "--smoke", "--steps", "1"])
     state = train_state_init(0, cfg, TrainConfig(), device="cpu")
     assert state["params"]["embed"]["table"].device.type == "cpu"
+    # the measured cell of the cost tooling
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_cell.measure("qwen2-0.5b", "decode_32k", layers=1, batch=2,
+                             seq=16)
+    out = profile_cell.measure("qwen2-0.5b", "decode_32k", layers=1,
+                               batch=2, seq=16, device="cpu")
+    assert out["device"] == "cpu" and out["device_ms"] is None
+    assert out["flops"] == out["predicted"]["flops"] > 0
 
 
 def test_serving_entry_points_default_to_the_card():
@@ -131,22 +140,37 @@ def test_port_mirrors_the_reference_models_and_configs():
     assert missing == UNPORTED
 
 
-# The scale-out modules the port holds, and the reference's public
-# names each still lacks: the HLO tooling's production mesh comes
-# later; the port's activation constraint lays nothing out (no
-# ``act_spec``), and its train step enters the sharded SC substrate
-# itself, so the launcher imports neither ``sc`` nor ``sc_shard_rules``.
+# The scale-out modules and the dry-run / cost tooling the port holds,
+# and the reference's public names each lacks: the port's activation
+# constraint lays nothing out (no ``act_spec``), and its train step
+# enters the sharded SC substrate itself, so the launcher imports
+# neither ``sc`` nor ``sc_shard_rules``; the dry-run traces the port's
+# own step, which builds its constraints itself.  ``hlo_analysis.py`` is
+# ``cost_analysis.py`` in the port: the port has no HLO, so its text
+# parser (``Instr``, ``analyze_hlo``) and the TPU's ICI rate have no
+# counterpart.
 SCALE_OUT = {
     "sc/sharded.py": set(),
     "sharding/__init__.py": set(),
     "sharding/rules.py": set(),
-    "launch/mesh.py": {"make_production_mesh"},
+    "launch/mesh.py": set(),
     "distributed/__init__.py": set(),
     "distributed/compression.py": set(),
     "train/step.py": {"act_spec"},
     "checkpoint/ckpt.py": set(),
     "launch/train.py": {"sc", "sc_shard_rules"},
+    "launch/specs.py": set(),
+    "launch/dryrun.py": {"make_constrain", "make_param_constrain"},
+    "launch/hlo_analysis.py": {"Instr", "analyze_hlo", "ICI_BW"},
+    "launch/profile_cell.py": set(),
+    "configs/base.py": set(),
+    "configs/__init__.py": set(),
+    "models/params.py": set(),
+    "sc/encoding.py": set(),
 }
+# reference modules and names the port holds under another name
+PORT_FILES = {"launch/hlo_analysis.py": "launch/cost_analysis.py"}
+RENAMED = {"hlo_analysis": "cost_analysis", "HloCost": "StepCost"}
 # JAX machinery the reference's modules import by name
 JAX_NAMES = {"annotations", "jax", "NamedSharding", "PartitionSpec", "P",
              "partial", "shard_map_compat"}
@@ -169,11 +193,23 @@ def _public_names(path: pathlib.Path) -> set:
 @pytest.mark.parametrize("rel", sorted(SCALE_OUT))
 def test_port_holds_the_scale_out_modules(rel):
     ref = ROOT / "src" / "repro" / rel
-    port = PORT / rel
+    port = PORT / PORT_FILES.get(rel, rel)
     assert port.exists(), rel
-    missing = _public_names(ref) - _public_names(port)
+    want = {RENAMED.get(n, n) for n in _public_names(ref)}
+    missing = want - _public_names(port)
     missing -= JAX_NAMES
     assert missing == SCALE_OUT[rel]
+
+
+def test_shapes_abstract_params_and_decode_are_ported():
+    """The names the dry-run needs from modules the port already had."""
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.sc import encoding
+
+    assert set(SHAPES) == {"train_4k", "prefill_32k", "decode_32k",
+                           "long_500k"}
+    assert all(isinstance(s, ShapeConfig) for s in SHAPES.values())
+    assert callable(params.abstract_params) and callable(encoding.decode)
 
 
 def _smoke_params(cfg):
