@@ -2,8 +2,9 @@
 its serve-fleet failover, serving on a device mesh of 4 ranks, the
 paper's cell model, MoE, SSM and hybrid
 serving, its trainer (dense, SSM, hybrid and audio; and on a device mesh
-of 4 ranks), its validation / faulty-device path, and the dry-run's
-cost account against two measured cells on one GPU.
+of 4 ranks), its validation / faulty-device path, the dry-run's
+cost account against two measured cells, the launch-tile autotuner and
+the four examples on one GPU.
 
     python3 chip_smoke.py [--layers N] [--moe-layers N] [--ssm-layers N]
                           [--hybrid-groups N] [--audio-layers N]
@@ -46,12 +47,22 @@ code is non-zero):
    projection at M = 512), and at each row-key shape the whole
    ``sc_dot_rows`` route: one kernel-5 launch for all rows, within 1e-5
    of the ``moment`` rows route in torch ops;
+   phase AT, the launch-tile autotuner (``sc/autotune.py``): kernel 1
+   under every candidate tile (threads a block, K split) at phase A's
+   wk and mlp_wi, phase F's prefill wk and phase S's wdt, and kernels 2
+   and 3 under every candidate (logits-pass threads) at phase A's
+   decode and prefill in bf16 and float32: every output, and kernel 3's
+   SC logits, bit-equal to the heuristic tile's (kernel 1's heuristic
+   also to the plain version over ``PLAIN_COLS`` columns); each
+   candidate's ms (the attention calls' on the device clock), the best,
+   the heuristic's and the shipped cache's;
 3. serve phase A: qwen2-0.5b at full width, depth cut to ``--layers``
    (default 2), bf16, random weights from seed 0, ``pallas_bitexact``
    (the fused SC matmul kernel) with ``fused_sc`` attention at
    nbit 1024: two greedy requests through ``build_engine``; decode
    tick 3 under ``torch.profiler``: the SC attention kernels' device
-   time and launches, which must be the plan's per call;
+   time and launches, which must be the plan's per call, and its
+   launch-tile lookups, which must all hit the shipped cache;
 4. serve phase B: phase A's model with ``paged_attn="fused"``, one slot,
    one request;
    serve phase P: phase A's model with prefix caching and speculative
@@ -217,13 +228,19 @@ code is non-zero):
     the same cut cell, the device time is at least 0.95 of the
     roofline's largest term, and the measured and predicted peak
     memory are printed; no kernel of the package may launch;
-15. the kernels line and the device line.
+15. phase X: ``examples/torch_quickstart.py``, ``torch_serve_batch.py``,
+    ``torch_train_sc_lm.py`` and ``torch_fault_tolerance_demo.py`` on
+    the card at their defaults, started together as subprocesses: each
+    must exit with 0, and their key lines are echoed;
+16. the kernels line and the device line.
 
 Launch counts are reset just before phases A, B, P, F, FT, FM (the
 world of one, and in each rank), T, TM (in each rank), TS, TH, TA, V,
 D, C, M, S, H and R and
 read just after each; a kernel of a phase's
-path that did not launch fails the run.  Without a CUDA device the
+path that did not launch fails the run (phase AT checks kernels, as
+phase 2 does; phase X's examples count in their own processes).
+Without a CUDA device the
 script exits non-zero before printing any result.
 """
 
@@ -232,6 +249,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1320,6 +1338,215 @@ def check_sc_mul(rates: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase AT: the launch-tile autotuner on the card
+# ---------------------------------------------------------------------------
+
+# Kernel 1 at (case, M, K, N, row keys): phase A's decode wk and mlp_wi,
+# phase F's prefill wk (one key a call), phase S's wdt (mamba2-370m)
+AT_FUSED_SHAPES = (
+    ("a_wk", 2, 896, 128, True),
+    ("a_mlp_wi", 2, 896, 9728, True),
+    ("f_prefill_wk", 12, 896, 128, False),
+    ("s_wdt", 2, 1024, 32, True),
+)
+AT_ATTN_CASES = ("decode", "prefill")  # phase A's, from ATTN_CASES
+# the serving phases' dtype (bf16) and kernel_check's (float32)
+AT_ATTN_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _tile_name(tile) -> str:
+    return "x".join(str(v) for v in dataclasses.astuple(tile))
+
+
+def _tile_table(cands, heur, shipped, outputs, timer) -> tuple:
+    """Each candidate tile's ``outputs(tile)`` (a tuple of tensors) held
+    bit-equal to the heuristic's, and its ms, ``timer(tile)``; the best
+    against the heuristic and the shipped tile.  Returns (the record,
+    the heuristic's outputs)."""
+    base = outputs(heur)
+    ms = {}
+    for tile in cands:
+        got = outputs(tile)
+        if not all(torch.equal(u, v) for u, v in zip(got, base)):
+            raise AssertionError(f"tile {tile}: bits differ from the "
+                                 f"heuristic {heur}'s")
+        ms[_tile_name(tile)] = timer(tile)
+    best = min(ms, key=ms.get)
+    heur_ms = ms[_tile_name(heur)]
+    return dict(
+        candidates=len(ms), ms=ms, bit_equal=True,
+        heuristic=_tile_name(heur), heuristic_ms=heur_ms,
+        best=best, best_ms=ms[best], shipped=_tile_name(shipped),
+        shipped_ms=ms.get(_tile_name(shipped)),
+        best_over_heuristic=ms[best] / heur_ms,
+    ), base
+
+
+def autotune_phase() -> dict:
+    """Every candidate tile of ``sc/autotune.py`` on the card: kernel 1
+    at ``AT_FUSED_SHAPES`` (the heuristic's totals also bit-equal to the
+    plain version's over the first ``PLAIN_COLS`` columns), kernels 2 and
+    3 at phase A's decode and prefill in bf16 and float32 (outputs, and
+    kernel 3's SC logits, bit-equal to the heuristic's).  Prints each
+    candidate's ms (kernel 1: CUDA events of a call; attention: device
+    ms of a call, ``autotune.device_us``, as the tuner times it), the
+    best, the heuristic's and the shipped cache's."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sc_fused as kf
+    from repro_torch.sc import autotune
+
+    rng = np.random.default_rng(5)
+    nbit = 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for case, m, k, n, row_keys in AT_FUSED_SHAPES:
+        keys = torch.tensor(rng.integers(0, 2**32, (m, 4), dtype=np.uint64)
+                            .astype(np.uint32)).to("cuda")
+        if not row_keys:
+            keys = keys[:1].expand(m, 4).contiguous()
+        x = torch.tensor(rng.uniform(-1, 1, (m, k)), dtype=torch.float32,
+                         device="cuda")
+        w = torch.tensor(rng.uniform(-1, 1, (k, n)), dtype=torch.float32,
+                         device="cuda")
+        kw = dict(k_orig=k, n_orig=n, nbit=nbit, levels=1 << 10,
+                  row_keys=row_keys)
+
+        def call(t):
+            return kf.sc_fused_popcount(keys, x, w, tile=t, **kw)
+
+        rec, (base,) = _tile_table(
+            autotune.candidate_tiles(m, k, n, nbit, sms),
+            autotune.heuristic_tile(m, k, n, nbit, sms),
+            autotune.get_tile(m, k, n, nbit, sms=sms),
+            lambda t: (call(t),), lambda t: time_ms(lambda: call(t), 3))
+        cols = min(n, PLAIN_COLS)
+        ref = kf.sc_fused_popcount_plain(keys, x, w[:, :cols].contiguous(),
+                                         **kw)
+        if not torch.equal(base[:, :cols], ref):
+            raise AssertionError(f"sc_fused {case}: the heuristic tile "
+                                 "differs from the plain version")
+        out[case] = dict(shape=[m, k, n], row_keys=row_keys,
+                         plain_cols=cols, **rec)
+        emit("autotune_at", kernel="sc_fused", case=case, **out[case])
+
+    cases = {c[0]: c for c in ATTN_CASES}
+    h, kvh, hd = QWEN_HEADS
+    for case, dtype in itertools.product(AT_ATTN_CASES, AT_ATTN_DTYPES):
+        _, sc, lengths, nb = cases[case]
+        keys, q, kp, vp, bt, ln = _attn_inputs(rng, sc, lengths, nb, dtype)
+        rows, bs, b = h // kvh * sc, kp.shape[1], q.shape[0]
+        dt = autotune.dtype_name(dtype)
+        for name, n in (("paged_attention_fused", 0),
+                        ("paged_attention_fused_sc", nbit)):
+            if n:
+                def call(t):
+                    return pa.paged_attention_fused_sc(
+                        keys, q, kp, vp, bt, ln, nbit=n, tile=t)
+
+                def outputs(t):
+                    return call(t), pa.sc_logits(keys, q, kp, bt, ln,
+                                                 nbit=n, tile=t)
+            else:
+                def call(t):
+                    return pa.paged_attention_fused(q, kp, vp, bt, ln,
+                                                    tile=t)
+
+                def outputs(t):
+                    return (call(t),)
+
+            def device_ms(t):
+                plan = pa.paged_attention_plan(b, kvh, rows, sc, hd, nb, bs,
+                                               n, t)
+                return autotune.device_us(lambda: call(t), plan.launches,
+                                          "paged_attn_") / 1e3
+
+            rec, _ = _tile_table(
+                autotune.candidate_attn_tiles(rows, bs, hd, n),
+                autotune.heuristic_attn_tile(rows, bs, hd, n),
+                autotune.get_attn_tile(rows, bs, hd, n, dt), outputs,
+                device_ms)
+            key = f"{name}_{case}_{dt}"
+            out[key] = dict(rows=rows, nbit=n, sc=sc, dtype=dt,
+                            lengths=list(lengths), nb=nb, clock="device",
+                            **rec)
+            emit("autotune_at", kernel=name, case=case, **out[key])
+    return out
+
+
+def tick_lookups(looked: dict) -> int:
+    """Phase A's traced decode tick looked every launch tile up in the
+    shipped cache: at least one hit and no miss.  Returns the hits."""
+    hits = sum(v for k, v in looked.items() if "result=hit" in k)
+    misses = sum(v for k, v in looked.items() if "result=miss" in k)
+    emit("serve_a_autotune", tick=A_TRACED_TICK, lookups=looked, hits=hits,
+         misses=misses)
+    if hits == 0 or misses:
+        raise AssertionError(f"serve_a: {hits} tile-cache hits and "
+                             f"{misses} misses in the traced decode tick")
+    return hits
+
+
+# ---------------------------------------------------------------------------
+# Phase X: the four examples on the card
+# ---------------------------------------------------------------------------
+
+# each example, and the lines of its output echoed (those holding a key)
+X_EXAMPLES = {
+    "torch_quickstart": ("SC product", "repeats", "sc_dot[", "packed",
+                         "LM forward", "array backend", "done on"),
+    "torch_serve_batch": ("serving", "served", "req 0"),
+    "torch_train_sc_lm": ("params", "SC substrate", "exact baseline",
+                          "SC loss penalty"),
+    "torch_fault_tolerance_demo": ("final loss", "max |param",
+                                   "BIT-IDENTICAL"),
+}
+X_TIMEOUT = 300  # s, for the four together
+
+
+def examples_phase() -> dict:
+    """The four ``examples/torch_*.py`` on the card at their defaults,
+    started together as subprocesses: each must exit with 0; its key
+    lines are echoed."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "examples", f"{name}.py")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=HERE)
+        for name in X_EXAMPLES
+    }
+    out, failed = {}, []
+    try:
+        for name, proc in procs.items():
+            left = max(1.0, X_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                text, _ = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+                text += f"\n[killed after {X_TIMEOUT} s]"
+            lines = text.strip().splitlines()
+            keep = [ln for ln in lines
+                    if any(key in ln for key in X_EXAMPLES[name])]
+            out[name] = dict(rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             lines=keep if proc.returncode == 0
+                             else lines[-12:])
+            emit("examples_x", example=name, **out[name])
+            if proc.returncode != 0:
+                failed.append(name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError(f"examples failed on the card: {failed}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 3-5: serving
 # ---------------------------------------------------------------------------
 
@@ -1333,10 +1560,13 @@ def _qwen_params(cfg, device):
 
 
 def serve(params, cfg, opts, prompts, max_new: int, device,
-          traced_tick=None, ranges=(), stagger=None, **build):
+          traced_tick=None, ranges=(), stagger=None, lookups=False,
+          **build):
     """Serve ``prompts`` greedily to the end.  Returns (engine, tokens by
     request, host ms per tick, trace): tick ``traced_tick`` runs under
-    the profiler (``device_trace`` with ``ranges``), else trace is None.
+    the profiler (``device_trace`` with ``ranges``), else trace is None;
+    with ``lookups`` the trace also holds the launch-tile lookups the
+    tick made (``autotune_lookups``).
     With ``stagger`` the first request is served alone until it has fed
     that many tokens (or finished), so that the rest find its blocks
     registered in the prefix cache.
@@ -1360,7 +1590,9 @@ def serve(params, cfg, opts, prompts, max_new: int, device,
             waiting = []
         if len(tick_ms) == traced_tick:
             before = dict(cuda_lib.launches)
-            _, trace = device_trace(eng.step, ranges)
+            with autotune_lookups(lookups) as looked:
+                _, trace = device_trace(eng.step, ranges)
+            trace["autotune"] = looked
             # the wrappers' own counts in the traced tick, beside the trace
             trace["counted"] = {
                 k: n - before.get(k, 0) for k, n in cuda_lib.launches.items()
@@ -1375,6 +1607,36 @@ def serve(params, cfg, opts, prompts, max_new: int, device,
         tick_ms.append((time.perf_counter() - t0) * 1e3)
     toks = {r.rid: list(r.generated) for r in eng.finished}
     return eng, toks, tick_ms, trace
+
+
+@contextlib.contextmanager
+def autotune_lookups(on: bool = True):
+    """The launch-tile lookups made inside the block, by series
+    (``sc_autotune_lookups_total{kind, result}`` of the default
+    registry, which is on for the block); an empty dict when ``on`` is
+    false."""
+    from repro_torch import obs
+
+    out: dict = {}
+    if not on:
+        yield out
+        return
+    reg = obs.default_registry()
+    was = reg.enabled
+
+    def series():
+        return {k: v for k, v in reg.snapshot()["counters"].items()
+                if k.startswith("sc_autotune_lookups_total")}
+
+    reg.enable()
+    before = series()
+    try:
+        yield out
+    finally:
+        out.update({k: v - before.get(k, 0) for k, v in series().items()
+                    if v != before.get(k, 0)})
+        if not was:
+            reg.disable()
 
 
 def serve_phase(name, cfg, opts, prompts, max_new, params, expect,
@@ -3945,6 +4207,7 @@ def main(argv=None) -> int:
     mac = check_sc_mac(rates)
     mac_train = check_sc_mac_train(rates)
     muls = check_sc_mul(rates)
+    tiles = autotune_phase()
 
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeOptions
@@ -3970,8 +4233,10 @@ def main(argv=None) -> int:
         params,
         ("sc_fused", "paged_attention_fused_sc"),
         traced_tick=A_TRACED_TICK,
+        lookups=True,
     )
     attention_trace(trace_a, cfg, opts, "serve_a_trace")
+    at_hits = tick_lookups(trace_a["autotune"])
     # the untraced decode ticks (ticks 0 and 1 prefill the prompts)
     decode_a = float(np.median(
         [t for i, t in enumerate(ticks_a) if i >= 2 and i != A_TRACED_TICK]
@@ -4031,6 +4296,8 @@ def main(argv=None) -> int:
         for arch in CROSS_TRAIN_ARCHS:
             train_cross_device(arch, workdir)
     cost_phase(args.layers, card)
+    torch.cuda.empty_cache()
+    examples_phase()
 
     serving = (
         counts_a,
@@ -4098,6 +4365,13 @@ def main(argv=None) -> int:
                 for case in ("ssm_wz", "ssm_wdt", "ssm_out", "hyb_wz",
                              "hyb_out")
             },
+            autotune={
+                case: {k: tiles[case][k] for k in
+                       ("shape", "candidates", "heuristic", "heuristic_ms",
+                        "best", "best_ms", "shipped", "shipped_ms")}
+                for case, *_ in AT_FUSED_SHAPES
+            },
+            autotune_hits_a_tick=at_hits,
         ),
         dict(
             name="paged_attention_fused",

@@ -47,6 +47,8 @@
 //    row, the splits merge in split order: m = max m_i,
 //    d = sum d_i e^(m_i - m), acc = sum acc_i e^(m_i - m), then
 //    out = acc / max(d, 1e-30).
+// The logits pass's block size is the launch's tile (sc/autotune.py:
+// AttnTile), and it changes no bit: a logit's total is an integer sum.
 // No float atomics anywhere: two launches give the same bits.  The
 // wrapper allocates the logits and the partials; the kernels allocate
 // nothing.  Where the caller passes a counters array (a measurement,
@@ -445,6 +447,9 @@ __global__ void paged_attn_combine_kernel(Args a) {
 // more than the units.  The unit counter starts at 0 on the stream.
 template <typename T>
 int launch_logits(const Args& a, cudaStream_t stream) {
+  if (a.logit_threads < 32 || a.logit_threads > kMaxLogitThreads ||
+      a.logit_threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   static int resident[kMaxLogitThreads / 32 + 1];  // blocks, by threads / 32
   const size_t bytes = 5 * static_cast<size_t>(a.hd) * sizeof(float);
   int& cap = resident[a.logit_threads / 32];
@@ -524,7 +529,9 @@ REPRO_DEFINE_ERROR_STRING
 // q and out (b, sc, h, hd) and k/v pages (P, bs, kvh, hd) share one
 // dtype, f32 (bf16 = 0) or bf16 (bf16 = 1); every K/V row starts on 16
 // bytes.  dims: b, kvh, rows, hd, bs, nb, sc, n_heads, group, nbit,
-// levels, quantize, pages_per_split, splits, logit_threads (15 ints).
+// levels, quantize, pages_per_split, splits, logit_threads (32 ..
+// kMaxLogitThreads, a multiple of 32, where there is a logits pass)
+// (15 ints).
 // keys (b, sc, 2) u32, the logits scratch (b, kvh, rows, nb * bs) f32
 // and the unit counter (1,) i32 are used only when sc_logits != 0; the
 // partials scratch (b, kvh, rows,

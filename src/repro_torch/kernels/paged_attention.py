@@ -17,7 +17,8 @@ Port of ``repro.kernels.paged_attention``.  One kernel source
   :func:`sc_qk_logits_host` is the one-token plain twin of those logits,
   :func:`sc_logits` / :func:`sc_logits_plain` all of a call's.
 
-On the card a call is spread over every SM (:func:`paged_attention_plan`):
+On the card a call is spread over every SM (:func:`paged_attention_plan`,
+whose launch tile comes from ``sc/autotune.py:get_attn_tile``):
 the SC logits as their own integer pass, the card's resident blocks
 taking the live logits from a shared counter; an
 online softmax · V per split of each row's pages (flash-decoding); and a
@@ -44,7 +45,7 @@ from repro_torch.kernels.sc_mul import (
     horner_step,
     popcount32,
 )
-from repro_torch.sc import ctr_rng
+from repro_torch.sc import autotune, ctr_rng
 
 NEG_INF = -1e30  # matches models/attention.py
 _DENOM_GUARD = 1e-30  # the output's divide guard
@@ -53,11 +54,7 @@ _MASK32 = 0xFFFFFFFF
 # elements per Threefry call in the plain SC logits (bounds its memory)
 _PLAIN_CHUNK = 1 << 20
 ROW_TILE = 16  # query rows per split-pass block (csrc kRowTile)
-# threads per logits-pass block (<= csrc kMaxLogitThreads = 1,024): the
-# fastest of 128-1,024 at phase A's decode and prefill and at a 1,024-token
-# cache on the card (tools/paged_attention_bench.py --logit-threads)
-MAX_LOGIT_THREADS = 256
-NUM_SMS = 132  # H100 SXM
+NUM_SMS = 132  # H100 SXM: the card the splits fill
 
 
 def _scale(hd: int) -> float:
@@ -117,8 +114,9 @@ class AttentionPlan:
     the card holds at once (the launcher asks the occupancy API), which
     take the (kv position, query row, batch row, kv head) logits of the
     table in that order, the position slowest, from a counter on the
-    card, and stop past the last position any row sees; pass 2 one block per (batch row, kv head, tile of
-    ``ROW_TILE`` query rows, split of ``pages_per_split`` pages); pass 3,
+    card, and stop past the last position any row sees; pass 2 one
+    block per (batch row, kv head, tile of ``ROW_TILE`` query rows,
+    split of ``pages_per_split`` pages); pass 3,
     when ``splits > 1``, one block per (batch row, kv head, query row).
     Split blocks past their tile's last live page exit at once, so the
     work follows the lengths without the host reading them.
@@ -171,12 +169,14 @@ class AttentionPlan:
         )
 
 
-@functools.lru_cache(maxsize=256)
 def paged_attention_plan(
     b: int, kvh: int, rows: int, sc: int, hd: int, nb: int, bs: int,
-    nbit: int = 0,
+    nbit: int = 0, tile: autotune.AttnTile | None = None,
+    dtype: str = "float32",
 ) -> AttentionPlan:
-    """Split count and tiles of one call: a pure function of the shapes.
+    """Split count and tiles of one call: a pure function of the shapes
+    and the launch tile (``None``: ``autotune.get_attn_tile``'s for
+    ``dtype``, q's, the tile the wrappers launch with).
 
     The context is cut into the fewest splits of whole pages that give
     the (batch row, kv head) pairs at least ``NUM_SMS`` blocks between
@@ -187,20 +187,23 @@ def paged_attention_plan(
     same order whatever the width of the call, so a width-(k+1)
     speculative verify gives each row the bits a width-1 decode gives
     it.  (Counting row tiles too gave a 64-page table 32 splits at
-    width 1 and 11 at width 5.)  The logits pass (``nbit > 0``) gives a
-    logit's block one thread per (d, word) pair, 32 to
-    ``MAX_LOGIT_THREADS``.
+    width 1 and 11 at width 5.)  The tile sets the logits pass's block
+    size (``nbit > 0``) alone, never the splits or the work a pass does.
     """
-    row_tiles = -(-rows // ROW_TILE)
+    if tile is None:
+        tile = autotune.get_attn_tile(rows, bs, hd, nbit, dtype)
+    return _plan(b, kvh, rows, sc, nb, bs, nbit, tile)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(b, kvh, rows, sc, nb, bs, nbit, tile) -> AttentionPlan:
     splits = min(nb, -(-NUM_SMS // (b * kvh)))
     per = -(-nb // splits)
-    threads = 0
-    if nbit:
-        pairs = hd * (nbit // LANE_BITS)
-        threads = min(MAX_LOGIT_THREADS, max(32, -(-pairs // 32) * 32))
     return AttentionPlan(
-        b=b, kvh=kvh, rows=rows, sc=sc, nb=nb, bs=bs, row_tiles=row_tiles,
-        pages_per_split=per, splits=-(-nb // per), logit_threads=threads,
+        b=b, kvh=kvh, rows=rows, sc=sc, nb=nb, bs=bs,
+        row_tiles=-(-rows // ROW_TILE), pages_per_split=per,
+        splits=-(-nb // per),
+        logit_threads=tile.logit_threads if nbit else 0,
     )
 
 
@@ -209,20 +212,23 @@ def paged_attention_plan(
 # ---------------------------------------------------------------------------
 
 
-def paged_attention_fused(q, k_pages, v_pages, block_table, lengths):
+def paged_attention_fused(q, k_pages, v_pages, block_table, lengths, *,
+                          tile=None):
     """Fused paged attention, deterministic QK^T.
 
     q: (b, sc, h, hd) post-rope queries (chunk token i of row r sits at
     absolute position ``lengths[r] + i``, K/V already scattered);
     k/v_pages: (P, bs, kvh, hd) block pools; block_table: (b, nb);
     lengths: (b,) pre-chunk fill.  Returns (b, sc, h, hd) in q's dtype.
+    ``tile`` (card only): the launch tile, ``None`` the autotuner's; no
+    tile changes a bit.
     """
     _check(q, k_pages, v_pages, block_table, lengths)
     if not q.is_cuda:
         return paged_attention_fused_plain(
             q, k_pages, v_pages, block_table, lengths
         )
-    out = _launch(q, k_pages, v_pages, block_table, lengths, None)
+    out = _launch(q, k_pages, v_pages, block_table, lengths, None, tile=tile)
     cuda_lib.launches["paged_attention_fused"] += 1
     return out
 
@@ -238,12 +244,13 @@ def paged_attention_fused_sc(
     nbit: int,
     operand_bits: int = 10,
     quantize: bool = True,
+    tile=None,
 ):
     """Fused paged attention with the SC-sampled QK^T.
 
     keys: (b, sc, 2) raw per-token keys, each already folded from its
-    request key and absolute position upstream.  Other operands as
-    :func:`paged_attention_fused`.
+    request key and absolute position upstream.  Other operands (and
+    ``tile``) as :func:`paged_attention_fused`.
     """
     _check(q, k_pages, v_pages, block_table, lengths)
     if nbit % LANE_BITS or nbit <= 0:
@@ -256,7 +263,8 @@ def paged_attention_fused_sc(
             keys, q, k_pages, v_pages, block_table, lengths, **kw
         )
     keys = ctr_rng.raw_key(keys).contiguous()
-    out = _launch(q, k_pages, v_pages, block_table, lengths, keys, **kw)
+    out = _launch(q, k_pages, v_pages, block_table, lengths, keys, tile=tile,
+                  **kw)
     cuda_lib.launches["paged_attention_fused_sc"] += 1
     return out
 
@@ -271,9 +279,11 @@ def sc_logits(
     nbit: int,
     operand_bits: int = 10,
     quantize: bool = True,
+    tile=None,
 ):
     """The SC logits of :func:`paged_attention_fused_sc` alone: its
-    logits pass on the card.  Returns (b, kvh, rows, nb·bs) float32 in
+    logits pass on the card (``tile``'s block size, ``None`` the
+    autotuner's).  Returns (b, kvh, rows, nb·bs) float32 in
     the ``_rows_layout`` row order, ``NEG_INF`` where the mask hides a
     position; equal bit for bit to :func:`sc_logits_plain`."""
     _check(q, k_pages, k_pages, block_table, lengths)
@@ -284,7 +294,7 @@ def sc_logits(
         return sc_logits_plain(keys, q, k_pages, block_table, lengths, **kw)
     keys = ctr_rng.raw_key(keys).contiguous()
     logits = _launch(q, k_pages, k_pages, block_table, lengths, keys,
-                     logits_only=True, **kw)
+                     logits_only=True, tile=tile, **kw)
     cuda_lib.launches["paged_attention_sc_logits"] += 1
     _, sc, h, _ = q.shape
     live = _live(lengths, h // k_pages.shape[2] * sc, sc, logits.shape[-1])
@@ -351,6 +361,7 @@ def _launch(
     quantize=True,
     logits_only=False,
     counters=None,
+    tile=None,
 ):
     dev = q.device
     tensors = (k_pages, v_pages, block_table, lengths)
@@ -376,7 +387,8 @@ def _launch(
     g = h // kvh
     rows = g * sc
     plan = paged_attention_plan(b, kvh, rows, sc, hd, nb, bs,
-                                nbit if keys is not None else 0)
+                                nbit if keys is not None else 0, tile,
+                                autotune.dtype_name(q.dtype))
     q = q.contiguous()
     bt = block_table.contiguous()
     ln = lengths.contiguous()

@@ -14,10 +14,12 @@ sums over K into int32 totals.  Integer accumulation is associative, so
 the totals are bitwise invariant to how the work is split.
 
 :func:`sc_fused_popcount` launches ``csrc/sc_fused.cu`` for CUDA tensors
-and runs :func:`sc_fused_popcount_plain` for CPU tensors.  Unlike the
-Pallas wrapper it takes unpadded operands: padding is inert (fx16 of 0
-gives an all-zero ladder), and the counters only depend on the caller's
-``n_orig`` / ``k_orig``.
+and runs :func:`sc_fused_popcount_plain` for CPU tensors; its launch
+shape (threads a block, K split) comes from ``sc/autotune.py:get_tile``,
+and no shape changes a bit.  Unlike the Pallas wrapper it takes
+unpadded operands: padding is inert (fx16 of 0 gives an all-zero
+ladder), and the counters only depend on the caller's ``n_orig`` /
+``k_orig``.
 """
 
 from __future__ import annotations
@@ -33,12 +35,11 @@ from repro_torch.kernels.sc_mul import (
     horner_step,
     popcount32,
 )
-from repro_torch.sc import ctr_rng, encoding
+from repro_torch.sc import autotune, ctr_rng, encoding
 
 _MASK32 = 0xFFFFFFFF
 # elements per Threefry call in the plain version (bounds its memory)
 _PLAIN_CHUNK = 1 << 20
-_THREADS = 128  # outputs per block in csrc/sc_fused.cu
 
 
 def encode_fx16(p, levels: int, quantize: bool):
@@ -76,6 +77,7 @@ def sc_fused_popcount(
     levels: int,
     quantize: bool = True,
     row_keys: bool = False,
+    tile: autotune.FusedTile | None = None,
 ):
     """Fused SC matmul -> (M, N) int32 signed pop-count totals.
 
@@ -83,7 +85,9 @@ def sc_fused_popcount(
     x: (M, K), w: (K, N) float32 signed probabilities in [-1, 1].
     ``k_orig`` / ``n_orig`` are the widths that define the flat product
     index.  With ``row_keys=True`` the row term drops out of the index
-    and every row draws from its own key's stream.
+    and every row draws from its own key's stream.  ``tile`` (card
+    only) is the launch shape; ``None`` takes ``autotune.get_tile``'s.
+    No tile changes a bit.
     """
     _check(keys, x_signed_p, w_signed_p, k_orig, n_orig, nbit)
     if not x_signed_p.is_cuda:
@@ -109,7 +113,11 @@ def sc_fused_popcount(
     out = torch.zeros((m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0 or k == 0:
         return out
-    ksplit = _k_split(m, k, n, dev)
+    if tile is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tile = autotune.get_tile(m, k, n, nbit, sms=sms)
+    if tile.threads not in autotune.FUSED_THREADS or tile.ksplit < 1:
+        raise ValueError(f"sc_fused_popcount: no launch for {tile}")
     row_stride = 0 if row_keys else (k_orig * n_orig) & _MASK32
     lib = _lib()
     with torch.cuda.device(dev):
@@ -121,7 +129,8 @@ def sc_fused_popcount(
             m,
             k,
             n,
-            ksplit,
+            tile.ksplit,
+            tile.threads,
             n_orig & _MASK32,
             row_stride,
             nbit,
@@ -134,16 +143,6 @@ def sc_fused_popcount(
     return out
 
 
-def _k_split(m: int, k: int, n: int, device) -> int:
-    """Blocks along K so the grid holds ~16 blocks per SM: narrow outputs
-    (wk/wv at N = 128) would otherwise leave most SMs idle."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = m * -(-n // _THREADS)
-    want = max(1, min(k, -(-16 * sms // tiles)))
-    chunk = -(-k // want)
-    return -(-k // chunk)
-
-
 _LIB = None
 
 
@@ -152,7 +151,7 @@ def _lib():
     if _LIB is None:
         lib = cuda_lib.load("sc_fused")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.sc_fused_popcount.argtypes = [p, p, p, p, i, i, i, i, u, u]
+        lib.sc_fused_popcount.argtypes = [p, p, p, p, i, i, i, i, i, u, u]
         lib.sc_fused_popcount.argtypes += [i, i, i, p]
         lib.sc_fused_popcount.restype = ctypes.c_int
         _LIB = lib

@@ -12,6 +12,9 @@ architecture simulator (``repro_torch.arch``).  ``use_device_profile``
 scopes a device-realism profile over every ``ScConfig`` the model stack
 builds.  ``draft_backend`` names the cheap backend speculative decoding
 drafts with for a verify backend (``register_draft_pair`` sets one).
+The launch shapes of the bit-exact kernels come from
+:mod:`repro_torch.sc.autotune` (a versioned cache measured on the card,
+a heuristic on a miss; no tile changes a bit).
 
 Scale-out lives in :mod:`repro_torch.sc.sharded`: ``sc_dot_sharded``
 splits one contraction over a ``torch.distributed`` device mesh (rows
@@ -20,6 +23,7 @@ merge), and ``use_mesh`` makes the model stack route every one-key
 stochastic matmul through it.
 """
 
+from repro_torch.sc import autotune  # noqa: F401
 from repro_torch.sc import backends as _backends  # noqa: F401  (registers)
 from repro_torch.sc import ctr_rng, encoding  # noqa: F401
 from repro_torch.core.physics import DeviceProfile  # noqa: F401

@@ -20,6 +20,7 @@ from repro.kernels import paged_attention as jpa
 from repro.models import attention as jattn
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.models import attention as tattn
+from repro_torch.sc import autotune
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -211,10 +212,13 @@ def test_paged_attention_plan_fills_the_card():
     """Phase A's decode tick (2 rows of 15 and 11 positions, 14 heads)
     gives the SC logits pass 392 live logits, the first units in launch
     order (so each lands in a block of its own); a 1,024-token cache
-    gives the softmax pass a block per 2 pages."""
-    plan = tpa.paged_attention_plan(2, 2, 7, 1, 64, 4, 16, 1024)
+    gives the softmax pass a block per 2 pages.  (The heuristic tile:
+    the shipped cache may hold another block size, which changes no
+    count.)"""
+    tile = autotune.heuristic_attn_tile(7, 16, 64, 1024)
+    plan = tpa.paged_attention_plan(2, 2, 7, 1, 64, 4, 16, 1024, tile)
     assert plan.live_blocks([15, 11])["logits"] == 392 >= tpa.NUM_SMS
-    assert plan.logit_threads == tpa.MAX_LOGIT_THREADS
+    assert plan.logit_threads == autotune.HEURISTIC_LOGIT_THREADS
     plan = tpa.paged_attention_plan(2, 2, 7, 1, 64, 64, 16, 1024)
     assert plan.pages_per_split == 2 and plan.splits == 32
     assert plan.live_blocks([1023, 700])["split"] == 2 * (32 + 22)

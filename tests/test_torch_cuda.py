@@ -6,7 +6,9 @@ where JAX is not installed:
 
     python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
-Classes: ``sc_fused`` and ``sc_mul_popcount`` totals bit-equal (and the
+Classes: every autotuner candidate tile of kernels 1-3 gives the
+heuristic tile's bits; ``sc_fused`` and ``sc_mul_popcount`` totals
+bit-equal (and the
 ``pallas_bitexact`` backend on the packed kernel equal to ``pallas_fused``
 and to the CPU); the SC attention logits pass bit-equal to the plain
 logits, attention outputs within 1e-5 in float32 (also at a 64-page
@@ -40,6 +42,7 @@ from repro_torch.kernels import sc_mac as km
 from repro_torch.kernels import sc_mul as kmul
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm, params
+from repro_torch.sc import autotune
 from repro_torch.serve import Request, ServeOptions, build_engine
 
 pytestmark = pytest.mark.requires_cuda
@@ -73,6 +76,59 @@ def test_sc_fused_kernel_bit_equals_plain(cuda, row_keys):
     assert cuda_lib.launches["sc_fused"] == before + 1
     want = kf.sc_fused_popcount_plain(keys, x, w, **kw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 37, 300), (12, 96, 40)])
+def test_every_sc_fused_tile_gives_the_same_bits(cuda, m, k, n):
+    """Every candidate launch shape of kernel 1 (block size, K split)
+    gives the heuristic's totals, which equal the plain version's."""
+    rng = np.random.default_rng(m)
+    keys = _u32(rng, (m, 4)).to(cuda)
+    x = torch.tensor(rng.uniform(-1, 1, (m, k)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(-1, 1, (k, n)), dtype=torch.float32)
+    x, w = x.to(cuda), w.to(cuda)
+    kw = dict(k_orig=k, n_orig=n, nbit=128, levels=1024, row_keys=True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    base = kf.sc_fused_popcount(
+        keys, x, w, tile=autotune.heuristic_tile(m, k, n, 128, sms), **kw)
+    assert torch.equal(base, kf.sc_fused_popcount_plain(keys, x, w, **kw))
+    cands = autotune.candidate_tiles(m, k, n, 128, sms)
+    assert len({t.threads for t in cands}) == len(autotune.FUSED_THREADS)
+    for tile in cands:
+        got = kf.sc_fused_popcount(keys, x, w, tile=tile, **kw)
+        assert torch.equal(got, base), tile
+    with pytest.raises(ValueError, match="no launch"):
+        kf.sc_fused_popcount(keys, x, w, tile=autotune.FusedTile(96, 1),
+                             **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sc", [1, 5])
+def test_every_attention_tile_gives_the_same_bits(cuda, sc, dtype):
+    """Every candidate tile of kernels 2 and 3 (the logits pass's block
+    size) gives the heuristic's outputs and SC logits bit for bit, on
+    ragged rows over several splits, in both dtypes the wrappers take."""
+    rng = np.random.default_rng(20 + sc)
+    bs, nb, h, kvh, hd, nbit = 8, 6, 12, 2, 64, 64
+    case = _attn_case(rng, dtype, b=3, sc=sc, h=h, kvh=kvh, hd=hd,
+                      bs=bs, nb=nb, lengths=[0, 2 * bs - 2, bs * nb - sc])
+    keys, q, kp, vp, bt, ln = (t.to(cuda) for t in case)
+    rows = h // kvh * sc
+    for n in (0, nbit):
+        heur = autotune.heuristic_attn_tile(rows, bs, hd, n)
+        if n:
+            call = (lambda t: pa.paged_attention_fused_sc(
+                keys, q, kp, vp, bt, ln, nbit=n, tile=t))
+            logits = pa.sc_logits(keys, q, kp, bt, ln, nbit=n, tile=heur)
+        else:
+            call = (lambda t: pa.paged_attention_fused(q, kp, vp, bt, ln,
+                                                       tile=t))
+        base = call(heur)
+        for tile in autotune.candidate_attn_tiles(rows, bs, hd, n):
+            assert torch.equal(call(tile), base), tile
+            if n:
+                assert torch.equal(pa.sc_logits(keys, q, kp, bt, ln, nbit=n,
+                                                 tile=tile), logits), tile
 
 
 @pytest.mark.parametrize("m,w", [(13, 32), (1000, 1), (9, 4), (70, 40)])

@@ -1,11 +1,12 @@
 """Structure of the PyTorch port: what it imports, where it runs, and
 that it mirrors the reference's public names.
 
-* no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports
+* no module of ``src/repro_torch`` (nor ``chip_smoke.py``,
+  ``tools/torch_autotune.py`` or the ``examples/torch_*.py``) imports
   ``jax`` or anything of the JAX package ``repro``;
 * entry points default to the card and refuse to fall back to the CPU;
-* the ported modules keep the reference's names, and every model module
-  and config of the reference has its port; the audio family and the
+* the ported modules keep the reference's names, and every file of the
+  reference has its port but three stand-ins; the audio family and the
   embeddings frontend run.
 """
 
@@ -37,7 +38,13 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tools/torch_autotune.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == [
+        "torch_fault_tolerance_demo.py", "torch_quickstart.py",
+        "torch_serve_batch.py", "torch_train_sc_lm.py"]
+    files += examples
     assert len(files) > 20
     bad = []
     for path in files:
@@ -127,6 +134,22 @@ def test_engine_refuses_params_on_another_device():
 
 # What ``src/repro/{models,configs}`` has and the port lacks: nothing.
 UNPORTED = set()
+# The files of ``src/repro`` the port stands in for: a jax-version shim
+# (no counterpart needed), the Pallas kernels' references (the port's
+# plain versions beside each kernel) and the HLO cost parser (the port
+# has no HLO: ``launch/cost_analysis.py``).
+STAND_INS = {"compat.py", "kernels/ref.py", "launch/hlo_analysis.py"}
+
+
+def test_port_tree_mirrors_the_reference_but_the_stand_ins():
+    ref = ROOT / "src" / "repro"
+    missing = {
+        str(p.relative_to(ref)) for p in ref.rglob("*")
+        if p.is_file() and "__pycache__" not in p.parts
+        and not (PORT / p.relative_to(ref)).exists()
+    }
+    assert missing == STAND_INS
+    assert (PORT / PORT_FILES["launch/hlo_analysis.py"]).exists()
 
 
 def test_port_mirrors_the_reference_models_and_configs():
@@ -167,6 +190,8 @@ SCALE_OUT = {
     "configs/__init__.py": set(),
     "models/params.py": set(),
     "sc/encoding.py": set(),
+    # not scale-out: the launch-tile autotuner, every public name
+    "sc/autotune.py": set(),
 }
 # reference modules and names the port holds under another name
 PORT_FILES = {"launch/hlo_analysis.py": "launch/cost_analysis.py"}
