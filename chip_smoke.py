@@ -160,7 +160,18 @@ code is non-zero):
    grid off: losses and gradient leaves within 1e-4; TM-c, pod 2 x data
    1 x model 2 with ``cross_pod_compress``, 2 steps: equal finite losses
    and residuals on every rank, the residual non-zero with a leading
-   pod dim of 2;
+   pod dim of 2; TM-f, TM-a's model, batch, optimizer and data on the
+   same mesh with ``TrainConfig(fsdp=True)`` (each rank its FSDP ∘ TP
+   shard of the parameters, ``m`` and ``v``; each layer all-gathered
+   inside its checkpoint, the gradients reduce-scattered over the data
+   pair), 3 steps: a rank's persistent state bytes equal to the plan
+   from ``param_shardings``, its peak below TM-a's, the all-gathers,
+   reduce-scatters and gradient all-reduces of each step (tracer spans)
+   equal in count and bytes to ``sharding.fsdp.collective_plan``,
+   kernel 5's launches a step ``kernel5_plan``'s, the step ms and the
+   collectives' share, and the gathered parameters after the steps
+   within 2 lr a step of TM-a's with at most 1e-3 of them past 0.2 lr
+   (``TM_F_TOL_LR``);
 8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
    decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
    kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
@@ -3247,7 +3258,8 @@ def state_checksums(state) -> list:
 
 
 def _span_totals(tracer, names) -> dict:
-    """Seconds and bytes of the tracer's spans by name, then cleared."""
+    """Seconds, bytes and count of the tracer's spans by name, then
+    cleared."""
     out = {n: {"s": 0.0, "bytes": 0, "count": 0} for n in names}
     for sp in tracer.spans:
         if sp.name in out:
@@ -3256,6 +3268,12 @@ def _span_totals(tracer, names) -> dict:
             out[sp.name]["count"] += 1
     tracer.spans.clear()
     return out
+
+
+# the collectives of a mesh step, each a span of the tracer
+TM_SPANS = ("train.grad_allreduce", "sc.merge", "train.pod_exchange",
+            "train.ef_exchange", "mesh.all_gather", "mesh.reduce_scatter",
+            "fsdp.grad_allreduce")
 
 
 def tm_steps(mesh, cfg, tcfg, steps: int, state=None) -> dict:
@@ -3268,7 +3286,8 @@ def tm_steps(mesh, cfg, tcfg, steps: int, state=None) -> dict:
     from repro_torch.train import make_train_step, train_state_init
 
     if state is None:
-        state = train_state_init(0, cfg, tcfg, device=mesh.device)
+        state = train_state_init(0, cfg, tcfg, device=mesh.device,
+                                 mesh=mesh)
     step = make_train_step(cfg, tcfg, mesh)
     tracer = install_tracer(Tracer())
     rec = {"loss": [], "ms": [], "spans": [], "checksums": []}
@@ -3282,9 +3301,7 @@ def tm_steps(mesh, cfg, tcfg, steps: int, state=None) -> dict:
             torch.cuda.synchronize()
             rec["ms"].append((time.perf_counter() - t0) * 1e3)
             rec["loss"].append(loss)
-            rec["spans"].append(_span_totals(
-                tracer, ("train.grad_allreduce", "sc.merge",
-                         "train.pod_exchange", "train.ef_exchange")))
+            rec["spans"].append(_span_totals(tracer, TM_SPANS))
             rec["checksums"].append(state_checksums(state))
     finally:
         uninstall_tracer(tracer)
@@ -3340,19 +3357,99 @@ def tm_smoke(mesh_cuda, mesh_cpu) -> dict:
     return rec
 
 
+# TM-f's gathered parameters after TM_STEPS steps against TM-a's, in
+# units of TM_ADAM's learning rate, as tests/test_torch_train_mesh.py
+# holds its grid-on case: the values are TM-a's but for the gradient
+# norm's sum order over the ranks (the clip a last place apart); with
+# the 10-bit operand grid on, an operand a last place apart can cross a
+# grid step, and where a gradient is noise Adam moves a parameter by up
+# to 2 lr a step either way.  So every element within 2 lr a step, and
+# at most TM_F_FLIP_SHARE of them past 0.2 lr.
+TM_F_TOL_LR, TM_F_QUIET_LR, TM_F_FLIP_SHARE = 2.0 * TM_STEPS, 0.2, 1e-3
+
+
+def tm_fsdp_plan(cfg, mesh) -> dict:
+    """TM-f's plan, from the code before the run: the collectives of a
+    step (``sharding.fsdp.collective_plan``) and a rank's persistent
+    state bytes (parameters, ``m`` and ``v`` at their shard shapes from
+    ``param_shardings``, and the int32 step)."""
+    from repro_torch.launch.dryrun import _sharded_bytes
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models import lm
+    from repro_torch.models.params import abstract_params
+    from repro_torch.sharding import fsdp, param_shardings
+
+    specs = lm.lm_param_specs(cfg)
+    whole = abstract_params(specs, cfg.param_dtype)
+    return dict(
+        collectives=fsdp.collective_plan(cfg, mesh,
+                                         reduce_axes=batch_axes(mesh)),
+        state_bytes=3 * _sharded_bytes(whole, param_shardings(specs, mesh))
+        + 4)
+
+
+def tm_fsdp(mesh, cfg, tm_a_params) -> dict:
+    """Phase TM-f (in every rank): TM-a's model, batch, optimizer and data
+    on the same mesh with ``TrainConfig(fsdp=True)``, TM_STEPS steps:
+    the rank's persistent state bytes, its peak memory, the collectives
+    of each step (tracer spans: count, bytes, seconds, host copies),
+    kernel 5's launches, and the gathered parameters after the steps
+    against TM-a's (``tm_a_params``, on the host)."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.models.params import _leaves, tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import param_shardings
+    from repro_torch.train import TrainConfig, train_state_init
+
+    plan = tm_fsdp_plan(cfg, mesh)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM), fsdp=True)
+    torch.cuda.empty_cache()
+    state = train_state_init(0, cfg, tcfg, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    run = tm_steps(mesh, cfg, tcfg, TM_STEPS, state)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cuda_lib.launches)
+    del state
+    placements = dict(_leaves(param_shardings(lm.lm_param_specs(cfg),
+                                              mesh)))
+    want = dict(_leaves(tm_a_params))
+    lr = TM_ADAM["lr"]
+    gap, worst, past, total = 0.0, None, 0, 0
+    for path, shard in _leaves(run["state"]["params"]):
+        d = (placements[path].gather(shard).cpu() - want[path]).abs()
+        if worst is None or float(d.max()) > gap:
+            gap, worst = float(d.max()), "/".join(path)
+        past += int((d > TM_F_QUIET_LR * lr).sum())
+        total += d.numel()
+    del run["state"]
+    torch.cuda.empty_cache()
+    return dict(plan=plan, state_bytes=state_bytes,
+                max_memory_allocated=peak, launches=launches,
+                loss=run["loss"], step_ms=run["ms"], spans=run["spans"],
+                param_gap=gap, param_gap_leaf=worst,
+                param_tol=TM_F_TOL_LR * lr, params_past_quiet=past,
+                params=total, quiet_tol=TM_F_QUIET_LR * lr)
+
+
 def tm_rank(outdir: str, layers: int) -> int:
     """One rank of phase TM, started by :func:`train_mesh_phase` under
     ``torchrun``: TM-a (qwen2-0.5b at full width, depth ``layers``, on
     the data 2 x model 2 mesh, TM_STEPS steps), TM-b (the SMOKE trainer
     on the same mesh, card against CPU) and TM-c (pod 2 x data 1 x
-    model 2 with the cross-pod compression).  Writes ``tm_rank<r>.json``
+    model 2 with the cross-pod compression), then TM-f (TM-a on the FSDP
+    ∘ TP layout, :func:`tm_fsdp`).  Writes ``tm_rank<r>.json``
     in ``outdir``."""
     import torch.distributed as dist
 
     from repro_torch.distributed import init_error_feedback
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch.mesh import DeviceMesh, make_local_mesh
-    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, train_state_init
 
@@ -3371,10 +3468,14 @@ def tm_rank(outdir: str, layers: int) -> int:
     run = tm_steps(mesh, cfg, tcfg, TM_STEPS, state)
     launches = dict(cuda_lib.launches)
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    tm_a_params = tree_map(lambda t: t.detach().cpu(),
+                           run["state"]["params"])
     del state, run["state"]
     torch.cuda.empty_cache()
     rec.update(launches=launches, loss=run["loss"], step_ms=run["ms"],
                spans=run["spans"], checksums=run["checksums"])
+    rec["fsdp"] = tm_fsdp(mesh, cfg, tm_a_params)
+    del tm_a_params
 
     rec["smoke"] = tm_smoke(mesh, make_local_mesh(TM_MODEL_PARALLEL,
                                                   device="cpu"))
@@ -3514,7 +3615,99 @@ def train_mesh_phase(layers: int, card: str, t_losses: dict, ranks: list,
     ):
         if not ok:
             raise AssertionError(f"train_tm: {what}")
-    return dict(summary, launches=first["launches"], ranks_detail=ranks)
+    fsdp = train_fsdp_phase(ranks, plan, card)
+    return dict(summary, launches=first["launches"], ranks_detail=ranks,
+                fsdp=fsdp)
+
+
+FSDP_COLLECTIVES = {"all-gather": "mesh.all_gather",
+                    "reduce-scatter": "mesh.reduce_scatter",
+                    "all-reduce": "fsdp.grad_allreduce"}
+
+
+def train_fsdp_phase(ranks: list, plan: dict, card: str) -> dict:
+    """Phase TM-f's checks (``ranks``: what each TM rank wrote, TM-a
+    beside TM-f's ``fsdp`` record): per rank the persistent state bytes
+    against the shard plan, the peak against TM-a's, each step's
+    all-gathers, reduce-scatters and gradient all-reduces (count and
+    bytes) against the collective plan, kernel 5's launches a step
+    against ``kernel5_plan``, the step ms and the collectives' share,
+    and the gathered parameters against TM-a's."""
+    out = []
+    for rec in ranks:
+        f = rec["fsdp"]
+        coll = f["plan"]["collectives"]
+        per_step = [{kind: {"count": sp[name]["count"],
+                            "bytes": sp[name]["bytes"]}
+                     for kind, name in FSDP_COLLECTIVES.items()
+                     if kind in coll} for sp in f["spans"]]
+        want = {kind: coll[kind] for kind in FSDP_COLLECTIVES if kind in coll}
+        step_s = [ms / 1e3 for ms in f["step_ms"]]
+        coll_s = [sum(sp[n]["s"] for n in TM_SPANS) for sp in f["spans"]]
+        r = dict(
+            rank=rec["rank"], coords=rec["coords"],
+            state_bytes=f["state_bytes"],
+            state_bytes_plan=f["plan"]["state_bytes"],
+            max_memory_allocated=f["max_memory_allocated"],
+            tm_a_max_memory_allocated=rec["max_memory_allocated"],
+            collectives_per_step=per_step[0], collectives_plan=want,
+            launches_per_step={k: f["launches"].get(k, 0) / TM_STEPS
+                               for k in plan},
+            kernel5_plan=plan, loss=f["loss"], tm_a_loss=rec["loss"],
+            step_ms=f["step_ms"], tm_a_step_ms=rec["step_ms"],
+            median_step_ms=float(np.median(f["step_ms"])),
+            collective_share=float(np.median(
+                [c / s for c, s in zip(coll_s, step_s)])),
+            param_gap=f["param_gap"], param_gap_leaf=f["param_gap_leaf"],
+            param_tol=f["param_tol"], quiet_tol=f["quiet_tol"],
+            params_past_quiet=f["params_past_quiet"], params=f["params"])
+        emit("train_tm_fsdp_rank", **r)
+        for ok, what in (
+            (r["state_bytes"] == r["state_bytes_plan"],
+             f"state bytes {r['state_bytes']}, planned "
+             f"{r['state_bytes_plan']}"),
+            (r["max_memory_allocated"] < r["tm_a_max_memory_allocated"],
+             f"peak {r['max_memory_allocated']} not below TM-a's "
+             f"{r['tm_a_max_memory_allocated']}"),
+            (all(s == want for s in per_step),
+             f"collectives a step {per_step}, planned {want}"),
+            (r["launches_per_step"] == plan
+             and set(f["launches"]) <= set(plan),
+             f"kernel-5 launches a step {r['launches_per_step']}, planned "
+             f"{plan}"),
+            (all(math.isfinite(v) for v in r["loss"]),
+             f"a loss is not finite: {r['loss']}"),
+            (r["param_gap"] <= r["param_tol"]
+             and r["params_past_quiet"] <= TM_F_FLIP_SHARE * r["params"],
+             f"gathered parameters {r['param_gap']} from TM-a's "
+             f"({r['param_gap_leaf']}), tolerance {r['param_tol']}; "
+             f"{r['params_past_quiet']} of {r['params']} past "
+             f"{r['quiet_tol']}"),
+        ):
+            if not ok:
+                raise AssertionError(f"train_tm_fsdp: rank {r['rank']}: "
+                                     f"{what}")
+        out.append(r)
+    if any(r["loss"] != out[0]["loss"] for r in out):
+        raise AssertionError("train_tm_fsdp: the ranks' losses differ")
+    summary = dict(
+        card=card, mesh=ranks[0]["mesh"], ranks=len(out),
+        state_bytes=[r["state_bytes"] for r in out],
+        state_bytes_plan=out[0]["state_bytes_plan"],
+        max_memory_allocated=[r["max_memory_allocated"] for r in out],
+        tm_a_max_memory_allocated=[r["tm_a_max_memory_allocated"]
+                                   for r in out],
+        collectives_per_step=out[0]["collectives_per_step"],
+        launches_per_step=out[0]["launches_per_step"], kernel5_plan=plan,
+        median_step_ms=[r["median_step_ms"] for r in out],
+        collective_share=[r["collective_share"] for r in out],
+        loss=out[0]["loss"], tm_a_loss=out[0]["tm_a_loss"],
+        param_gap=max(r["param_gap"] for r in out),
+        param_tol=out[0]["param_tol"],
+        params_past_quiet=[r["params_past_quiet"] for r in out],
+        params=out[0]["params"], quiet_tol=out[0]["quiet_tol"])
+    emit("train_tm_fsdp", **summary)
+    return summary
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,16 @@ after every leaf and the metadata are written and ``META.json`` is
 fsync'd, so :func:`latest_step` only ever sees complete directories.
 A checkpoint written by either package restores in the other.
 
-On a ``torch.distributed`` world every rank holds the whole state, so
-:func:`save` writes from rank 0 alone and the others wait at a barrier
-until the rename is done: no rank restores from, or lists, a half-written
-step.  :func:`restore_resharded` restores a checkpoint whatever mesh
-saved it and places every leaf as the current mesh says.
+On a ``torch.distributed`` world :func:`save` writes from rank 0 alone
+and the others wait at a barrier until the rename is done: no rank
+restores from, or lists, a half-written step.  A state held whole on
+every rank is written as it is; a state in the train step's FSDP ∘ TP
+layout (``shardings``: a ``Placement`` per leaf,
+``sharding.fsdp.state_placements``) is gathered leaf by leaf, every rank
+taking part, so one whole leaf at a time is live, and written in the
+same layout.  :func:`restore_resharded` restores a checkpoint whatever
+mesh saved it and keeps each leaf as the current mesh places it: the
+rank's shard, cut on the host before it moves to the device.
 
 bfloat16 leaves: numpy has no bfloat16.  The JAX package saves them
 through ``ml_dtypes``, whose ``.npy`` header reads ``'<V2'`` (raw
@@ -51,28 +56,42 @@ def _to_numpy(leaf) -> np.ndarray:
     return t.numpy()
 
 
-def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
+def save(ckpt_dir: str, step: int, tree, extra: dict | None = None, *,
+         shardings=None) -> str:
     """Atomically write ``tree`` as step ``step``.  Returns the path.  In
     a world of several ranks rank 0 writes and every rank returns after
-    the checkpoint is complete."""
+    the checkpoint is complete.  With ``shardings`` (a ``Placement`` for
+    every leaf) the leaves are shards, gathered one at a time."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    items = _flatten_with_paths(tree)
+    if shardings is not None:
+        pls = [s for _, s in _leaves(shardings)]
+        if len(pls) != len(items):
+            raise ValueError(f"{len(pls)} placements for a state of "
+                             f"{len(items)} leaves")
+        items = ((key, pl.gather(leaf) if isinstance(leaf, torch.Tensor)
+                  else leaf) for (key, leaf), pl in zip(items, pls))
     if dist.is_initialized() and dist.get_world_size() > 1:
         if dist.get_rank() == 0:
-            _write(ckpt_dir, final, step, tree, extra)
+            _write(ckpt_dir, final, step, items, extra)
+        else:
+            for _ in items:  # take part in every gather
+                pass
         dist.barrier()
         return final
-    return _write(ckpt_dir, final, step, tree, extra)
+    return _write(ckpt_dir, final, step, items, extra)
 
 
-def _write(ckpt_dir: str, final: str, step: int, tree, extra) -> str:
+def _write(ckpt_dir: str, final: str, step: int, items, extra) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = []
-    for i, (key, leaf) in enumerate(_flatten_with_paths(tree)):
+    for i, (key, leaf) in enumerate(items):
         arr = _to_numpy(leaf)
+        del leaf
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest.append(
@@ -105,12 +124,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _to_tensor(arr: np.ndarray, entry: dict, like) -> torch.Tensor:
+def _to_tensor(arr: np.ndarray, entry: dict, like, cut=None
+               ) -> torch.Tensor:
     if arr.dtype.kind == "V" and entry["dtype"] == "bfloat16":
         bits = torch.from_numpy(arr.view(np.int16).copy())
         t = bits.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
+    if cut is not None:
+        t = cut(t)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return t
@@ -119,6 +141,12 @@ def _to_tensor(arr: np.ndarray, entry: dict, like) -> torch.Tensor:
 def restore(ckpt_dir: str, tree_like, step: int | None = None):
     """Restore into the structure (dtypes, devices) of ``tree_like``.
     Returns ``(tree, meta_extra, step)``."""
+    return _restore(ckpt_dir, tree_like, step)
+
+
+def _restore(ckpt_dir: str, tree_like, step, cuts=None):
+    """:func:`restore`, each whole leaf first taken on the host by its
+    callable in ``cuts`` (one a leaf) to what this rank keeps."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -131,8 +159,9 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None):
         raise ValueError(
             f"checkpoint has {len(manifest)} leaves, expected {len(like)}"
         )
+    cuts = cuts or [None] * len(like)
     out: dict = {}
-    for (key, leaf), entry in zip(like, manifest):
+    for (key, leaf), entry, cut in zip(like, manifest, cuts):
         if entry["key"] != key:
             raise ValueError(f"checkpoint leaf {entry['key']!r} != {key!r}")
         arr = np.load(os.path.join(path, entry["file"]))
@@ -140,29 +169,22 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None):
         parts = key.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = _to_tensor(arr, entry, leaf)
+        node[parts[-1]] = _to_tensor(arr, entry, leaf, cut)
     return out, meta["extra"], step
 
 
 def restore_resharded(ckpt_dir: str, tree_like, shardings,
                       step: int | None = None):
-    """Elastic restore: :func:`restore`, then every leaf placed by the
-    matching leaf of ``shardings`` (``sharding.param_shardings``'s
-    :class:`~repro_torch.sharding.Placement` tree, built from the
-    CURRENT mesh, whatever mesh saved the checkpoint).  Every rank holds
-    each leaf whole, so placing is moving it to the rank's device.  As in
-    the reference, the leaves are placed only when ``shardings`` has as
-    many leaves as the state."""
-    tree, extra, step = restore(ckpt_dir, tree_like, step)
-    flat_t = list(_leaves(tree))
+    """Elastic restore: :func:`restore`, every leaf kept as the matching
+    leaf of ``shardings`` places it (a
+    :class:`~repro_torch.sharding.Placement` tree built from the CURRENT
+    mesh, whatever mesh saved the checkpoint; ``sharding.fsdp.
+    state_placements`` for a whole train state): the rank's shard, on
+    ``tree_like``'s device.  As in the reference, the leaves are placed
+    only when ``shardings`` has as many leaves as the state; otherwise
+    every leaf is restored whole."""
     flat_s = [s for _, s in _leaves(shardings)]
-    if len(flat_s) == len(flat_t):
-        out: dict = {}
-        for (path, v), s in zip(flat_t, flat_s):
-            device = getattr(s, "device", None)
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = v if device is None else v.to(device)
-        tree = out
-    return tree, extra, step
+    cuts = None
+    if len(flat_s) == len(list(_leaves(tree_like))):
+        cuts = [s.shard for s in flat_s]
+    return _restore(ckpt_dir, tree_like, step, cuts)

@@ -17,21 +17,29 @@ count: so every rank holds the reference's bits.  The residual keeps the
 reference's layout, ``(n_pods, ...)`` per leaf on every rank (the pods'
 new rows are exchanged after each step), so a checkpoint written by any
 one rank holds them all.
+
+The per-tensor scale is the whole leaf's: each leaf's absmax is
+MAX-reduced over the pod's ranks first.  Where every rank holds the
+whole gradient that changes no bit; under the train step's FSDP ∘ TP
+layout each rank compresses its shard of the data-reduced gradient (its
+residual ``(n_pods, *shard)``; the pod group of a rank holds the same
+shard in every pod, so the exchange is unchanged), and every element
+quantizes as in the replicated step.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.mesh import collective_span
+from repro_torch.launch.mesh import all_reduce, collective_span
 from repro_torch.models.params import _leaves, _set
 from repro_torch.sc.sharded import _gather, sum_in_order
 
 
-def _quantize(g):
-    """int8 payload and per-tensor scale (absmax / 127); rounding halves
-    to even, as ``jnp.round`` does."""
-    scale = torch.clamp_min(g.abs().max(), 1e-20) / 127.0
+def _quantize(g, amax):
+    """int8 payload and per-tensor scale (``amax``, the whole leaf's
+    absmax, / 127); rounding halves to even, as ``jnp.round`` does."""
+    scale = torch.clamp_min(amax, 1e-20) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -50,6 +58,17 @@ def _pod_gather(t, mesh):
     """Every pod's ``t`` stacked in pod order: ``(n_pods, *t.shape)``,
     bits copied exactly."""
     return _gather(t, mesh, ("pod",))
+
+
+def _leaf_absmax(gs, mesh):
+    """Each leaf's absmax over the pod's ranks: one MAX all-reduce of the
+    ranks' absmaxes over every other axis of size > 1 (a rank holding a
+    replica changes no maximum)."""
+    amax = torch.stack([g.abs().max() for g in gs])
+    for a, n in mesh.shape.items():
+        if n > 1 and a != "pod":
+            all_reduce(amax, mesh, a, op="max")
+    return amax
 
 
 def compressed_grads(grad_fn, mesh):
@@ -77,11 +96,10 @@ def compressed_grads(grad_fn, mesh):
         loss, grads = grad_fn(params, batch)
         items = list(_leaves(grads))
         efs = dict(_leaves(ef))
-        gs, qs, scales = [], [], []
-        for path, g in items:
-            g = g.to(torch.float32) + efs[path][pod]
-            q, scale = _quantize(g)
-            gs.append(g)
+        gs = [g.to(torch.float32) + efs[path][pod] for path, g in items]
+        qs, scales = [], []
+        for g, a in zip(gs, _leaf_absmax(gs, mesh)):
+            q, scale = _quantize(g, a)
             qs.append(q)
             scales.append(scale)
         scales = torch.stack(scales)

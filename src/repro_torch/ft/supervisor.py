@@ -178,6 +178,9 @@ class Supervisor:
         default_factory=StragglerMonitor
     )
     on_straggler: Callable | None = None
+    # a Placement per leaf of a sharded state (sharding.fsdp.
+    # state_placements): checkpoints gather it and restores cut it
+    shardings: object = None
     restarts: int = 0
     last_heartbeat: float = dataclasses.field(default_factory=time.monotonic)
 
@@ -215,7 +218,8 @@ class Supervisor:
                 step += 1
                 if step % self.ckpt_every == 0:
                     checkpoint.save(
-                        self.ckpt_dir, step, state, extra={"data_step": step}
+                        self.ckpt_dir, step, state, extra={"data_step": step},
+                        shardings=self.shardings,
                     )
             except WorkerFailure as e:
                 self.restarts += 1
@@ -229,7 +233,11 @@ class Supervisor:
                     history["recoveries"].append((step, 0))
                     step = start_step
                     continue
-                state, extra, _ = checkpoint.restore(self.ckpt_dir, state)
+                if self.shardings is None:
+                    state, extra, _ = checkpoint.restore(self.ckpt_dir, state)
+                else:
+                    state, extra, _ = checkpoint.restore_resharded(
+                        self.ckpt_dir, state, self.shardings)
                 step = extra["data_step"]
                 history["recoveries"].append((step, restored))
         return state, history

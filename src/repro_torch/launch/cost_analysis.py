@@ -32,9 +32,11 @@ activation recompute, backward and optimizer) and records:
   sees it freed, so the peak is the eager program's, autograd's saved
   tensors and the optimizer's new state included;
 * **collectives**: what the step ran on its
-  :class:`~repro_torch.launch.mesh.RecordingMesh` (``all_reduce``
-  records ``(kind, axis, bytes)``), by kind, by (kind, operand bytes)
-  and by mesh axis.
+  :class:`~repro_torch.launch.mesh.RecordingMesh` (``all_reduce``,
+  ``all_gather`` and ``reduce_scatter`` record ``(kind, axis, operand
+  bytes)``: under the FSDP layout each layer's gathers and each
+  gradient's reduce-scatter), by kind, by (kind, operand bytes) and by
+  mesh axis.
 
 The roofline keeps the reference's names and meanings, at an NVIDIA
 H100 SXM's rates: the matmul FLOPs over the tensor-core (bf16) or CUDA-

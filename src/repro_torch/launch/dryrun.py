@@ -7,22 +7,25 @@ tensors under ``launch/cost_analysis.py``'s counter (nothing is
 allocated, nothing runs), as rank 0 of a
 :class:`~repro_torch.launch.mesh.RecordingMesh` of the production sizes:
 
-* ``train`` is ``train/step.py:make_train_step(cfg, tcfg, mesh)`` on the
-  global batch (the step keeps its rank's rows over ``pod`` x ``data``
-  and all-reduces the gradient over them; bf16 AdamW state for the 400B
-  config, as the reference's dry-run has it);
+* ``train`` is ``train/step.py:make_train_step(cfg, tcfg, mesh)`` with
+  ``TrainConfig(fsdp=True)`` on the global batch: the rank's shards of
+  the parameters and AdamW state (bf16 state for the 400B config, as the
+  reference's dry-run has it), each layer all-gathered inside its
+  checkpointed function and the gradients reduce-scattered, the step
+  keeping its rank's rows over ``pod`` x ``data``;
 * ``prefill`` is ``lm.prefill`` and ``decode`` ``lm.decode_step`` on the
   rank's rows of the batch over ``pod`` x ``data`` (the whole batch
-  where it does not divide: ``long_500k``'s batch of 1).
+  where it does not divide: ``long_500k``'s batch of 1) and the rank's
+  parameter shards, gathered as the train step gathers them (the leaves
+  outside the layer stack once, each layer as it runs).
 
-Each rank holds what the port's step holds: parameters, optimizer state
-and the KV sequence whole (the port has no counterpart of the
-reference's FSDP x TP layout, nor of its KV sequence over ``model``).
+The gathers and reduce-scatters enter the account's collectives through
+the ``RecordingMesh``.  The KV sequence stays whole on a rank (the port
+has no counterpart of the reference's KV sequence over ``model``).
 ``memory.reference_layout_gb`` is the same rank's arguments under the
-reference's layout (``launch/specs.py``), so the gap to FSDP shows cell
-by cell.  A cell that does not fit a card's 80 GB is recorded with its
-number.  The models run the ``exact`` substrate, as the zoo configs
-default to it.
+reference's layout (``launch/specs.py``).  A cell that does not fit a
+card's 80 GB is recorded with its number.  The models run the ``exact``
+substrate, as the zoo configs default to it.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun          # all cells
@@ -38,7 +41,6 @@ import json
 import math
 import time
 import traceback
-from functools import partial
 
 import torch
 
@@ -51,8 +53,10 @@ from repro_torch.models import params as params_lib
 from repro_torch.models.params import _leaves
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.sharding import fsdp
 from repro_torch.sharding.rules import Placement
 from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.train.step import make_param_constrain
 
 DRYRUN_ARCHS = [a for a in ARCH_IDS if a != "paper-sc"]
 CARD_BYTES = 80e9  # device memory of one H100 SXM (the datasheet's 80 GB)
@@ -60,9 +64,11 @@ CARD_BYTES = 80e9  # device memory of one H100 SXM (the datasheet's 80 GB)
 
 def train_config(arch: str) -> TrainConfig:
     """The dry-run's optimizer: bf16 AdamW state for the 400B config
-    (f32 Adam does not fit; the reference's rule), f32 elsewhere."""
+    (f32 Adam does not fit; the reference's rule), f32 elsewhere, on the
+    FSDP ∘ TP layout."""
     state_dtype = "bf16" if "400b" in arch else "f32"
-    return TrainConfig(optimizer=AdamWConfig(state_dtype=state_dtype))
+    return TrainConfig(optimizer=AdamWConfig(state_dtype=state_dtype),
+                       fsdp=True)
 
 
 def serve_rows(mesh, batch: int) -> int:
@@ -86,18 +92,27 @@ def cell_step(cfg, shape, mesh, tcfg: TrainConfig | None = None):
     ``inputs`` the name, shape and dtype of each input, and
     ``reference_bytes`` the rank's argument bytes under the reference's
     layout (``launch/specs.py``)."""
-    params = params_lib.abstract_params(lm.lm_param_specs(cfg),
-                                        cfg.param_dtype)
+    whole = params_lib.abstract_params(lm.lm_param_specs(cfg),
+                                       cfg.param_dtype)
     p_sh = S.param_shardings(cfg, mesh)
-    ref = _sharded_bytes(params, p_sh)
+    ref = _sharded_bytes(whole, p_sh)
     step_mesh = mesh if mesh.size > 1 else None
+    # the rank's shards (meta, as the whole leaves are)
+    params = fsdp.shard_tree(whole, p_sh)
     specs = S.input_specs(cfg, shape)
     b, s = shape.global_batch, shape.seq_len
+    serve_kw = {}
+    if step_mesh is not None:
+        serve_kw["constrain_params"] = make_param_constrain(
+            step_mesh, cfg, fsdp=True)
     if shape.kind == "train":
-        tcfg = tcfg or TrainConfig()
+        tcfg = tcfg or train_config(cfg.name)
+        if not tcfg.fsdp:
+            params = whole
         state = {"params": params, "opt": adamw_init(params, tcfg.optimizer)}
         batch = specs["batch"]
-        ref += 2 * _sharded_bytes(state["opt"]["m"], p_sh) + 4
+        ref += 2 * _sharded_bytes(adamw_init(whole, tcfg.optimizer)["m"],
+                                  p_sh) + 4
         ref += _sharded_bytes(batch, S.batch_shardings(cfg, mesh, b))
         fn = make_train_step(cfg, tcfg, step_mesh)
         args = (state, batch)
@@ -108,7 +123,10 @@ def cell_step(cfg, shape, mesh, tcfg: TrainConfig | None = None):
                               {"inputs": S.batch_shardings(cfg, mesh, b)
                                ["inputs"]})
         rows = torch.empty_like(inp[:serve_rows(mesh, b)])
-        fn = partial(lm.prefill, cfg=cfg, max_len=s)
+
+        def fn(p, x):
+            return lm.prefill(fsdp.gather_params(p, p_sh), x, cfg, s,
+                              **serve_kw)
         args = (params, rows)
         inputs = {"inputs": rows}
     else:
@@ -121,7 +139,10 @@ def cell_step(cfg, shape, mesh, tcfg: TrainConfig | None = None):
         cache = lm.init_cache(cfg, rows, s, device="meta")
         tokens = torch.empty_like(specs["tokens"][:rows])
         lengths = torch.empty_like(specs["lengths"][:rows])
-        fn = partial(lm.decode_step, cfg=cfg)
+
+        def fn(p, c, t, l):  # noqa: E741
+            return lm.decode_step(fsdp.gather_params(p, p_sh), c, t, l, cfg,
+                                  **serve_kw)
         args = (params, cache, tokens, lengths)
         inputs = {"cache": cache, "tokens": tokens, "lengths": lengths}
     shapes = {"/".join(p): [list(t.shape), str(t.dtype).split(".")[-1]]

@@ -15,7 +15,8 @@ as ``jax.sharding.AbstractMesh``: what the pure sharding functions
 :func:`make_production_mesh` gives the reference's production sizes.
 :class:`RecordingMesh` is an abstract mesh that stands as rank 0 and
 records the collectives of a traced step instead of running them;
-:func:`all_reduce` is the one entry point every collective of the port
+:func:`all_reduce` (SUM or MAX), :func:`all_gather` and
+:func:`reduce_scatter` are the entry points every collective of the port
 goes through.
 
 The process group is made once per process by :func:`init_world`:
@@ -27,7 +28,10 @@ has size 1 and no collective runs.  Rank r runs on
 The backend is NCCL when every rank of the host owns a card of its own,
 gloo on the CPU and when ranks share a card (NCCL refuses two ranks on
 one GPU); the choice is reported in ``mesh.backend``, never made
-silently.
+silently.  gloo runs every collective here on CUDA tensors (the
+all-reduce, SUM and MAX, the all-gather and the reduce-scatter: torch
+2.11's on the H100 machine, staging through the host inside
+ProcessGroupGloo) as on the CPU's.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke \\
         --mesh --model-parallel 2 --device cpu
@@ -106,10 +110,11 @@ class DeviceMesh(AbstractMesh):
 
 class RecordingMesh(AbstractMesh):
     """An abstract mesh that stands as rank 0 (``coords`` all zero) and
-    records the collectives run on it: :func:`all_reduce` appends
-    ``(kind, axis, bytes)`` to ``records`` and returns its input
-    unchanged.  What the dry-run (``launch/dryrun.py``) traces one rank
-    of a production mesh on."""
+    records the collectives run on it: each collective appends ``(kind,
+    axis, operand bytes)`` to ``records`` (``kind`` "all-reduce",
+    "all-gather" or "reduce-scatter") and returns a tensor of the shape
+    it would give, its values not the collective's.  What the dry-run
+    (``launch/dryrun.py``) traces one rank of a production mesh on."""
 
     def __init__(self, sizes, axis_names):
         super().__init__(sizes, axis_names)
@@ -121,17 +126,60 @@ class RecordingMesh(AbstractMesh):
         return cls(tuple(mesh.shape.values()), mesh.axis_names)
 
 
-def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """SUM ``t`` in place over the ranks of ``mesh`` along ``axis``: the
-    one entry point of the port's collectives.  On a
-    :class:`RecordingMesh` it records ``("all-reduce", axis, bytes)`` and
-    leaves ``t`` as it is."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum"
+               ) -> torch.Tensor:
+    """Reduce ``t`` in place over the ranks of ``mesh`` along ``axis``
+    (``op`` "sum" or "max").  On a :class:`RecordingMesh` it records
+    ``("all-reduce", axis, bytes)`` and leaves ``t`` as it is."""
     if isinstance(mesh, RecordingMesh):
-        mesh.records.append(
-            ("all-reduce", axis, t.numel() * t.element_size()))
+        mesh.records.append(("all-reduce", axis, _nbytes(t)))
         return t
-    dist.all_reduce(t, group=mesh.group(axis))
+    dist.all_reduce(t, op=_OPS[op], group=mesh.group(axis))
     return t
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in
+    coordinate order (bits copied exactly).  Records ``("all-gather",
+    axis, bytes of t)`` on a :class:`RecordingMesh`."""
+    n = mesh.shape[axis]
+    if isinstance(mesh, RecordingMesh):
+        mesh.records.append(("all-gather", axis, _nbytes(t)))
+        return torch.cat([t] * n, dim)
+    with collective_span("mesh.all_gather", t, axis=axis, bytes=_nbytes(t)):
+        src = t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=mesh.group(axis))
+        return torch.cat(parts, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's block, along ``dim``, of the SUM of ``t`` over the
+    ranks of ``mesh`` along ``axis`` (``dim`` must split into the axis's
+    size).  Records ``("reduce-scatter", axis, bytes of t)`` on a
+    :class:`RecordingMesh`."""
+    n = mesh.shape[axis]
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of "
+                         f"{tuple(t.shape)} does not split over {axis} ({n})")
+    if isinstance(mesh, RecordingMesh):
+        mesh.records.append(("reduce-scatter", axis, _nbytes(t)))
+        return t.narrow(dim, 0, t.shape[dim] // n).clone()
+    with collective_span("mesh.reduce_scatter", t, axis=axis,
+                         bytes=_nbytes(t)):
+        parts = [p.contiguous() for p in t.chunk(n, dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=mesh.group(axis))
+        return out
 
 
 def _unravel(rank: int, dims) -> tuple:

@@ -4,12 +4,15 @@ Port of ``repro.launch.train``: real training of a model config, every
 matmul on the configured SC substrate, under the fault-tolerance
 supervisor with checkpointing and deterministic data, on the mesh of the
 ``torchrun`` world (``launch/mesh.py:make_local_mesh``: data = world,
-model = 1; a world of one without ``torchrun``).  Every rank builds the
-global batch of each step and the train step keeps its rows
-(``train/step.py``); on a stochastic backend the step enters the
-mesh-sharded SC substrate itself.  Only rank 0 prints and writes
-checkpoints; every rank runs the supervisor, so an injected failure
-recovers on all ranks together.  Parameters and activations are
+model = 1; a world of one without ``torchrun``).  The state is in the
+reference's FSDP ∘ TP layout (``TrainConfig(fsdp=True)``): each rank
+holds only its shard of the parameters and AdamW state, built, saved
+(gathered leaf by leaf) and restored (cut to the rank's shard) so.
+Every rank builds the global batch of each step and the train step
+keeps its rows (``train/step.py``); on a stochastic backend the step
+enters the mesh-sharded SC substrate itself.  Only rank 0 prints and
+writes checkpoints; every rank runs the supervisor, so an injected
+failure recovers on all ranks together.  Parameters and activations are
 float32, as in the reference launcher.  Runs on the card unless
 ``--device cpu`` asks for the plain versions on the CPU.
 
@@ -40,7 +43,10 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import SyntheticLMData, make_batch, make_embedding_batch
 from repro_torch.ft import FaultInjector, Supervisor
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig
+from repro_torch.sharding import param_shardings
+from repro_torch.sharding.fsdp import state_placements
 from repro_torch.train import TrainConfig, make_train_step, train_state_init
 
 
@@ -97,6 +103,7 @@ def main(argv=None):
         ),
         microbatches=args.microbatches,
         seed=args.seed,
+        fsdp=True,
     )
     data = SyntheticLMData(
         vocab=cfg.vocab,
@@ -104,7 +111,10 @@ def main(argv=None):
         global_batch=args.batch,
         seed=args.seed,
     )
-    state = train_state_init(args.seed, cfg, tcfg, device=mesh.device)
+    state = train_state_init(args.seed, cfg, tcfg, device=mesh.device,
+                             mesh=mesh)
+    shardings = state_placements(
+        state, param_shardings(lm.lm_param_specs(cfg), mesh))
     step_fn = make_train_step(cfg, tcfg, mesh)
 
     def batch_fn(step):
@@ -114,7 +124,8 @@ def main(argv=None):
 
     start_step = 0
     if args.resume and checkpoint.latest_step(args.ckpt_dir) is not None:
-        state, extra, _ = checkpoint.restore(args.ckpt_dir, state)
+        state, extra, _ = checkpoint.restore_resharded(args.ckpt_dir, state,
+                                                       shardings)
         start_step = extra["data_step"]
         log(f"resumed from step {start_step}")
 
@@ -122,7 +133,8 @@ def main(argv=None):
     if args.inject_failure_at is not None:
         injector = FaultInjector(fail_at_steps=(args.inject_failure_at,))
     sup = Supervisor(
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, injector=injector
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, injector=injector,
+        shardings=shardings,
     )
 
     t0 = time.time()

@@ -230,7 +230,10 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     ``constrain(v, *logical_axes)`` sees the residual stream after the
     embedding and after every layer, ``constrain_params`` each layer's
     weights (``train.step.make_constrain`` / ``make_param_constrain``);
-    both return their input and change no value."""
+    neither changes a value.  ``constrain_params`` runs inside the
+    layer's checkpointed function: under the FSDP layout it gathers the
+    layer's weights from the rank's shards, and the backward's
+    recompute gathers them again instead of keeping them."""
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
@@ -239,7 +242,7 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def body(xc, lp, key):
-        return _apply_block(xc, lp, cfg, positions, key)[0]
+        return _apply_block(xc, cstp(lp), cfg, positions, key)[0]
 
     def shared(xc, key):
         return _apply_shared(xc, params["shared"], cfg, positions, key)[0]
@@ -247,7 +250,7 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     body, shared = _maybe_remat(body, cfg), _maybe_remat(shared, cfg)
     for idx in range(n_backbone_layers(cfg)):
         key = layers.fold_keys(rng, idx)
-        x = body(x, cstp(_layer(params["blocks"], idx)), key)
+        x = body(x, _layer(params["blocks"], idx), key)
         inv = _shared_after(cfg, idx)
         if inv is not None:
             x = shared(x, layers.fold_keys(rng, SHARED_KEY_BASE + inv))
@@ -347,7 +350,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
     }
 
 
-def prefill(params, inputs, cfg, max_len: int, *, rng=None):
+def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
+            constrain_params=None):
     """Run the prompt through the model.  inputs: (b, s) tokens, or (b, s,
     d) embeddings under ``frontend="embeddings"``, with ``s <= max_len``.
     Returns ``(logits, cache, lengths)``: the last token's logits (b,
@@ -364,20 +368,25 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None):
 
     ``rng`` is one raw (2,) key for the whole call, folded per layer (and
     per SSD chunk inside an SSM layer); the unembed draws from ``rng``
-    itself.
+    itself.  ``constrain`` sees the residual stream after the embedding
+    and after every layer, ``constrain_params`` each backbone layer's
+    weights, as in :func:`encode`.
     """
+    cst = constrain or (lambda v, *a: v)
+    cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+    x = cst(x, "batch", "resid_seq", None)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cache = init_cache(cfg, b, max_len, x.dtype, device=x.device)
     if cfg.family in STATE_FAMILIES:
         states = []
         for idx in range(n_backbone_layers(cfg)):
             key = layers.fold_keys(rng, idx)
-            x, nc = _apply_block(x, _layer(params["blocks"], idx), cfg,
-                                 positions, key, cache="prefill")
+            x, nc = _apply_block(x, cstp(_layer(params["blocks"], idx)),
+                                 cfg, positions, key, cache="prefill")
             states.append(nc)
             inv = _shared_after(cfg, idx)
             if inv is not None:
@@ -386,16 +395,18 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None):
                                           positions, key)
                 cache["shared_k"][inv, :, :s] = k
                 cache["shared_v"][inv, :, :s] = v
+            x = cst(x, "batch", "resid_seq", None)
         cache["ssm"] = {name: torch.stack([st[name] for st in states])
                         for name in states[0]}
     else:
         for idx in range(cfg.n_layers):
             key = layers.fold_keys(rng, idx)
             x, (k, v) = _apply_block(
-                x, _layer(params["blocks"], idx), cfg, positions, key
+                x, cstp(_layer(params["blocks"], idx)), cfg, positions, key
             )
             cache["k"][idx, :, :s] = k
             cache["v"][idx, :, :s] = v
+            x = cst(x, "batch", "resid_seq", None)
     x = layers.rms_norm(x, params["final_norm"])
     logits = _logits(x[:, -1], params, cfg, rng)
     lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -408,7 +419,8 @@ def _write_state(stacked: dict, idx: int, new: dict) -> None:
         stacked[name][idx].copy_(v)
 
 
-def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
+def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
+                constrain=None, constrain_params=None):
     """One token per row.  tokens: (b,) next input ids; lengths: (b,)
     current fill (the new token writes at that index, clamped to the
     last one).  Returns ``(logits (b, vocab), cache)``: ``cache`` is the
@@ -419,16 +431,20 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
     in :func:`prefill`; every row is one row of each SC matmul, so a
     row's bits depend on its neighbours (the fixed-slot engine's
     contract, unlike :func:`decode_paged`'s per-request keys).
+    ``constrain`` / ``constrain_params`` as in :func:`prefill`.
     """
+    cst = constrain or (lambda v, *a: v)
+    cstp = constrain_params or (lambda t: t)
     x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
+    x = cst(x, "batch", None, None)
     positions = lengths.to(torch.int64)[:, None]
     new_lengths = lengths.to(torch.int64) + 1
     if cfg.family in STATE_FAMILIES:
         for idx in range(n_backbone_layers(cfg)):
             key = layers.fold_keys(rng, idx)
             lc = _layer(cache["ssm"], idx)
-            x, nc = _apply_block(x, _layer(params["blocks"], idx), cfg,
-                                 positions, key, cache=lc)
+            x, nc = _apply_block(x, cstp(_layer(params["blocks"], idx)),
+                                 cfg, positions, key, cache=lc)
             _write_state(cache["ssm"], idx, nc)
             inv = _shared_after(cfg, idx)
             if inv is not None:
@@ -438,18 +454,20 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None):
                     cache=(cache["shared_k"][inv], cache["shared_v"][inv]),
                     cache_length=new_lengths,
                 )
+            x = cst(x, "batch", None, None)
     else:
         for idx in range(cfg.n_layers):
             key = layers.fold_keys(rng, idx)
             x, _ = _apply_block(
                 x,
-                _layer(params["blocks"], idx),
+                cstp(_layer(params["blocks"], idx)),
                 cfg,
                 positions,
                 key,
                 cache=(cache["k"][idx], cache["v"][idx]),
                 cache_length=new_lengths,
             )
+            x = cst(x, "batch", None, None)
     x = layers.rms_norm(x, params["final_norm"])
     return _logits(x[:, 0], params, cfg, rng), cache
 

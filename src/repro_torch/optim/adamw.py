@@ -10,6 +10,15 @@ State and parameters are dict trees of tensors, updated leaf by leaf in
 sorted-key order.  The reference slices its depth-stacked leaves into
 chunks only to bound XLA's staging buffers; the update is elementwise,
 so eager PyTorch, which stages one leaf at a time, needs no chunks.
+
+Under the train step's FSDP ∘ TP layout the leaves are a rank's shards
+and ``placements`` says where each lies.  The update runs on the shards
+as it is; the two reductions that span a whole leaf span the ranks: the
+gradient norm adds each distinct shard's sum of squares once (a leaf
+replicated over an axis, its dimension not dividing it, counts on
+coordinate 0 of that axis alone; the pods hold the same gradient), and
+an int8 state's per-tensor scale takes the absmax over the leaf's
+shards (a MAX all-reduce).
 """
 
 from __future__ import annotations
@@ -19,7 +28,8 @@ import math
 
 import torch
 
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.launch.mesh import all_reduce
+from repro_torch.models.params import _leaves, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +58,17 @@ def cosine_lr(cfg: AdamWConfig, step):
 # ---------------------------- state (de)quantization ------------------------
 
 
-def _encode(v, kind: str):
+def _encode(v, kind: str, amax=None):
+    """``v`` in the state's dtype; int8 takes its scale from ``amax``
+    (the whole leaf's absmax) where given, else from ``v``'s own."""
     if kind == "f32":
         return v.to(torch.float32)
     if kind == "bf16":
         return v.to(torch.bfloat16)
     if kind != "int8":
         raise ValueError(f"unknown state_dtype {kind!r} (f32 | bf16 | int8)")
-    scale = torch.clamp_min(v.abs().amax(), 1e-20) / 127.0
+    amax = v.abs().amax() if amax is None else amax
+    scale = torch.clamp_min(amax, 1e-20) / 127.0
     q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale.to(torch.float32)}
 
@@ -82,18 +95,44 @@ def adamw_init(params, cfg: AdamWConfig):
     }
 
 
-def _global_norm(tree):
+def _counts_once(pl, ndim: int) -> bool:
+    """Whether this rank's shard of a leaf placed by ``pl`` is the one
+    copy the norm counts: coordinate 0 on every axis of size > 1 but
+    ``pod`` that does not split the leaf."""
+    live = pl.live_axes(ndim)
+    return all(pl.mesh.coords[a] == 0 for a, n in pl.mesh.shape.items()
+               if n > 1 and a != "pod" and a not in live)
+
+
+def _global_norm(tree, placements=None):
+    """The gradient's L2 norm; with ``placements`` the leaves are shards
+    and the sum of squares runs over the ranks (see the module doc)."""
+    pls = dict(_leaves(placements)) if placements is not None else {}
     total = 0.0
-    for v in tree_leaves(tree):
+    for path, v in _leaves(tree):
+        if path in pls and not _counts_once(pls[path], v.dim()):
+            continue
         total = total + torch.sum(torch.square(v.to(torch.float32)))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    if not pls:
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    mesh = next(iter(pls.values())).mesh
+    total = torch.as_tensor(total, dtype=torch.float32,
+                            device=tree_leaves(tree)[0].device)
+    total = total.reshape(1).clone()
+    for a, n in mesh.shape.items():
+        if n > 1 and a != "pod":
+            all_reduce(total, mesh, a)
+    return torch.sqrt(total[0])
 
 
-def adamw_update(grads, state, params, cfg: AdamWConfig):
+def adamw_update(grads, state, params, cfg: AdamWConfig, *,
+                 placements=None):
     """One AdamW step.  Returns ``(new_params, new_state, metrics)``;
-    ``metrics`` holds the pre-clip ``grad_norm`` and the step's ``lr``."""
+    ``metrics`` holds the pre-clip ``grad_norm`` and the step's ``lr``.
+    ``placements`` (``sharding.param_shardings``) marks the leaves as
+    the rank's FSDP shards (see the module doc)."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, placements)
     clip = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     lr = cosine_lr(cfg, step).to(gnorm.device)
     stepf = step.to(torch.float32)
@@ -101,7 +140,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
     kind = cfg.state_dtype
 
-    def upd(p, g, m_enc, v_enc):
+    def upd(p, g, m_enc, v_enc, pl=None):
         g = g.to(torch.float32) * clip
         m = cfg.b1 * _decode(m_enc, kind) + (1 - cfg.b1) * g
         v = cfg.b2 * _decode(v_enc, kind) + (1 - cfg.b2) * g * g
@@ -110,9 +149,19 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
         pf = p.to(torch.float32)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
         new_p = (pf - lr * delta).to(p.dtype)
-        return new_p, _encode(m, kind), _encode(v, kind)
+        amax_m = amax_v = None
+        if kind == "int8" and pl is not None and pl.live_axes(p.dim()):
+            amax = torch.stack([m.abs().amax(), v.abs().amax()])
+            for a in pl.live_axes(p.dim()):
+                all_reduce(amax, pl.mesh, a, op="max")
+            amax_m, amax_v = amax[0], amax[1]
+        return new_p, _encode(m, kind, amax_m), _encode(v, kind, amax_v)
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
+    if placements is None:
+        out = tree_map(upd, params, grads, state["m"], state["v"])
+    else:
+        out = tree_map(upd, params, grads, state["m"], state["v"],
+                       placements)
     pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
     metrics = {"grad_norm": gnorm, "lr": lr}
     new_state = {"m": pick(1), "v": pick(2), "step": step}

@@ -11,10 +11,14 @@ experts, and SP on the long-context cache sequence.
 
 A spec here is a tuple with one entry per dimension (a mesh axis name, a
 tuple of them, or None), what the reference's ``PartitionSpec`` holds.
-The mesh engine and the mesh train step shard each SC contraction
-(:func:`sc_shard_rules`) and replicate every parameter on every rank:
-:func:`param_shardings` is where a leaf's shard would lie, and
-``checkpoint.restore_resharded`` places each leaf on its rank's device.
+:func:`param_shardings` gives each parameter leaf its :class:`Placement`:
+where its shard lies on the mesh.  The mesh engine and the replicated
+mesh train step hold every leaf whole on every rank and shard only each
+SC contraction (:func:`sc_shard_rules`); the train step's FSDP ∘ TP
+layout (``TrainConfig(fsdp=True)``, ``sharding/fsdp.py``) holds only the
+rank's shard (:meth:`Placement.shard`) and all-gathers a leaf where it
+is used (:meth:`Placement.gather`), and ``checkpoint.restore_resharded``
+cuts each restored leaf to the rank's shard.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
+from repro_torch.launch.mesh import all_gather
 from repro_torch.models import params as params_lib
 
 # Parameter logical axes.
@@ -92,15 +99,30 @@ class Placement:
         sizes alone)."""
         return getattr(self.mesh, "device", None)
 
+    def dim_axes(self, ndim: int) -> list:
+        """The mesh axes each of ``ndim`` dimensions is split over
+        (major first; ``()`` where it is whole)."""
+        out = []
+        for i in range(ndim):
+            entry = self.spec[i] if i < len(self.spec) else None
+            out.append(() if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,)))
+        return out
+
+    def live_axes(self, ndim: int) -> tuple:
+        """The mesh axes of size > 1 some dimension is split over: the
+        ranks along them hold distinct shards."""
+        sizes = dict(self.mesh.shape)
+        return tuple(a for axes in self.dim_axes(ndim) for a in axes
+                     if sizes[a] > 1)
+
     def shard_shape(self, global_shape) -> tuple:
         """One shard's shape, as ``NamedSharding.shard_shape`` gives it:
         each dimension over the span of its mesh axes."""
         sizes = dict(self.mesh.shape)
         out = []
-        for i, dim in enumerate(global_shape):
-            entry = self.spec[i] if i < len(self.spec) else None
-            axes = () if entry is None else (
-                entry if isinstance(entry, tuple) else (entry,))
+        for i, (dim, axes) in enumerate(zip(
+                global_shape, self.dim_axes(len(global_shape)))):
             span = math.prod(sizes[a] for a in axes)
             if dim % span:
                 raise ValueError(
@@ -108,6 +130,35 @@ class Placement:
                     f"over {axes} ({span})")
             out.append(dim // span)
         return tuple(out)
+
+    def shard(self, t):
+        """This rank's shard of the whole leaf ``t``: along each
+        dimension the block at its row-major coordinate over the
+        dimension's axes (``mesh.coords``, from ``launch/mesh.py``'s
+        ``_unravel``), copied so the whole leaf can be freed.  A leaf no
+        live axis splits is returned as it is."""
+        if not self.live_axes(t.dim()):
+            return t
+        sizes, coords = dict(self.mesh.shape), self.mesh.coords
+        shape = self.shard_shape(t.shape)
+        for i, axes in enumerate(self.dim_axes(t.dim())):
+            block = 0
+            for a in axes:
+                block = block * sizes[a] + coords[a]
+            t = t.narrow(i, block * shape[i], shape[i])
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def gather(self, shard):
+        """The whole leaf from every rank's ``shard``: an all-gather
+        over each live axis, dimension by dimension, the minor axis of a
+        dimension first (bits copied exactly).  No autograd: the train
+        step gathers through ``sharding.fsdp.GatherParam``."""
+        sizes = dict(self.mesh.shape)
+        for i, axes in enumerate(self.dim_axes(shard.dim())):
+            for a in reversed(axes):
+                if sizes[a] > 1:
+                    shard = all_gather(shard, self.mesh, a, i)
+        return shard
 
 
 def param_shardings(specs, mesh):

@@ -35,7 +35,21 @@ step with every one-key SC matmul sharded:
   feedback (``distributed/compression.py``; ``state["ef"]`` must hold
   :func:`~repro_torch.distributed.init_error_feedback`'s residual).
 
-A trivial mesh (a world of one) is the single-device step bit for bit.
+``TrainConfig(fsdp=True)`` is the reference's FSDP ∘ TP layout
+(``sharding/fsdp.py``): ``params``, ``m`` and ``v`` (and the residual)
+hold only the rank's shard of each leaf (``train_state_init(...,
+mesh=)``); the step gathers the leaves outside the layer stack once and
+each layer's inside its checkpointed function
+(:func:`make_param_constrain`); the gradients arrive as the shards'
+gradients, reduced by the gathers' backward (a reduce-scatter over
+``data``, an all-reduce over ``pod``), so only the loss is all-reduced
+here; AdamW's norm and its int8 scales reduce over the ranks holding
+distinct shards, and the compression's scales are each leaf's.  Values
+are the replicated layout's; only where they live and which collectives
+move them change.
+
+A trivial mesh (a world of one) is the single-device step bit for bit,
+in either layout.
 
 RNG: the step's root key is ``fold_in(PRNGKey(seed), opt.step)`` (none
 under the ``exact`` backend), microbatch ``i`` folds ``i`` into it, and
@@ -59,7 +73,8 @@ from repro_torch.models import params as params_lib
 from repro_torch.models.params import _leaves, _set, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.sc import ctr_rng
-from repro_torch.sharding import sc_shard_rules
+from repro_torch.sharding import fsdp as fsdp_lib
+from repro_torch.sharding import param_shardings, sc_shard_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +83,9 @@ class TrainConfig:
     microbatches: int = 1
     cross_pod_compress: bool = False
     seed: int = 0
+    # on a mesh: hold each rank's FSDP ∘ TP shard of the parameters and
+    # optimizer state (False: every leaf whole on every rank)
+    fsdp: bool = False
 
 
 def make_constrain(mesh):
@@ -95,27 +113,53 @@ def make_constrain(mesh):
     return cst
 
 
-def make_param_constrain(mesh, cfg):
-    """The per-layer weight constraint (None without a mesh): the
-    identity, since every rank holds every parameter whole."""
+def make_param_constrain(mesh, cfg, *, fsdp: bool = False,
+                         reduce_axes=None):
+    """The per-layer weight constraint (None without a mesh), applied to
+    each layer's weights inside the layer's checkpointed function.
+
+    With every leaf whole on every rank it is the identity.  Under the
+    FSDP ∘ TP layout (``fsdp``) it all-gathers each leaf of the layer
+    from the rank's shard (``sharding.fsdp.GatherParam``), and its
+    backward reduces the layer's gradient over ``reduce_axes`` (default:
+    the mesh's batch axes): per-layer gather -> use -> discard, gathered
+    again by the backward's recompute under ``remat="full"``."""
     if mesh is None:
         return None
-    return lambda layer_tree: layer_tree
+    if not fsdp:
+        return lambda layer_tree: layer_tree
+    placements = fsdp_lib.layer_placements(
+        param_shardings(lm.lm_param_specs(cfg), mesh))
+    axes = batch_axes(mesh) if reduce_axes is None else tuple(reduce_axes)
+    return lambda layer_tree: fsdp_lib.gather_tree(layer_tree, placements,
+                                                   axes)
 
 
-def train_state_init(key, cfg, tcfg: TrainConfig, *, device=None):
-    """The full train state ``{"params", "opt"}`` on ``device`` (the card
+def train_state_init(key, cfg, tcfg: TrainConfig, *, device=None,
+                     mesh=None):
+    """The train state ``{"params", "opt"}`` on ``device`` (the card
     unless the caller asks for the CPU).  ``key`` is an int seed or a
     ``torch.Generator``; weights are drawn on the generator's device, so
     one seed gives the same weights on every target.  With
-    ``cross_pod_compress`` the state also has ``"ef": None``, for the
-    caller to fill with ``init_error_feedback(params, n_pods)``."""
+    ``tcfg.fsdp`` and a ``mesh`` each leaf of ``params``, ``m`` and
+    ``v`` is the rank's shard of the whole leaf the same seed gives (the
+    whole leaves are drawn on the generator's device, cut there, and
+    only the shards moved to ``device``).  With ``cross_pod_compress``
+    the state also has ``"ef": None``, for the caller to fill with
+    ``init_error_feedback(params, n_pods)``."""
     device = resolve_device(device)
     gen = key
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator().manual_seed(int(key))
     specs = lm.lm_param_specs(cfg)
-    params = params_lib.init_params(specs, gen, device, cfg.param_dtype)
+    if tcfg.fsdp and mesh is not None:
+        whole = params_lib.init_params(specs, gen, gen.device,
+                                       cfg.param_dtype)
+        params = tree_map(lambda p, pl: pl.shard(p).to(device), whole,
+                          param_shardings(specs, mesh))
+        del whole
+    else:
+        params = params_lib.init_params(specs, gen, device, cfg.param_dtype)
     state = {"params": params, "opt": adamw_init(params, tcfg.optimizer)}
     if tcfg.cross_pod_compress:
         state["ef"] = None
@@ -198,14 +242,20 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``; on ``mesh``
     every rank is handed the global batch (see the module doc)."""
     cst = make_constrain(mesh)
-    cstp = make_param_constrain(mesh, cfg)
     compress = (tcfg.cross_pod_compress and mesh is not None
                 and "pod" in mesh.axis_names)
     axes = () if mesh is None else batch_axes(mesh)
     reduce_axes = tuple(a for a in axes if a != "pod") if compress else axes
+    sharded = tcfg.fsdp and mesh is not None
+    placements = (param_shardings(lm.lm_param_specs(cfg), mesh)
+                  if sharded else None)
+    cstp = make_param_constrain(mesh, cfg, fsdp=sharded,
+                                reduce_axes=reduce_axes)
     n = max(tcfg.microbatches, 1)
 
     def loss_fn(params, batch, rng):
+        if sharded:
+            params = fsdp_lib.gather_params(params, placements, reduce_axes)
         return lm.lm_loss(params, batch, cfg, rng=rng, constrain=cst,
                           constrain_params=cstp)
 
@@ -235,8 +285,9 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
         return sc.use_mesh(mesh, rules)
 
     def loss_and_grads(state, batch):
-        """The step's loss, gradient (reduced over the batch group) and
-        new error-feedback residual, before the update."""
+        """The step's loss, gradient (reduced over the batch group; the
+        shards' gradients under the FSDP layout) and new error-feedback
+        residual, before the update."""
         params = state["params"]
         device = tree_leaves(params)[0].device
         if mesh is not None:
@@ -250,7 +301,10 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
             rng = ctr_rng.fold_in(root, int(state["opt"]["step"]))
 
         def pod_grads(p, b):
-            return _mean_over(*grads_of(p, b, rng), mesh, reduce_axes)
+            loss, grads = grads_of(p, b, rng)
+            if sharded:  # the gathers' backward has reduced the gradients
+                return _mean_over(loss, {}, mesh, reduce_axes)[0], grads
+            return _mean_over(loss, grads, mesh, reduce_axes)
 
         with substrate():
             if compress:
@@ -266,8 +320,8 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
         loss, grads, new_ef = loss_and_grads(state, batch)
         grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
         new_params, new_opt, metrics = adamw_update(
-            grads, state["opt"], params, tcfg.optimizer
-        )
+            grads, state["opt"], params, tcfg.optimizer,
+            placements=placements)
         metrics["loss"] = loss
         new_state = {"params": new_params, "opt": new_opt}
         if "ef" in state:
@@ -278,12 +332,18 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
     return step
 
 
-def make_eval_step(cfg, mesh=None):
+def make_eval_step(cfg, mesh=None, *, fsdp: bool = False):
     """``eval_step(params, batch) -> loss`` without a graph; on ``mesh``
     each rank takes its rows of the global batch and the loss is the
-    mean over the batch group."""
+    mean over the batch group.  With ``fsdp`` ``params`` are the rank's
+    shards (``train_state_init(..., mesh=)`` under ``TrainConfig(fsdp=
+    True)``), gathered as the train step gathers them."""
     cst = make_constrain(mesh)
     axes = () if mesh is None else batch_axes(mesh)
+    sharded = fsdp and mesh is not None
+    placements = (param_shardings(lm.lm_param_specs(cfg), mesh)
+                  if sharded else None)
+    cstp = make_param_constrain(mesh, cfg, fsdp=sharded)
 
     def eval_step(params, batch):
         device = tree_leaves(params)[0].device
@@ -291,8 +351,10 @@ def make_eval_step(cfg, mesh=None):
             batch = shard_batch(batch, mesh)
             cst.batch = next(iter(batch.values())).shape[0]
         with torch.no_grad():
+            if sharded:
+                params = fsdp_lib.gather_params(params, placements)
             loss = lm.lm_loss(params, _to_device(batch, device), cfg,
-                              constrain=cst)
+                              constrain=cst, constrain_params=cstp)
             return _mean_over(loss, {}, mesh, axes)[0]
 
     return eval_step

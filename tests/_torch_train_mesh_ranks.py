@@ -543,16 +543,23 @@ def port_launcher(ckpt_dir):
     step-2 checkpoint (one step more)."""
     from repro_torch.launch import train as launch_train
 
+    from repro_torch.models.params import _leaves
+
     args = LAUNCH_ARGS + ["--device", "cpu", "--ckpt-dir"]
     runs = {}
     for name, extra in (("fail", ["/fail", "--inject-failure-at", "2"]),
                         ("full", ["/full"]),
                         ("resumed", ["/full", "--resume"])):
-        _, hist = launch_train.main(
+        state, hist = launch_train.main(
             args + [ckpt_dir + extra[0]] + extra[1:])
         runs[name] = [[r["step"], r["loss"]] for r in hist["steps"]]
         if name == "fail":
             runs["recoveries"] = hist["recoveries"]
+        # the shapes of what the rank holds after the run
+        runs[f"{name}_shapes"] = {
+            "/".join(p): list(t.shape) for p, t in _leaves(
+                {"params": state["params"], "m": state["opt"]["m"],
+                 "v": state["opt"]["v"]})}
     return runs
 
 

@@ -19,6 +19,12 @@
   float32 all-reduce over ``data`` of every gradient leaf and the loss
   (663,841,284 bytes for qwen2-0.5b at 2 layers: the bytes phase TM
   measured a step on the card);
+* the dry-run's train cell on the FSDP ∘ TP layout (qwen2-0.5b at 2
+  layers on both production meshes): its recorded all-gather and
+  reduce-scatter bytes equal ``sharding.fsdp.collective_plan``'s count
+  from ``param_shardings``, and its argument bytes equal the reference
+  layout's that ``cell_step`` returns, but for the rows of the global
+  batch the port's step is handed beyond its own;
 * the counter's byte rules, peak live bytes and that nothing leaves
   ``meta``; the CLI writes the reference's keys.
 """
@@ -189,6 +195,32 @@ def test_recorded_allreduce_is_the_gradient_and_loss():
     assert cost.coll_by_shape == {f"all-reduce:{want}": want}
     assert mesh.records == [("all-reduce", "data", want)]
     assert cost.collective_seconds() == pytest.approx(want / C.NVLINK_BW)
+    assert cost.off_meta == 0
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_dryrun_train_cell_on_shards(multi_pod):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import fsdp
+
+    cfg = _tm_cfg()
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    shape = ShapeConfig("train_cut", 64, 64, "train")
+    tcfg = dryrun.train_config("qwen2-0.5b")
+    assert tcfg.fsdp
+    cost, _, ref = dryrun.trace_cell(cfg, shape, mesh, tcfg)
+    axes = ("pod", "data") if multi_pod else ("data",)
+    plan = fsdp.collective_plan(cfg, mesh, reduce_axes=axes)
+    for kind in ("all-gather", "reduce-scatter"):
+        assert cost.coll_by_kind[kind] == plan[kind]["bytes"], kind
+    # the port's step is handed the global batch (it keeps its rows)
+    batch = S.input_specs(cfg, shape)["batch"]
+    whole = sum(t.numel() * t.element_size() for t in batch.values())
+    rows = dryrun._sharded_bytes(batch, S.batch_shardings(
+        cfg, mesh, shape.global_batch))
+    assert cost.arg_bytes == ref - rows + whole
     assert cost.off_meta == 0
 
 

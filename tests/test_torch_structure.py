@@ -168,7 +168,8 @@ def test_port_mirrors_the_reference_models_and_configs():
 # constraint lays nothing out (no ``act_spec``), and its train step
 # enters the sharded SC substrate itself, so the launcher imports
 # neither ``sc`` nor ``sc_shard_rules``; the dry-run traces the port's
-# own step, which builds its constraints itself.  ``hlo_analysis.py`` is
+# own step, which builds its activation constraint itself (the serving
+# cells take ``make_param_constrain``'s FSDP gathers).  ``hlo_analysis.py`` is
 # ``cost_analysis.py`` in the port: the port has no HLO, so its text
 # parser (``Instr``, ``analyze_hlo``) and the TPU's ICI rate have no
 # counterpart.
@@ -183,7 +184,7 @@ SCALE_OUT = {
     "checkpoint/ckpt.py": set(),
     "launch/train.py": {"sc", "sc_shard_rules"},
     "launch/specs.py": set(),
-    "launch/dryrun.py": {"make_constrain", "make_param_constrain"},
+    "launch/dryrun.py": {"make_constrain"},
     "launch/hlo_analysis.py": {"Instr", "analyze_hlo", "ICI_BW"},
     "launch/profile_cell.py": set(),
     "configs/base.py": set(),

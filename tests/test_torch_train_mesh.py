@@ -34,7 +34,7 @@ CPU under ``torchrun``.  Both sides live in
   and in the world of one, the next step against the reference's from
   the same restored state; each package restores the other's checkpoint;
 * the launcher under ``torchrun``: the reference's mesh losses, resume,
-  recovery on every rank;
+  recovery on every rank, each rank holding only its FSDP shards;
 * the refusals: each a ``ValueError``.
 """
 
@@ -80,6 +80,7 @@ import _torch_train_mesh_ranks as ranks  # noqa: E402
 
 RANKS = 4
 TIMEOUT = 400
+LAUNCH_ARCH = ranks.LAUNCH_ARGS[ranks.LAUNCH_ARGS.index("--arch") + 1]
 REF_GROUPS = (
     ("2x2/exact/1", "2x2/pallas_moment/1", "2x2/pallas_moment/1/grid",
      "2x2/exact/2", "2x2/pallas_moment/2"),
@@ -367,6 +368,25 @@ def test_launcher_resumes_and_recovers_on_every_rank(runs):
         assert m["recoveries"] == [[2, 2]]
         assert dict((s, l) for s, l in m["fail"]) == full
         assert m["resumed"] == [[ranks.LAUNCH_STEPS, full[ranks.LAUNCH_STEPS]]]
+
+
+def test_launcher_ranks_hold_their_shards(runs):
+    """``launch/train.py`` runs the FSDP ∘ TP layout: after the start,
+    the recovered and the resumed run, each rank holds the shard shape
+    of every parameter, ``m`` and ``v`` leaf on the (4, 1) mesh, which
+    splits every leaf with an embed dimension four ways."""
+    cfg = tsmoke(LAUNCH_ARCH).replace(param_dtype=torch.float32)
+    specs = tlm.lm_param_specs(cfg)
+    sh = param_shardings(specs, AbstractMesh((RANKS, 1), ("data", "model")))
+    want = {"/".join(p): list(s.shard_shape(sp.shape)) for (p, s), (_, sp)
+            in zip(_leaves(sh), _leaves(specs))}
+    assert want["embed/table"] == [cfg.vocab, cfg.d_model // 4]
+    for meta in runs["port_meta"]:
+        for name in ("fail", "full", "resumed"):
+            got = meta["launcher"][f"{name}_shapes"]
+            for what in ("params", "m", "v"):
+                assert {k[len(what) + 1:]: v for k, v in got.items()
+                        if k.startswith(what + "/")} == want, (name, what)
 
 
 @pytest.mark.parametrize("what", ["indivisible", "no_ef", "row_gather"])
