@@ -108,7 +108,21 @@ code is non-zero):
    mesh: ``pallas_fused`` (kernel 1) bit-equal to ``pallas_bitexact``
    (kernel 4) and ``pallas_moment`` (kernel 5, nbit 2^16) within 0.5 of
    the exact product, and the tiny configuration on the mesh with its
-   ranks on the card and on the CPU: equal tokens;
+   ranks on the card and on the CPU: equal tokens; then FM-s in the same
+   ranks: fixed-slot decode on the rank's block of the KV cache's
+   sequence over ``model`` (``make_constrain(mesh).lay_out_cache``)
+   against the whole cache, from the same random starting cache: (a)
+   ``exact`` float32, 64 rows a data rank, a 32,768-position cache
+   filled to 16,000-16,379, 8 teacher-forced steps across the block
+   boundary at 16,384: the block half the whole cache's bytes, the peak
+   at least 0.8 of that half lower, logits within 1e-5 of max |logit|
+   and equal greedy tokens, one combine gather (span ``seq.combine``) a
+   layer a step as ``sharding.seq.combine_plan`` counts, no kernel;
+   (b) ``pallas_bitexact`` bf16, 2 rows a data rank, 2 steps across a
+   64-position cache's boundary, every SC call's K split over the model
+   pair: kernel 1's launches the unsharded step's, logits within 2e-2
+   of max |logit| (FM_S_B_TOL); in both the ranks of a model group hold
+   the same logits bits;
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
 6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
@@ -171,7 +185,14 @@ code is non-zero):
    kernel 5's launches a step ``kernel5_plan``'s, the step ms and the
    collectives' share, and the gathered parameters after the steps
    within 2 lr a step of TM-a's with at most 1e-3 of them past 0.2 lr
-   (``TM_F_TOL_LR``);
+   (``TM_F_TOL_LR``), TM-f with the residual sequence whole between
+   layers (``make_constrain(..., seq_parallel=False)``); TM-s, TM-f's
+   run with the sequence over ``model`` (the mesh step's default,
+   ``sharding/seq.py``), 2 steps: losses and every leaf's checksum
+   TM-f's bit for bit, kernel 5's launches ``kernel5_plan``'s, the
+   sequence's gathers a step (span ``seq.all_gather``) and the FSDP
+   collectives equal in count and bytes to their plans, the step ms
+   and the peak beside TM-f's;
 8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
    decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
    kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
@@ -2320,6 +2341,175 @@ def fm_smoke(device: str) -> dict:
     return {str(r.rid): r.generated for r in eng.run_until_drained()}
 
 
+# Phase FM-s: decode on a rank's block of the cache's sequence.  (a)
+# exact float32, FM_S_ROWS rows a data rank, a cache of FM_S_LEN
+# positions (two blocks of 16,384 over model), fills in FM_S_FILLS and
+# FM_S_STEPS teacher-forced steps across the block boundary; (b)
+# pallas_bitexact bf16 (kernel 1), FM_S_B_ROWS rows a data rank, a cache
+# of FM_S_B_LEN, FM_S_B_STEPS steps across its boundary.
+FM_S_ROWS, FM_S_LEN, FM_S_FILLS, FM_S_STEPS = 64, 32768, (16000, 16380), 8
+FM_S_B_ROWS, FM_S_B_LEN, FM_S_B_FILLS, FM_S_B_STEPS = 2, 64, (30, 32), 2
+FM_S_TOL = 1e-5  # (a): of the unsharded step's max |logit|
+# (b): of its max |logit|.  The layout changes the float order of the
+# attention's softmax sums, so a bf16 attention output can move by an
+# ulp, and with the 10-bit operand grid on such an ulp can move an SC
+# operand by a grid step, whose bits then differ: logits may part a
+# little.
+FM_S_B_TOL = 2e-2
+
+
+def _fm_s_cache(cfg, mesh, rows: int, max_len: int, blocks, seed: int):
+    """A decode cache of random K/V for this rank's ``rows`` rows (the
+    same on the ranks of a data coordinate), made block by block of the
+    sequence over ``model`` so that a rank can make its block alone:
+    ``blocks`` the block indices to make, concatenated in order."""
+    from repro_torch.models import lm
+
+    span = mesh.shape["model"]
+    shape = (cfg.n_layers, rows, max_len // span, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    out = {}
+    for i, name in enumerate(lm.init_cache(cfg, 0, 0, device="meta")):
+        parts = []
+        for j in blocks:
+            gen = torch.Generator(mesh.device).manual_seed(
+                seed + 1000 * mesh.coords["data"] + 10 * j + i)
+            parts.append(torch.randn(shape, generator=gen,
+                                     device=mesh.device).to(cfg.act_dtype))
+        out[name] = torch.cat(parts, 2)
+        del parts
+    return out
+
+
+def _fm_s_inputs(cfg, mesh, rows: int, fills, steps: int, seed: int):
+    """This rank's rows of the global fills and teacher-forced tokens."""
+    rng = np.random.default_rng(seed)
+    batch = rows * mesh.shape["data"]
+    lengths = rng.integers(fills[0], fills[1], batch)
+    tokens = rng.integers(0, cfg.vocab, (steps, batch))
+    d = mesh.coords["data"]
+    mine = slice(d * rows, (d + 1) * rows)
+    return (torch.from_numpy(lengths[mine]).to(mesh.device),
+            torch.from_numpy(tokens[:, mine]).to(mesh.device), batch)
+
+
+def _fm_s_decode(params, cfg, cache, lengths, tokens, cst) -> dict:
+    """``len(tokens)`` decode steps from ``cache`` under ``cst`` (step i
+    under ``fold_in(prng_key(5), i)`` on a stochastic backend): each
+    step's logits (on the host) and synced ms, the combine's gathers
+    (tracer span ``seq.combine``: count and bytes a step), the peak
+    memory from the start and kernel 1's launches."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.obs.trace import Tracer, install_tracer, uninstall_tracer
+    from repro_torch.sc import ctr_rng
+
+    root = None if cfg.sc_backend == "exact" else ctr_rng.prng_key(5).to(
+        lengths.device)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    tracer = install_tracer(Tracer())
+    rec = {"logits": [], "ms": [], "combine": []}
+    try:
+        with torch.no_grad():
+            for i, t in enumerate(tokens):
+                key = None if root is None else ctr_rng.fold_in(root, i)
+                (logits, cache), ms = _synced_ms(lambda: lm.decode_step(
+                    params, cache, t, lengths, cfg, rng=key, constrain=cst))
+                rec["logits"].append(logits.float().cpu())
+                rec["ms"].append(ms)
+                sp = _span_totals(tracer, ("seq.combine",))["seq.combine"]
+                rec["combine"].append({"count": sp["count"],
+                                       "bytes": sp["bytes"]})
+                lengths = lengths + 1
+    finally:
+        uninstall_tracer(tracer)
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["launches"] = dict(cuda_lib.launches)
+    return rec
+
+
+def _logit_gap(got: list, want: list) -> tuple:
+    """(max |got - want| over the steps, max |want|, greedy tokens equal,
+    got's bits' checksum)."""
+    gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+               for g, w in zip(got, want))
+    bits = sum(int(g.contiguous().view(torch.int32).to(torch.int64).sum())
+               for g in got)
+    return gap, scale, same, bits
+
+
+def fm_seq(mesh, layers: int) -> dict:
+    """Phase FM-s (on every rank): qwen2-0.5b at full width, depth
+    ``layers``, decode on the whole cache and on the rank's block of its
+    sequence over ``model`` (``make_constrain(mesh).lay_out_cache``),
+    from the same starting cache: (a) ``exact`` float32 and (b)
+    ``pallas_bitexact`` bf16 (kernel 1, every SC call's K split over
+    the model pair under ``local_rows`` rules).  See the module doc."""
+    from repro_torch import sc
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import sc_shard_rules, seq
+    from repro_torch.train.step import make_constrain
+
+    out = {}
+    for tag, backend, dtype, rows, max_len, fills, steps in (
+            ("a", "exact", torch.float32, FM_S_ROWS, FM_S_LEN, FM_S_FILLS,
+             FM_S_STEPS),
+            ("b", "pallas_bitexact", torch.bfloat16, FM_S_B_ROWS,
+             FM_S_B_LEN, FM_S_B_FILLS, FM_S_B_STEPS)):
+        cfg = get_config("qwen2-0.5b").replace(
+            n_layers=layers, sc_backend=backend, sc_nbit=1024,
+            param_dtype=dtype, act_dtype=dtype)
+        params = _qwen_params(cfg, mesh.device)
+        lengths, tokens, batch = _fm_s_inputs(cfg, mesh, rows, fills, steps,
+                                              seed=7)
+        whole_cst = make_constrain(mesh, seq_parallel=False)
+        cst = make_constrain(mesh)
+        blk = cst.lay_out_cache(batch, max_len)
+        whole_cst.batch = cst.batch = rows
+        scope = contextlib.nullcontext()
+        if backend != "exact":
+            scope = sc.use_mesh(mesh, dataclasses.replace(
+                sc_shard_rules(mesh), local_rows=True))
+        runs = {}
+        with scope:
+            for name, c, blocks in (
+                    ("whole", whole_cst, range(mesh.shape["model"])),
+                    ("block", cst, (blk.index,))):
+                torch.cuda.empty_cache()
+                cache = _fm_s_cache(cfg, mesh, rows, max_len, blocks,
+                                    seed=11)
+                cache_bytes = sum(t.numel() * t.element_size()
+                                  for t in cache.values())
+                runs[name] = _fm_s_decode(params, cfg, cache, lengths,
+                                          tokens, c)
+                runs[name]["cache_bytes"] = cache_bytes
+                del cache
+        gap, scale, same, bits = _logit_gap(runs["block"]["logits"],
+                                            runs["whole"]["logits"])
+        plan = seq.combine_plan(cfg, rows, blk)["all-gather"]
+        out[tag] = dict(
+            backend=backend, dtype=str(dtype).split(".")[-1], rows=rows,
+            max_len=max_len, block=[blk.start, blk.stop], steps=steps,
+            cache_bytes={k: r["cache_bytes"] for k, r in runs.items()},
+            max_memory_allocated={k: r["max_memory_allocated"]
+                                  for k, r in runs.items()},
+            step_ms={k: r["ms"] for k, r in runs.items()},
+            launches={k: r["launches"] for k, r in runs.items()},
+            combine=runs["block"]["combine"],
+            combine_whole=runs["whole"]["combine"],
+            combine_plan={"count": plan["count"], "bytes": plan["bytes"]},
+            max_abs_err=gap, max_abs_logit=scale, tokens_equal=same,
+            logits_checksum=bits)
+        del params, runs
+        torch.cuda.empty_cache()
+    return out
+
+
 def fm_rank(outdir: str, layers: int) -> int:
     """One rank of phase FM, started by :func:`mesh_phase` under
     ``torchrun``: qwen2-0.5b at full width, depth ``layers``, bf16,
@@ -2360,10 +2550,12 @@ def fm_rank(outdir: str, layers: int) -> int:
     )
     rec["kernels"] = fm_sharded_kernels(params, mesh, prompts)
     rec["smoke"] = {dev: fm_smoke(dev) for dev in ("cuda", "cpu")}
-    with open(os.path.join(outdir, f"fm_rank{mesh.rank}.json"), "w") as f:
-        json.dump(rec, f)
     del eng, params
     torch.cuda.empty_cache()
+    dist.barrier()
+    rec["seq"] = fm_seq(mesh, layers)
+    with open(os.path.join(outdir, f"fm_rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
     dist.barrier()
     return 0
 
@@ -2494,8 +2686,85 @@ def mesh_phase(params, cfg, prompts, tokens_f, card: str, ranks: list,
     ):
         if not ok:
             raise AssertionError(f"serve_fm: {what}")
+    seq_rec = fm_seq_phase(ranks, card)
     return dict(summary, launches=first["launches"], ranks_detail=ranks,
-                counts_one=counts_one)
+                counts_one=counts_one, seq=seq_rec)
+
+
+def fm_seq_phase(ranks: list, card: str) -> dict:
+    """Phase FM-s's checks (``ranks``: what each FM rank wrote, its
+    ``seq`` record): per case and rank the cache bytes (the block half
+    the whole), the peak against the unsharded step's, the logits
+    against the unsharded step's (FM_S_TOL in (a), FM_S_B_TOL in (b))
+    and the greedy tokens (a), the combine's gathers a step against
+    ``sharding.seq.combine_plan``, kernel 1's launches (none in (a), the
+    unsharded step's in (b)), and equal logits bits on the ranks of a
+    model group."""
+    out = {}
+    for tag, tol in (("a", FM_S_TOL), ("b", FM_S_B_TOL)):
+        recs = []
+        for r in ranks:
+            rec = dict(r["seq"][tag], rank=r["rank"], coords=r["coords"])
+            peaks = rec["max_memory_allocated"]
+            rec["peak_drop"] = peaks["whole"] - peaks["block"]
+            rec["cache_drop"] = (rec["cache_bytes"]["whole"]
+                                 - rec["cache_bytes"]["block"])
+            rec["median_step_ms"] = {k: float(np.median(v))
+                                     for k, v in rec["step_ms"].items()}
+            emit("serve_fm_seq_rank", case=tag, **{
+                k: v for k, v in rec.items() if k != "step_ms"})
+            launches = rec["launches"]
+            for ok, what in (
+                (rec["cache_bytes"]["whole"] == 2 * rec["cache_bytes"][
+                    "block"], f"cache bytes {rec['cache_bytes']}"),
+                (rec["max_abs_err"] <= tol * rec["max_abs_logit"],
+                 f"logits {rec['max_abs_err']} from the unsharded step's "
+                 f"(max |logit| {rec['max_abs_logit']}, tolerance {tol})"),
+                (tag != "a" or rec["tokens_equal"],
+                 "greedy tokens differ from the unsharded step's"),
+                (tag != "a" or rec["peak_drop"] >= 0.8 * rec["cache_drop"],
+                 f"peak {rec['max_memory_allocated']}: a drop of "
+                 f"{rec['peak_drop']} for a cache {rec['cache_drop']} "
+                 "smaller"),
+                (all(c == rec["combine_plan"] for c in rec["combine"])
+                 and not any(c["count"] for c in rec["combine_whole"]),
+                 f"combine gathers a step {rec['combine']}, planned "
+                 f"{rec['combine_plan']}"),
+                (tag == "b" or not any(launches["block"].values()),
+                 f"a kernel launched on exact: {launches}"),
+                (tag == "a" or (launches["block"] == launches["whole"]
+                                and launches["block"].get("sc_fused", 0) > 0
+                                and not any(launches["block"].get(k, 0)
+                                            for k in NOT_KERNEL_1)),
+                 f"kernel launches {launches}: kernel 1's must equal the "
+                 "unsharded step's"),
+            ):
+                if not ok:
+                    raise AssertionError(f"serve_fm_seq ({tag}): rank "
+                                         f"{rec['rank']}: {what}")
+            recs.append(rec)
+        groups: dict = {}
+        for rec in recs:
+            groups.setdefault(rec["coords"]["data"], set()).add(
+                rec["logits_checksum"])
+        if any(len(v) != 1 for v in groups.values()):
+            raise AssertionError(f"serve_fm_seq ({tag}): the ranks of a "
+                                 f"model group hold different logits")
+        first = recs[0]
+        out[tag] = dict(
+            card=card, backend=first["backend"], dtype=first["dtype"],
+            rows=first["rows"], max_len=first["max_len"],
+            steps=first["steps"], cache_bytes=first["cache_bytes"],
+            max_memory_allocated=[r["max_memory_allocated"] for r in recs],
+            peak_drop=[r["peak_drop"] for r in recs],
+            median_step_ms=[r["median_step_ms"] for r in recs],
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            max_abs_logit=max(r["max_abs_logit"] for r in recs), tol=tol,
+            tokens_equal=all(r["tokens_equal"] for r in recs),
+            combine_plan=first["combine_plan"],
+            launches=first["launches"])
+    emit("serve_fm_seq", **out)
+    return out
 
 
 def _synced_ms(fn):
@@ -3273,13 +3542,32 @@ def _span_totals(tracer, names) -> dict:
 # the collectives of a mesh step, each a span of the tracer
 TM_SPANS = ("train.grad_allreduce", "sc.merge", "train.pod_exchange",
             "train.ef_exchange", "mesh.all_gather", "mesh.reduce_scatter",
-            "fsdp.grad_allreduce")
+            "fsdp.grad_allreduce", "seq.all_gather")
 
 
-def tm_steps(mesh, cfg, tcfg, steps: int, state=None) -> dict:
+@contextlib.contextmanager
+def whole_sequence():
+    """``make_train_step`` builds its step with ``make_constrain(...,
+    seq_parallel=False)`` inside: the residual sequence whole between
+    layers, the layout before the sequence layout (TM-f's)."""
+    import functools
+
+    from repro_torch.train import step as step_mod
+
+    orig = step_mod.make_constrain
+    step_mod.make_constrain = functools.partial(orig, seq_parallel=False)
+    try:
+        yield
+    finally:
+        step_mod.make_constrain = orig
+
+
+def tm_steps(mesh, cfg, tcfg, steps: int, state=None, *,
+             seq_parallel: bool = True) -> dict:
     """``steps`` mesh train steps from seed 0's weights (or ``state``):
     each step's loss, ms (the ranks start it together), the collective
-    spans and every leaf's checksum after it."""
+    spans and every leaf's checksum after it.  ``seq_parallel=False``
+    keeps the residual sequence whole between layers."""
     import torch.distributed as dist
 
     from repro_torch.obs.trace import Tracer, install_tracer, uninstall_tracer
@@ -3288,7 +3576,8 @@ def tm_steps(mesh, cfg, tcfg, steps: int, state=None) -> dict:
     if state is None:
         state = train_state_init(0, cfg, tcfg, device=mesh.device,
                                  mesh=mesh)
-    step = make_train_step(cfg, tcfg, mesh)
+    with (contextlib.nullcontext() if seq_parallel else whole_sequence()):
+        step = make_train_step(cfg, tcfg, mesh)
     tracer = install_tracer(Tracer())
     rec = {"loss": [], "ms": [], "spans": [], "checksums": []}
     try:
@@ -3411,7 +3700,7 @@ def tm_fsdp(mesh, cfg, tm_a_params) -> dict:
                       for t in tree_leaves(state))
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    run = tm_steps(mesh, cfg, tcfg, TM_STEPS, state)
+    run = tm_steps(mesh, cfg, tcfg, TM_STEPS, state, seq_parallel=False)
     peak = torch.cuda.max_memory_allocated()
     launches = dict(cuda_lib.launches)
     del state
@@ -3431,9 +3720,43 @@ def tm_fsdp(mesh, cfg, tm_a_params) -> dict:
     return dict(plan=plan, state_bytes=state_bytes,
                 max_memory_allocated=peak, launches=launches,
                 loss=run["loss"], step_ms=run["ms"], spans=run["spans"],
+                checksums=run["checksums"],
                 param_gap=gap, param_gap_leaf=worst,
                 param_tol=TM_F_TOL_LR * lr, params_past_quiet=past,
                 params=total, quiet_tol=TM_F_QUIET_LR * lr)
+
+
+TM_S_STEPS = 2  # TM-s: TM-f's first steps with the sequence layout
+
+
+def tm_seq(mesh, cfg) -> dict:
+    """Phase TM-s (in every rank): TM-f's model, batch, optimizer, data
+    and FSDP ∘ TP layout with the residual sequence over ``model``
+    between layers (the mesh step's default), TM_S_STEPS steps: each
+    step's loss and leaf checksums (to be TM-f's), kernel 5's launches,
+    the sequence's gathers and the FSDP collectives a step (tracer
+    spans), the step ms and the peak."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import seq
+    from repro_torch.train import TrainConfig, train_state_init
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM), fsdp=True)
+    torch.cuda.empty_cache()
+    state = train_state_init(0, cfg, tcfg, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    run = tm_steps(mesh, cfg, tcfg, TM_S_STEPS, state)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cuda_lib.launches)
+    del state, run["state"]
+    torch.cuda.empty_cache()
+    plan = seq.seq_collective_plan(cfg, mesh, TM_BATCH, TM_SEQ)
+    return dict(plan=plan["all-gather"], loss=run["loss"],
+                checksums=run["checksums"], step_ms=run["ms"],
+                spans=run["spans"], max_memory_allocated=peak,
+                launches=launches)
 
 
 def tm_rank(outdir: str, layers: int) -> int:
@@ -3476,6 +3799,7 @@ def tm_rank(outdir: str, layers: int) -> int:
                spans=run["spans"], checksums=run["checksums"])
     rec["fsdp"] = tm_fsdp(mesh, cfg, tm_a_params)
     del tm_a_params
+    rec["seq"] = tm_seq(mesh, cfg)
 
     rec["smoke"] = tm_smoke(mesh, make_local_mesh(TM_MODEL_PARALLEL,
                                                   device="cpu"))
@@ -3616,8 +3940,80 @@ def train_mesh_phase(layers: int, card: str, t_losses: dict, ranks: list,
         if not ok:
             raise AssertionError(f"train_tm: {what}")
     fsdp = train_fsdp_phase(ranks, plan, card)
+    seq_rec = train_seq_phase(ranks, plan, card)
     return dict(summary, launches=first["launches"], ranks_detail=ranks,
-                fsdp=fsdp)
+                fsdp=fsdp, seq=seq_rec)
+
+
+def train_seq_phase(ranks: list, plan: dict, card: str) -> dict:
+    """Phase TM-s's checks (``ranks``: what each TM rank wrote, TM-f's
+    ``fsdp`` record beside TM-s's ``seq``): per rank each step's loss
+    and leaf checksums equal to TM-f's, kernel 5's launches a step
+    ``kernel5_plan``'s, the sequence's gathers a step (span
+    ``seq.all_gather``) equal in count and bytes to
+    ``sharding.seq.seq_collective_plan``, the FSDP collectives a step
+    TM-f's plan's; the step ms and the peak beside TM-f's."""
+    out = []
+    for rec in ranks:
+        f, t = rec["fsdp"], rec["seq"]
+        n = TM_S_STEPS
+        gathers = [{"count": sp["seq.all_gather"]["count"],
+                    "bytes": sp["seq.all_gather"]["bytes"]}
+                   for sp in t["spans"]]
+        coll = f["plan"]["collectives"]
+        fsdp_steps = [{kind: {"count": sp[name]["count"],
+                              "bytes": sp[name]["bytes"]}
+                       for kind, name in FSDP_COLLECTIVES.items()
+                       if kind in coll} for sp in t["spans"]]
+        want_fsdp = {kind: coll[kind] for kind in FSDP_COLLECTIVES
+                     if kind in coll}
+        step_s = [ms / 1e3 for ms in t["step_ms"]]
+        seq_s = [sp["seq.all_gather"]["s"] for sp in t["spans"]]
+        r = dict(
+            rank=rec["rank"], coords=rec["coords"], loss=t["loss"],
+            tm_f_loss=f["loss"][:n], seq_gathers_per_step=gathers[0],
+            seq_gathers_plan=t["plan"],
+            launches_per_step={k: t["launches"].get(k, 0) / n
+                               for k in plan}, kernel5_plan=plan,
+            step_ms=t["step_ms"], tm_f_step_ms=f["step_ms"][:n],
+            median_step_ms=float(np.median(t["step_ms"])),
+            tm_f_median_step_ms=float(np.median(f["step_ms"][:n])),
+            seq_share=float(np.median([a / b for a, b in zip(seq_s,
+                                                             step_s)])),
+            max_memory_allocated=t["max_memory_allocated"],
+            tm_f_max_memory_allocated=f["max_memory_allocated"])
+        emit("train_tm_seq_rank", **r)
+        for ok, what in (
+            (t["loss"] == f["loss"][:n], f"losses {t['loss']}, TM-f's "
+             f"{f['loss'][:n]}"),
+            (t["checksums"] == f["checksums"][:n],
+             "a leaf's bits differ from TM-f's"),
+            (all(g == t["plan"] for g in gathers),
+             f"sequence gathers a step {gathers}, planned {t['plan']}"),
+            (all(s == want_fsdp for s in fsdp_steps),
+             f"FSDP collectives a step {fsdp_steps}, planned {want_fsdp}"),
+            (r["launches_per_step"] == plan
+             and set(t["launches"]) <= set(plan),
+             f"kernel-5 launches a step {r['launches_per_step']}, planned "
+             f"{plan}"),
+        ):
+            if not ok:
+                raise AssertionError(f"train_tm_seq: rank {r['rank']}: "
+                                     f"{what}")
+        out.append(r)
+    summary = dict(
+        card=card, mesh=ranks[0]["mesh"], ranks=len(out), steps=TM_S_STEPS,
+        loss=out[0]["loss"], bit_equal_tm_f=True,
+        seq_gathers_per_step=out[0]["seq_gathers_per_step"],
+        launches_per_step=out[0]["launches_per_step"], kernel5_plan=plan,
+        median_step_ms=[r["median_step_ms"] for r in out],
+        tm_f_median_step_ms=[r["tm_f_median_step_ms"] for r in out],
+        seq_share=[r["seq_share"] for r in out],
+        max_memory_allocated=[r["max_memory_allocated"] for r in out],
+        tm_f_max_memory_allocated=[r["tm_f_max_memory_allocated"]
+                                   for r in out])
+    emit("train_tm_seq", **summary)
+    return summary
 
 
 FSDP_COLLECTIVES = {"all-gather": "mesh.all_gather",

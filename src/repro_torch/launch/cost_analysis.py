@@ -35,8 +35,12 @@ activation recompute, backward and optimizer) and records:
   :class:`~repro_torch.launch.mesh.RecordingMesh` (``all_reduce``,
   ``all_gather`` and ``reduce_scatter`` record ``(kind, axis, operand
   bytes)``: under the FSDP layout each layer's gathers and each
-  gradient's reduce-scatter), by kind, by (kind, operand bytes) and by
-  mesh axis.
+  gradient's reduce-scatter; under the sequence layouts each layer's
+  sequence gathers and the decode's combine), by kind, by (kind, operand
+  bytes), by mesh axis and by site (``coll_by_site``: an all-gather's
+  span name, ``mesh.all_gather`` for a parameter's, ``seq.all_gather``
+  for a sequence block's and ``seq.combine`` for the attention
+  partials'; else the kind).
 
 The roofline keeps the reference's names and meanings, at an NVIDIA
 H100 SXM's rates: the matmul FLOPs over the tensor-core (bf16) or CUDA-
@@ -197,6 +201,7 @@ class StepCost:
     coll_by_shape: dict = dataclasses.field(default_factory=dict)
     flops_by_dtype: dict = dataclasses.field(default_factory=dict)
     coll_by_axis: dict = dataclasses.field(default_factory=dict)
+    coll_by_site: dict = dataclasses.field(default_factory=dict)
     axis_bw: dict = dataclasses.field(default_factory=dict)
     arg_bytes: int = 0  # the step's inputs (parameters, state, batch)
     peak_bytes: int = 0  # peak live bytes, the arguments included
@@ -321,7 +326,10 @@ def trace_cost(fn, *args, mesh=None):
     out_keys = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
                 for t in _unique_tensors(out)}
     c.out_bytes = sum(n for k, n in out_keys.items() if k not in arg_keys)
-    for kind, axis, nb in (mesh.records[n_records:] if mesh else ()):
+    new = zip(mesh.records[n_records:], mesh.sites[n_records:]) \
+        if mesh else ()
+    for (kind, axis, nb), site in new:
+        c.coll_by_site[site] = c.coll_by_site.get(site, 0) + nb
         c.coll_by_kind[kind] = c.coll_by_kind.get(kind, 0) + nb
         key = f"{kind}:{nb}"
         c.coll_by_shape[key] = c.coll_by_shape.get(key, 0) + nb

@@ -12,16 +12,21 @@ allocated, nothing runs), as rank 0 of a
   the parameters and AdamW state (bf16 state for the 400B config, as the
   reference's dry-run has it), each layer all-gathered inside its
   checkpointed function and the gradients reduce-scattered, the step
-  keeping its rank's rows over ``pod`` x ``data``;
+  keeping its rank's rows over ``pod`` x ``data`` and its block of the
+  residual stream's sequence over ``model`` between layers
+  (``sharding/seq.py``);
 * ``prefill`` is ``lm.prefill`` and ``decode`` ``lm.decode_step`` on the
   rank's rows of the batch over ``pod`` x ``data`` (the whole batch
-  where it does not divide: ``long_500k``'s batch of 1) and the rank's
+  where it does not divide: ``long_500k``'s batch of 1), the rank's
   parameter shards, gathered as the train step gathers them (the leaves
-  outside the layer stack once, each layer as it runs).
+  outside the layer stack once, each layer as it runs), and the rank's
+  block of the KV cache's sequence laid out as the reference's
+  ``cache_shardings`` lays it (``make_constrain``'s
+  ``lay_out_cache``): prefill writes the block, decode combines the
+  ranks' attention partials.
 
-The gathers and reduce-scatters enter the account's collectives through
-the ``RecordingMesh``.  The KV sequence stays whole on a rank (the port
-has no counterpart of the reference's KV sequence over ``model``).
+The gathers, reduce-scatters and the sequence's gathers enter the
+account's collectives through the ``RecordingMesh``.
 ``memory.reference_layout_gb`` is the same rank's arguments under the
 reference's layout (``launch/specs.py``).  A cell that does not fit a
 card's 80 GB is recorded with its number.  The models run the ``exact``
@@ -56,7 +61,7 @@ from repro_torch.optim.adamw import adamw_init
 from repro_torch.sharding import fsdp
 from repro_torch.sharding.rules import Placement
 from repro_torch.train import TrainConfig, make_train_step
-from repro_torch.train.step import make_param_constrain
+from repro_torch.train.step import make_constrain, make_param_constrain
 
 DRYRUN_ARCHS = [a for a in ARCH_IDS if a != "paper-sc"]
 CARD_BYTES = 80e9  # device memory of one H100 SXM (the datasheet's 80 GB)
@@ -105,6 +110,9 @@ def cell_step(cfg, shape, mesh, tcfg: TrainConfig | None = None):
     if step_mesh is not None:
         serve_kw["constrain_params"] = make_param_constrain(
             step_mesh, cfg, fsdp=True)
+        if shape.kind != "train":
+            serve_kw["constrain"] = make_constrain(step_mesh)
+            serve_kw["constrain"].lay_out_cache(b, s)
     if shape.kind == "train":
         tcfg = tcfg or train_config(cfg.name)
         if not tcfg.fsdp:
@@ -136,7 +144,8 @@ def cell_step(cfg, shape, mesh, tcfg: TrainConfig | None = None):
         ref += _sharded_bytes({"t": specs["tokens"], "l": specs["lengths"]},
                               {"t": vec, "l": vec})
         rows = serve_rows(mesh, b)
-        cache = lm.init_cache(cfg, rows, s, device="meta")
+        cache = lm.init_cache(cfg, rows, s, device="meta",
+                              constrain=serve_kw.get("constrain"))
         tokens = torch.empty_like(specs["tokens"][:rows])
         lengths = torch.empty_like(specs["lengths"][:rows])
 
@@ -201,6 +210,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, compile_: bool = True,
         "unresolved_loops": cost.unresolved_loops,
         "flops_by_dtype": cost.flops_by_dtype,
         "collectives_by_axis": cost.coll_by_axis,
+        "collectives_by_site": cost.coll_by_site,
         "ops": cost.ops, "off_meta": cost.off_meta}
     mf = cost_analysis.model_flops_estimate(cfg, shape)
     rf = cost_analysis.roofline_from_cost(cost, chips, model_flops=mf)

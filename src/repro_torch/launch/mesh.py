@@ -112,14 +112,21 @@ class RecordingMesh(AbstractMesh):
     """An abstract mesh that stands as rank 0 (``coords`` all zero) and
     records the collectives run on it: each collective appends ``(kind,
     axis, operand bytes)`` to ``records`` (``kind`` "all-reduce",
-    "all-gather" or "reduce-scatter") and returns a tensor of the shape
-    it would give, its values not the collective's.  What the dry-run
-    (``launch/dryrun.py``) traces one rank of a production mesh on."""
+    "all-gather" or "reduce-scatter") and its site to ``sites`` (an
+    all-gather's span name, else the kind), and returns a tensor of the
+    shape it would give, its values not the collective's.  What the
+    dry-run (``launch/dryrun.py``) traces one rank of a production mesh
+    on."""
 
     def __init__(self, sizes, axis_names):
         super().__init__(sizes, axis_names)
         self.coords = {ax: 0 for ax in self.axis_names}
         self.records = []
+        self.sites = []
+
+    def record(self, kind: str, axis: str, nbytes: int, site=None):
+        self.records.append((kind, axis, nbytes))
+        self.sites.append(site or kind)
 
     @classmethod
     def of(cls, mesh) -> "RecordingMesh":
@@ -139,22 +146,23 @@ def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum"
     (``op`` "sum" or "max").  On a :class:`RecordingMesh` it records
     ``("all-reduce", axis, bytes)`` and leaves ``t`` as it is."""
     if isinstance(mesh, RecordingMesh):
-        mesh.records.append(("all-reduce", axis, _nbytes(t)))
+        mesh.record("all-reduce", axis, _nbytes(t))
         return t
     dist.all_reduce(t, op=_OPS[op], group=mesh.group(axis))
     return t
 
 
-def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
-               ) -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0, *,
+               span: str = "mesh.all_gather") -> torch.Tensor:
     """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in
-    coordinate order (bits copied exactly).  Records ``("all-gather",
-    axis, bytes of t)`` on a :class:`RecordingMesh`."""
+    coordinate order (bits copied exactly), timed as the tracer span
+    ``span``.  Records ``("all-gather", axis, bytes of t)`` on a
+    :class:`RecordingMesh`."""
     n = mesh.shape[axis]
     if isinstance(mesh, RecordingMesh):
-        mesh.records.append(("all-gather", axis, _nbytes(t)))
+        mesh.record("all-gather", axis, _nbytes(t), span)
         return torch.cat([t] * n, dim)
-    with collective_span("mesh.all_gather", t, axis=axis, bytes=_nbytes(t)):
+    with collective_span(span, t, axis=axis, bytes=_nbytes(t)):
         src = t.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=mesh.group(axis))
@@ -172,7 +180,7 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0
         raise ValueError(f"reduce_scatter: dimension {dim} of "
                          f"{tuple(t.shape)} does not split over {axis} ({n})")
     if isinstance(mesh, RecordingMesh):
-        mesh.records.append(("reduce-scatter", axis, _nbytes(t)))
+        mesh.record("reduce-scatter", axis, _nbytes(t))
         return t.narrow(dim, 0, t.shape[dim] // n).clone()
     with collective_span("mesh.reduce_scatter", t, axis=axis,
                          bytes=_nbytes(t)):

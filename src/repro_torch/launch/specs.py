@@ -7,9 +7,8 @@ The ``*_shardings`` helpers give a :class:`~repro_torch.sharding.rules.
 Placement` per leaf, holding the reference's ``PartitionSpec`` entries,
 derived from the same logical rules (``sharding/rules.py``): where the
 reference's dry-run lays each array out (FSDP x TP parameters, the KV
-sequence over ``model``).  The port's own steps hold parameters,
-optimizer state and the KV sequence whole on every rank; the dry-run
-prices both layouts (``launch/dryrun.py``).
+sequence over ``model``), and where the port's dry-run traces a rank's
+shards (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -121,18 +120,13 @@ def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
 
     * batch over (pod, data) when divisible;
     * the KV-cache SEQUENCE over ``model`` (over every axis when the
-      batch leaves (pod, data) unused, as ``long_500k``'s batch of 1);
+      batch leaves (pod, data) unused, as ``long_500k``'s batch of 1):
+      ``sharding.rules.cache_seq_axes``, the axes the port's prefill and
+      decode lay a rank's block out by;
     * SSM heads / d_inner over ``model`` when divisible.
     """
-    sizes = _sizes(mesh)
     dp = _dp_axes(mesh, batch)
-    seq_axes = []
-    if dp is None:
-        seq_axes += [a for a in ("pod", "data") if a in sizes]
-    if "model" in sizes:
-        seq_axes.append("model")
-    total = math.prod(sizes[a] for a in seq_axes) if seq_axes else 1
-    seq_ax = tuple(seq_axes) if seq_axes and max_len % total == 0 else None
+    seq_ax = sharding_rules.cache_seq_axes(mesh, batch, max_len) or None
     if seq_ax is not None and len(seq_ax) == 1:
         seq_ax = seq_ax[0]
     kv_ax = None if seq_ax else _div(cfg.n_kv_heads, mesh, "model")

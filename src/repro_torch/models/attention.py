@@ -143,7 +143,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True, chunk: int = 1024):
 
 
 def attention_block(x, p, cfg, positions, key=None, *, cache=None,
-                    cache_length=None):
+                    cache_length=None, seq=None):
     """Self-attention sub-block.  Returns ``(out, (k, v))``.
 
     Without a cache (training, eval, prefill): causal attention over the
@@ -152,15 +152,18 @@ def attention_block(x, p, cfg, positions, key=None, *, cache=None,
     ``cache=(k_cache, v_cache)`` (b, L, kv, d) buffers, the chunk's K/V
     are written IN PLACE at ``positions[:, 0]`` and the queries attend
     to everything up to ``cache_length - 1`` (:func:`decode_attention`);
-    the returned pair is the cache.  The output projection draws under
-    the key folded with 7.
+    the returned pair is the cache.  With ``seq`` (a
+    ``sharding.rules.SeqBlock``) the buffers hold this rank's block of
+    the cache's sequence: the write keeps the positions inside it and
+    the attention combines the ranks' partials.  The output projection
+    draws under the key folded with 7.
     """
     q, k, v = _project_qkv(x, p, cfg, positions, key)
     if cache is not None:
         kc, vc = cache
-        _write_rows(kc, k, positions[:, 0])
-        _write_rows(vc, v, positions[:, 0])
-        out = decode_attention(q, kc, vc, cache_length)
+        _write_rows(kc, k, positions[:, 0], seq)
+        _write_rows(vc, v, positions[:, 0], seq)
+        out = decode_attention(q, kc, vc, cache_length, seq)
         kv = (kc, vc)
     else:
         if cfg.attn_impl == "full":
@@ -181,33 +184,53 @@ def attention_block(x, p, cfg, positions, key=None, *, cache=None,
     return y, kv
 
 
-def _write_rows(cache, new, start):
+def _write_rows(cache, new, start, seq=None):
     """``cache[r, start[r] : start[r] + s] = new[r]`` for every row, IN
     PLACE.  A start past ``L - s`` is clamped to ``L - s``, as
     ``jax.lax.dynamic_update_slice`` clamps it: a request at the cache's
     last position overwrites that position instead of writing past the
-    end."""
+    end.  With ``seq`` the cache holds the block ``[seq.start,
+    seq.stop)`` of a sequence of ``seq.length``: the start is clamped
+    against that global length, and only the positions inside the block
+    are written."""
     b, s = new.shape[:2]
-    limit = cache.shape[1] - s
-    start = torch.clamp(start.to(torch.int64), 0, limit)
-    rows = torch.arange(b, device=cache.device)[:, None]
-    cols = start[:, None] + torch.arange(s, device=cache.device)[None]
-    cache[rows, cols] = new.to(cache.dtype)
+    length = cache.shape[1] if seq is None else seq.length
+    start = torch.clamp(start.to(torch.int64), 0, length - s)
+    rows = torch.arange(b, device=cache.device)
+    if seq is None:
+        cols = start[:, None] + torch.arange(s, device=cache.device)[None]
+        cache[rows[:, None], cols] = new.to(cache.dtype)
+        return
+    for i in range(s):  # one position a row at a time: no duplicate index
+        t = start + i - seq.start
+        inside = (t >= 0) & (t < seq.size)
+        col = torch.clamp(t, 0, seq.size - 1)
+        keep = cache[rows, col]
+        mask = inside.reshape((b,) + (1,) * (keep.dim() - 1))
+        cache[rows, col] = torch.where(mask, new[:, i].to(cache.dtype), keep)
 
 
-def decode_attention(q, k_cache, v_cache, length):
+def decode_attention(q, k_cache, v_cache, length, seq=None):
     """One-token decode: q (b, 1, h, d) against a (b, L, kv, d) cache,
     masked past ``length - 1`` (the query's own position)."""
-    return chunk_decode_attention(q, k_cache, v_cache, length - 1)
+    return chunk_decode_attention(q, k_cache, v_cache, length - 1, seq)
 
 
-def chunk_decode_attention(q, k_cache, v_cache, lengths):
+def chunk_decode_attention(q, k_cache, v_cache, lengths, seq=None):
     """A chunk of queries against a per-sequence cache.
 
     q: (b, sc, h, d) — chunk token i of row r sits at ABSOLUTE position
     ``lengths[r] + i`` (its K/V already in the cache); k/v_cache:
     (b, L, kv, d).  Causal within the chunk, masked beyond each row's
     fill.  Serves both decode (sc = 1) and chunked prefill.
+
+    With ``seq`` (a ``sharding.rules.SeqBlock``) the cache is this
+    rank's block of the sequence (its positions ``seq.start + t``):
+    each rank computes its block's partial — the running max, the sum
+    of exponentials and the unnormalised output, masked by absolute
+    position — and the partials of every rank over ``seq.axes`` merge in
+    coordinate order (:func:`_combine`), as kernel 2's combine pass
+    merges its splits.
     """
     b, sc, h, hd = q.shape
     kv = k_cache.shape[2]
@@ -216,14 +239,45 @@ def chunk_decode_attention(q, k_cache, v_cache, lengths):
     kf = k_cache.to(torch.float32)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
     t_idx = torch.arange(k_cache.shape[1], device=q.device)
+    if seq is not None:
+        t_idx = t_idx + seq.start
     steps = torch.arange(sc, device=q.device)
     q_pos = lengths.to(torch.int64)[:, None] + steps[None, :]  # (b, sc)
     mask = t_idx[None, None, :] <= q_pos[:, :, None]  # (b, sc, L)
-    logits = torch.where(mask[:, None, None], logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1)
+    mask = mask[:, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
     vf = v_cache.to(torch.float32)
-    out = torch.einsum("bkgst,btkd->bskgd", w, vf)
-    return out.reshape(b, sc, h, hd).to(q.dtype)
+    if seq is None:
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", w, vf)
+        return out.reshape(b, sc, h, hd).to(q.dtype)
+    m = logits.amax(dim=-1)  # NEG_INF where the block holds no position
+    # a masked position contributes exactly zero, also where the whole
+    # block is masked (exp(NEG_INF - NEG_INF) would be 1)
+    p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    part = torch.cat([torch.einsum("bkgst,btkd->bkgsd", p, vf),
+                      m[..., None], p.sum(dim=-1)[..., None]], dim=-1)
+    out = _combine(part, seq)  # (b, kv, g, sc, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sc, h, hd).to(q.dtype)
+
+
+def _combine(part, seq):
+    """Every rank's partial ``(..., d + 2)`` (unnormalised output, max,
+    sum of exponentials) over ``seq``'s axes, merged in coordinate
+    order: the attention output ``(..., d)``.  A partial of an empty
+    block (max NEG_INF, sum 0) adds exactly zero."""
+    from repro_torch.sharding.seq import stack_blocks
+
+    parts = stack_blocks(part, seq)
+    d = part.shape[-1] - 2
+    m = parts[..., d].amax(dim=0)
+    acc = torch.zeros_like(parts[0, ..., :d])
+    den = torch.zeros_like(m)
+    for i in range(parts.shape[0]):
+        w = torch.exp(parts[i, ..., d] - m)
+        acc = acc + parts[i, ..., :d] * w[..., None]
+        den = den + parts[i, ..., d + 1] * w
+    return acc / torch.clamp_min(den, 1e-30)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -147,12 +147,14 @@ def _ffn(x, p, cfg, key):
     return layers.mlp(x, p, cfg, key)
 
 
-def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
+def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None,
+                 seq=None):
     """One backbone block (pre-norm residual).  Returns ``(x, cache)``.
 
     Attention families: the sequence's K/V, or the ring-buffer ``cache``
-    it wrote into.  SSM / hybrid: the Mamba2 block under the layer's key
-    unfolded, with ``cache`` None, ``"prefill"`` or a state dict
+    it wrote into (``seq``: the block of its sequence the cache holds).
+    SSM / hybrid: the Mamba2 block under the layer's key unfolded, with
+    ``cache`` None, ``"prefill"`` or a state dict
     (:func:`ssm.ssm_block`)."""
     if cfg.family in STATE_FAMILIES:
         h, new_cache = ssm.ssm_block(
@@ -168,6 +170,7 @@ def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
         akey,
         cache=cache,
         cache_length=cache_length,
+        seq=seq,
     )
     x = x + h
     fkey = layers.fold_keys(key, 13)
@@ -175,7 +178,8 @@ def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None):
     return x + h, kv
 
 
-def _apply_shared(x, p, cfg, positions, key, cache=None, cache_length=None):
+def _apply_shared(x, p, cfg, positions, key, cache=None, cache_length=None,
+                  seq=None):
     """zamba2's weight-shared block: attention under ``fold_in(key, 17)``,
     the MLP under ``fold_in(key, 19)``.  Returns ``(x, (k, v))`` as
     :func:`_apply_block` does for an attention layer."""
@@ -187,6 +191,7 @@ def _apply_shared(x, p, cfg, positions, key, cache=None, cache_length=None):
         layers.fold_keys(key, 17),
         cache=cache,
         cache_length=cache_length,
+        seq=seq,
     )
     x = x + h
     mkey = layers.fold_keys(key, 19)
@@ -203,6 +208,31 @@ def _maybe_remat(fn, cfg):
     if cfg.remat != "none":
         raise ValueError(f"unknown cfg.remat={cfg.remat!r} (none | full)")
     return fn
+
+
+def _seq_block(constrain, length: int):
+    """The rank's block of a residual stream of ``length`` positions
+    between layers (``train.step.make_constrain``), or None: whole."""
+    fn = getattr(constrain, "seq_block", None)
+    return None if fn is None else fn(length)
+
+
+def _cache_block(constrain, length: int | None = None):
+    """The block of the decode cache's sequence ``constrain`` lays the
+    caller's cache out by (``cst.lay_out_cache``), or None: whole."""
+    blk = getattr(constrain, "cache", None)
+    if blk is not None and length is not None and blk.length != length:
+        raise ValueError(f"the cache is laid out for {blk.length} "
+                         f"positions, not {length}")
+    return blk
+
+
+def _whole(x, blk):
+    return x if blk is None else blk.gather(x)
+
+
+def _part(x, blk):
+    return x if blk is None else blk.slice(x)
 
 
 def _embed_inputs(params, inputs, cfg, rng=None):
@@ -233,19 +263,32 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     neither changes a value.  ``constrain_params`` runs inside the
     layer's checkpointed function: under the FSDP layout it gathers the
     layer's weights from the rank's shards, and the backward's
-    recompute gathers them again instead of keeping them."""
+    recompute gathers them again instead of keeping them.
+
+    Where ``constrain.seq_block(s)`` gives a block (a mesh step's
+    sequence parallelism, ``sharding/seq.py``) the residual stream
+    between layers is this rank's block of the sequence: each
+    checkpointed layer body and shared invocation gathers the whole
+    sequence first and keeps its block of the output last, so a
+    checkpoint saves only the block and the recompute gathers again;
+    the last layer's output is gathered before the final norm."""
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
     b, s = x.shape[:2]
     x = cst(x, "batch", "resid_seq", None)
+    blk = _seq_block(constrain, s)
+    x = _part(x, blk)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def body(xc, lp, key):
-        return _apply_block(xc, cstp(lp), cfg, positions, key)[0]
+        xc = _whole(xc, blk)
+        return _part(_apply_block(xc, cstp(lp), cfg, positions, key)[0], blk)
 
     def shared(xc, key):
-        return _apply_shared(xc, params["shared"], cfg, positions, key)[0]
+        xc = _whole(xc, blk)
+        return _part(_apply_shared(xc, params["shared"], cfg, positions,
+                                   key)[0], blk)
 
     body, shared = _maybe_remat(body, cfg), _maybe_remat(shared, cfg)
     for idx in range(n_backbone_layers(cfg)):
@@ -255,7 +298,7 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
         if inv is not None:
             x = shared(x, layers.fold_keys(rng, SHARED_KEY_BASE + inv))
         x = cst(x, "batch", "resid_seq", None)
-    return layers.rms_norm(x, params["final_norm"])
+    return layers.rms_norm(_whole(x, blk), params["final_norm"])
 
 
 def forward(params, inputs, cfg, *, rng=None, constrain=None,
@@ -324,17 +367,22 @@ def _stacked_state(cfg, n: int, batch: int, dtype, device):
     return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in one.items()}
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None):
+def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None,
+               constrain=None):
     """Stacked per-layer decode cache in ``cfg.act_dtype``.
 
     Attention families: ``{"k", "v"}`` of (layers, batch, max_len,
     kv_heads, head_dim) zeros.  SSM: ``{"ssm"}``, the conv tails and the
     float32 state of every backbone layer (leading axis = layer).  Hybrid
     adds ``shared_k`` / ``shared_v`` of (invocations, batch, max_len,
-    kv_heads, head_dim)."""
+    kv_heads, head_dim).  With ``constrain.cache`` (a mesh's cache
+    layout, ``train.step.make_constrain``) the K/V sequence is this
+    rank's block of the ``max_len`` positions."""
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     dtype = dtype or cfg.act_dtype
+    blk = _cache_block(constrain, max_len)
+    max_len = max_len if blk is None else blk.size
     if cfg.family in STATE_FAMILIES:
         n = n_backbone_layers(cfg)
         cache = {"ssm": _stacked_state(cfg, n, batch, dtype, device)}
@@ -370,7 +418,9 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
     per SSD chunk inside an SSM layer); the unembed draws from ``rng``
     itself.  ``constrain`` sees the residual stream after the embedding
     and after every layer, ``constrain_params`` each backbone layer's
-    weights, as in :func:`encode`.
+    weights, as in :func:`encode`.  Where ``constrain.cache`` lays the
+    cache out by a block of its sequence, the cache holds that block
+    and each layer's K/V writes only the positions inside it.
     """
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
@@ -380,7 +430,15 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
     x = cst(x, "batch", "resid_seq", None)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    cache = init_cache(cfg, b, max_len, x.dtype, device=x.device)
+    cache = init_cache(cfg, b, max_len, x.dtype, device=x.device,
+                       constrain=constrain)
+    blk = _cache_block(constrain, max_len)
+    lo, hi = (0, s) if blk is None else (blk.start, min(blk.stop, s))
+
+    def write(buf, idx, t):  # positions [lo, hi) of the block
+        if hi > lo:
+            buf[idx, :, :hi - lo] = t[:, lo:hi]
+
     if cfg.family in STATE_FAMILIES:
         states = []
         for idx in range(n_backbone_layers(cfg)):
@@ -393,8 +451,8 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
                 key = layers.fold_keys(rng, SHARED_KEY_BASE + inv)
                 x, (k, v) = _apply_shared(x, params["shared"], cfg,
                                           positions, key)
-                cache["shared_k"][inv, :, :s] = k
-                cache["shared_v"][inv, :, :s] = v
+                write(cache["shared_k"], inv, k)
+                write(cache["shared_v"], inv, v)
             x = cst(x, "batch", "resid_seq", None)
         cache["ssm"] = {name: torch.stack([st[name] for st in states])
                         for name in states[0]}
@@ -404,8 +462,8 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
             x, (k, v) = _apply_block(
                 x, cstp(_layer(params["blocks"], idx)), cfg, positions, key
             )
-            cache["k"][idx, :, :s] = k
-            cache["v"][idx, :, :s] = v
+            write(cache["k"], idx, k)
+            write(cache["v"], idx, v)
             x = cst(x, "batch", "resid_seq", None)
     x = layers.rms_norm(x, params["final_norm"])
     logits = _logits(x[:, -1], params, cfg, rng)
@@ -431,10 +489,21 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
     in :func:`prefill`; every row is one row of each SC matmul, so a
     row's bits depend on its neighbours (the fixed-slot engine's
     contract, unlike :func:`decode_paged`'s per-request keys).
-    ``constrain`` / ``constrain_params`` as in :func:`prefill`.
+    ``constrain`` / ``constrain_params`` as in :func:`prefill`: where
+    ``constrain.cache`` lays the cache out by a block of its sequence,
+    ``cache`` holds that block, each attention layer writes the new K/V
+    only inside it and combines the ranks' partials
+    (``attention.chunk_decode_attention``).
     """
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
+    blk = _cache_block(constrain)
+    kv_name = "shared_k" if cfg.family == "hybrid" else "k"
+    if blk is not None and kv_name in cache \
+            and cache[kv_name].shape[2] != blk.size:
+        raise ValueError(f"decode_step: a cache of {cache[kv_name].shape[2]} "
+                         f"positions, but the layout's block holds "
+                         f"{blk.size}")
     x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
     x = cst(x, "batch", None, None)
     positions = lengths.to(torch.int64)[:, None]
@@ -452,7 +521,7 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
                 x, _ = _apply_shared(
                     x, params["shared"], cfg, positions, key,
                     cache=(cache["shared_k"][inv], cache["shared_v"][inv]),
-                    cache_length=new_lengths,
+                    cache_length=new_lengths, seq=blk,
                 )
             x = cst(x, "batch", None, None)
     else:
@@ -466,6 +535,7 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
                 key,
                 cache=(cache["k"][idx], cache["v"][idx]),
                 cache_length=new_lengths,
+                seq=blk,
             )
             x = cst(x, "batch", None, None)
     x = layers.rms_norm(x, params["final_norm"])

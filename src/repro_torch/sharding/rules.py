@@ -18,7 +18,12 @@ SC contraction (:func:`sc_shard_rules`); the train step's FSDP ∘ TP
 layout (``TrainConfig(fsdp=True)``, ``sharding/fsdp.py``) holds only the
 rank's shard (:meth:`Placement.shard`) and all-gathers a leaf where it
 is used (:meth:`Placement.gather`), and ``checkpoint.restore_resharded``
-cuts each restored leaf to the rank's shard.
+cuts each restored leaf to the rank's shard.  The sequence layouts
+resolve here too: :func:`resid_seq_axes` (the residual stream's
+sequence between a mesh step's layers) and :func:`cache_seq_axes` (the
+decode cache's, ``launch/specs.py:cache_shardings``' axes), and
+:func:`seq_block` gives a rank's :class:`SeqBlock` of either
+(``sharding/seq.py`` moves the values).
 """
 
 from __future__ import annotations
@@ -204,3 +209,106 @@ def act_spec(mesh, *axes) -> tuple:
             mesh_ax = None
         entries.append(mesh_ax)
     return tuple(entries)
+
+
+# ---------------------------------------------------------------------------
+# Sequence layouts: the residual stream's (training) and the KV cache's
+# ---------------------------------------------------------------------------
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (an axis, a tuple, or None)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def resid_seq_axes(mesh, length: int) -> tuple:
+    """The mesh axes the residual stream's sequence of ``length``
+    positions splits over between layers: ``act_spec``'s ``"resid_seq"``
+    (``model``), or none where the length does not divide the axes'
+    span (the reference's ``make_constrain`` divisibility fallback)."""
+    axes = spec_axes(act_spec(mesh, "resid_seq")[0])
+    span = math.prod(mesh.shape[a] for a in axes)
+    return axes if axes and length % span == 0 else ()
+
+
+def cache_seq_axes(mesh, batch: int, max_len: int) -> tuple:
+    """The mesh axes a decode cache's sequence of ``max_len`` positions
+    splits over for a global ``batch``, exactly as
+    ``launch/specs.py:cache_shardings`` lays it out: ``model``; first
+    ``pod`` and ``data`` too where the batch leaves them unused (a batch
+    of 1); none where ``max_len`` does not divide the axes' span."""
+    sizes = dict(mesh.shape)
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    rows = math.prod(sizes[a] for a in axes)
+    used = bool(axes) and batch > 0 and (
+        batch % rows == 0 or ("data" in sizes and batch % sizes["data"] == 0))
+    seq = [] if used else list(axes)
+    if "model" in sizes:
+        seq.append("model")
+    span = math.prod(sizes[a] for a in seq)
+    return tuple(seq) if seq and max_len % span == 0 else ()
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """This rank's block of a sequence of ``length`` positions split
+    over the mesh ``axes`` (major first): positions ``[start, stop)``,
+    ``start = c·length/span`` for the rank's row-major coordinate ``c``
+    over the axes.  :meth:`gather` and :meth:`slice` move a tensor
+    between the block and the whole sequence through
+    ``sharding/seq.py``'s autograd functions."""
+
+    mesh: object
+    axes: tuple
+    length: int
+
+    @property
+    def span(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.axes)
+
+    @property
+    def size(self) -> int:
+        return self.length // self.span
+
+    @property
+    def index(self) -> int:
+        c = 0
+        for a in self.axes:
+            c = c * self.mesh.shape[a] + self.mesh.coords[a]
+        return c
+
+    @property
+    def start(self) -> int:
+        return self.index * self.size
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.size
+
+    def gather(self, x, dim: int = 1):
+        """The whole sequence from every rank's block of ``x``."""
+        from repro_torch.sharding.seq import SeqGather
+
+        return SeqGather.apply(x, self, dim)
+
+    def slice(self, x, dim: int = 1):
+        """This rank's block of the whole sequence ``x``."""
+        from repro_torch.sharding.seq import SeqSlice
+
+        return SeqSlice.apply(x, self, dim)
+
+
+def seq_block(mesh, axes: tuple, length: int):
+    """This rank's :class:`SeqBlock` of ``length`` positions over
+    ``axes`` (those of size 1 dropped), or None where no axis splits
+    it."""
+    live = tuple(a for a in axes if mesh.shape[a] > 1)
+    if not live:
+        return None
+    span = math.prod(mesh.shape[a] for a in live)
+    if length % span:
+        raise ValueError(f"a sequence of {length} does not split over "
+                         f"{live} ({span})")
+    return SeqBlock(mesh, live, length)

@@ -35,6 +35,15 @@ step with every one-key SC matmul sharded:
   feedback (``distributed/compression.py``; ``state["ef"]`` must hold
   :func:`~repro_torch.distributed.init_error_feedback`'s residual).
 
+Between layers each rank holds only its block of the residual stream's
+sequence over ``model`` (the reference's ``ACT_RULES["resid_seq"]``,
+Megatron-style sequence parallelism; ``sharding/seq.py``): each
+checkpointed layer all-gathers the whole sequence of its rows, runs on
+it and keeps its block, so the checkpoints hold ``1/model`` of the
+sequence; a sequence that does not divide stays whole
+(:func:`make_constrain`).  The ranks of a model group compute the same
+values either way, so the step is the whole-sequence step bit for bit.
+
 ``TrainConfig(fsdp=True)`` is the reference's FSDP ∘ TP layout
 (``sharding/fsdp.py``): ``params``, ``m`` and ``v`` (and the residual)
 hold only the rank's shard of each leaf (``train_state_init(...,
@@ -74,7 +83,8 @@ from repro_torch.models.params import _leaves, _set, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.sc import ctr_rng
 from repro_torch.sharding import fsdp as fsdp_lib
-from repro_torch.sharding import param_shardings, sc_shard_rules
+from repro_torch.sharding import act_spec, param_shardings, sc_shard_rules
+from repro_torch.sharding import rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +98,31 @@ class TrainConfig:
     fsdp: bool = False
 
 
-def make_constrain(mesh):
-    """The activation constraint of a mesh step (None without a mesh).
+def make_constrain(mesh, *, seq_parallel: bool = True):
+    """The activation constraint of a mesh step (None without a mesh):
+    the reference's ``make_constrain``, which lays activations out by
+    ``ACT_RULES``, for the two layouts the port moves itself.
 
-    ``cst(v, *logical_axes)`` returns ``v``: activations are not laid
-    out by constraints here but by the rows each rank holds.  It checks
-    that a tensor whose first logical axis is ``"batch"`` holds this
-    rank's rows of the batch (``cst.batch``, set by the step), and
-    carries ``cst.axis_sizes`` for model code that adapts to the mesh."""
+    ``cst(v, *logical_axes)`` returns ``v``.  It checks that a tensor
+    whose first logical axis is ``"batch"`` holds this rank's rows of
+    the batch (``cst.batch``, set by the step), and carries
+    ``cst.axis_sizes`` for model code that adapts to the mesh.  It also
+    carries the sequence layouts (``sharding/seq.py``):
+
+    * ``cst.seq_axes``: the mesh axes ``"resid_seq"`` maps to
+      (``model``); ``cst.seq_block(s)`` is this rank's
+      ``sharding.rules.SeqBlock`` of a residual stream of ``s``
+      positions between layers, or None where it stays whole (no live
+      axis, or ``s`` does not divide: the reference's fallback);
+    * ``cst.cache``: the block of the decode cache's sequence the
+      caller's cache holds (None: whole), set by
+      ``cst.lay_out_cache(batch, max_len)`` for a global ``batch`` from
+      ``sharding.rules.cache_seq_axes`` (``cache_shardings``' axes);
+      ``lm.init_cache`` / ``prefill`` / ``decode_step`` read it.
+
+    ``seq_parallel=False`` keeps both sequences whole: the layout of
+    earlier steps, which no entry point asks for (the tests compare the
+    two with it)."""
     if mesh is None:
         return None
 
@@ -108,7 +135,23 @@ def make_constrain(mesh):
                 f"{dict(mesh.shape)}")
         return v
 
+    def seq_block(length: int):
+        if not seq_parallel:
+            return None
+        return rules.seq_block(mesh, rules.resid_seq_axes(mesh, length),
+                               length)
+
+    def lay_out_cache(batch: int, max_len: int):
+        cst.cache = None if not seq_parallel else rules.seq_block(
+            mesh, rules.cache_seq_axes(mesh, batch, max_len), max_len)
+        return cst.cache
+
     cst.axis_sizes = dict(mesh.shape)
+    cst.seq_axes = (rules.spec_axes(act_spec(mesh, "resid_seq")[0])
+                    if seq_parallel else ())
+    cst.seq_block = seq_block
+    cst.lay_out_cache = lay_out_cache
+    cst.cache = None
     cst.batch = None
     return cst
 

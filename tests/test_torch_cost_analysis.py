@@ -18,18 +18,25 @@
 * on a recording data 2 x model 2 mesh the train step records one
   float32 all-reduce over ``data`` of every gradient leaf and the loss
   (663,841,284 bytes for qwen2-0.5b at 2 layers: the bytes phase TM
-  measured a step on the card);
+  measured a step on the card) and the residual sequence's gathers over
+  ``model`` that ``sharding.seq.seq_collective_plan`` counts;
 * the dry-run's train cell on the FSDP ∘ TP layout (qwen2-0.5b at 2
   layers on both production meshes): its recorded all-gather and
   reduce-scatter bytes equal ``sharding.fsdp.collective_plan``'s count
-  from ``param_shardings``, and its argument bytes equal the reference
-  layout's that ``cell_step`` returns, but for the rows of the global
-  batch the port's step is handed beyond its own;
+  from ``param_shardings`` plus the sequence's gathers, and its argument
+  bytes equal the reference layout's that ``cell_step`` returns, but for
+  the rows of the global batch the port's step is handed beyond its
+  own;
+* the dry-run's decode cells hold the rank's block of the cache's
+  sequence (the whole over the sequence's span, over ``model``, or over
+  every axis at a batch of 1), and record the combine's gathers that
+  ``sharding.seq.combine_plan`` counts;
 * the counter's byte rules, peak live bytes and that nothing leaves
   ``meta``; the CLI writes the reference's keys.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -178,7 +185,11 @@ def _tm_cfg():
 
 def test_recorded_allreduce_is_the_gradient_and_loss():
     """One float32 all-reduce over ``data`` of every gradient leaf and
-    the loss; nothing over ``model`` (``exact`` shards no contraction)."""
+    the loss; over ``model`` only the residual sequence's gathers
+    (``exact`` shards no contraction): 8 a step (the embedding's
+    gradient, 3 a layer under remat, the final norm's input) of a rank's
+    4 rows x 32 positions x 896 in bf16."""
+    from repro_torch.sharding import seq
     cfg = _tm_cfg()
     mesh = RecordingMesh((2, 2), ("data", "model"))
     tt = TrainConfig()
@@ -190,11 +201,20 @@ def test_recorded_allreduce_is_the_gradient_and_loss():
                            {"inputs": tok, "labels": tok}, mesh=mesh)
     want = 4 * (C.param_count(cfg) + 1)
     assert want == 663_841_284  # phase TM's measured bytes a step
-    assert cost.coll_by_kind == {"all-reduce": want}
-    assert cost.coll_by_axis == {"data": want}
-    assert cost.coll_by_shape == {f"all-reduce:{want}": want}
-    assert mesh.records == [("all-reduce", "data", want)]
-    assert cost.collective_seconds() == pytest.approx(want / C.NVLINK_BW)
+    plan = seq.seq_collective_plan(cfg, mesh, 8, 64)["all-gather"]
+    assert plan == {"count": 8, "bytes": 8 * 229_376}
+    gathers = plan["bytes"]
+    assert cost.coll_by_kind == {"all-reduce": want, "all-gather": gathers}
+    assert cost.coll_by_axis == {"data": want, "model": gathers}
+    assert cost.coll_by_site == {"all-reduce": want,
+                                 "seq.all_gather": gathers}
+    assert cost.coll_by_shape == {f"all-reduce:{want}": want,
+                                  "all-gather:229376": gathers}
+    assert [r for r in mesh.records if r[0] == "all-reduce"] == [
+        ("all-reduce", "data", want)]
+    assert mesh.records.count(("all-gather", "model", 229_376)) == 8
+    assert cost.collective_seconds() == pytest.approx(
+        (want + gathers) / C.NVLINK_BW)
     assert cost.off_meta == 0
 
 
@@ -210,17 +230,55 @@ def test_dryrun_train_cell_on_shards(multi_pod):
     shape = ShapeConfig("train_cut", 64, 64, "train")
     tcfg = dryrun.train_config("qwen2-0.5b")
     assert tcfg.fsdp
+    from repro_torch.sharding import seq
+
     cost, _, ref = dryrun.trace_cell(cfg, shape, mesh, tcfg)
     axes = ("pod", "data") if multi_pod else ("data",)
     plan = fsdp.collective_plan(cfg, mesh, reduce_axes=axes)
-    for kind in ("all-gather", "reduce-scatter"):
-        assert cost.coll_by_kind[kind] == plan[kind]["bytes"], kind
+    gathers = seq.seq_collective_plan(cfg, mesh, 64, 64)["all-gather"]
+    assert gathers["count"] == 8  # 4 rows (2) x 4 positions a rank
+    assert cost.coll_by_site["seq.all_gather"] == gathers["bytes"]
+    assert cost.coll_by_site["mesh.all_gather"] == plan["all-gather"][
+        "bytes"]
+    assert cost.coll_by_kind["all-gather"] == plan["all-gather"][
+        "bytes"] + gathers["bytes"]
+    assert cost.coll_by_kind["reduce-scatter"] == plan["reduce-scatter"][
+        "bytes"]
     # the port's step is handed the global batch (it keeps its rows)
     batch = S.input_specs(cfg, shape)["batch"]
     whole = sum(t.numel() * t.element_size() for t in batch.values())
     rows = dryrun._sharded_bytes(batch, S.batch_shardings(
         cfg, mesh, shape.global_batch))
     assert cost.arg_bytes == ref - rows + whole
+    assert cost.off_meta == 0
+
+
+@pytest.mark.parametrize("batch,axes", [(32, ("model",)),
+                                        (1, ("data", "model"))])
+def test_dryrun_decode_cell_holds_the_cache_block(batch, axes):
+    """A decode cell on 16 x 16 traces the rank's block of the cache:
+    the whole over the sequence's span (``model``, or ``data`` x
+    ``model`` at a batch of 1), and one combine gather an axis a layer,
+    as ``sharding.seq.combine_plan`` counts."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import rules, seq
+
+    cfg = _tm_cfg()
+    mesh = make_production_mesh()
+    shape = ShapeConfig("decode_cut", 4096, batch, "decode")
+    assert rules.cache_seq_axes(mesh, batch, 4096) == axes
+    cost, inputs, _ = dryrun.trace_cell(cfg, shape, mesh)
+    span = math.prod(mesh.shape[a] for a in axes)  # 16 or 256
+    rows = batch // 16 if axes == ("model",) else batch
+    assert inputs["cache/k"][0] == [2, rows, 4096 // span, 2, 64]
+    whole = 2 * 2 * rows * 4096 * 2 * 64 * 2  # k and v, bf16
+    cache_bytes = 2 * math.prod(inputs["cache/k"][0]) * 2
+    assert cache_bytes * span == whole
+    block = rules.seq_block(RecordingMesh.of(mesh), axes, 4096)
+    plan = seq.combine_plan(cfg, rows, block)["all-gather"]
+    assert plan["count"] == 2 * len(axes)
+    assert cost.coll_by_site["seq.combine"] == plan["bytes"]
     assert cost.off_meta == 0
 
 
@@ -298,8 +356,9 @@ def test_dryrun_cli_writes_the_reference_keys(tmp_path):
         C.roofline_from_cost(C.StepCost(), 1).row())
     assert {"flops_per_device", "bytes_per_device", "collectives_by_kind",
             "unresolved_loops"} <= set(r["cost"])
-    # the rank's rows: 128 over data 16; the KV sequence whole
-    assert r["inputs"]["cache/k"][0] == [24, 8, 32768, 2, 64]
+    # the rank's rows: 128 over data 16; its block of the KV sequence
+    # over model 16
+    assert r["inputs"]["cache/k"][0] == [24, 8, 2048, 2, 64]
     assert r["cost"]["off_meta"] == 0
     assert r["memory"]["reference_layout_gb"] < r["memory"][
         "total_per_device_gb"]
@@ -323,8 +382,10 @@ def test_profile_prints_the_cell(capsys):
     result, cost = profile_cell.profile("qwen2-0.5b", "decode_32k", top=4)
     text = capsys.readouterr().out
     assert "qwen2-0.5b x decode_32k x 16x16" in text
-    assert "bytes by aten op" in text and "aten.bmm" in text
+    assert "bytes by aten op" in text and "aten.mm" in text
     assert cost.bytes == sum(cost.bytes_by_op.values())
-    assert result["roofline"]["bound"] == "memory"
+    # a rank's block of the cache (1/16 of it) leaves the parameter
+    # gathers the largest term
+    assert result["roofline"]["bound"] == "collective"
     total = profile_cell.sc_trace("qwen2-0.5b", "decode_32k", top=2)
     assert total.products > 0 and "SOT-MRAM" in capsys.readouterr().out

@@ -164,12 +164,9 @@ def test_port_mirrors_the_reference_models_and_configs():
 
 
 # The scale-out modules and the dry-run / cost tooling the port holds,
-# and the reference's public names each lacks: the port's activation
-# constraint lays nothing out (no ``act_spec``), and its train step
+# and the reference's public names each lacks: the port's train step
 # enters the sharded SC substrate itself, so the launcher imports
-# neither ``sc`` nor ``sc_shard_rules``; the dry-run traces the port's
-# own step, which builds its activation constraint itself (the serving
-# cells take ``make_param_constrain``'s FSDP gathers).  ``hlo_analysis.py`` is
+# neither ``sc`` nor ``sc_shard_rules``.  ``hlo_analysis.py`` is
 # ``cost_analysis.py`` in the port: the port has no HLO, so its text
 # parser (``Instr``, ``analyze_hlo``) and the TPU's ICI rate have no
 # counterpart.
@@ -180,11 +177,11 @@ SCALE_OUT = {
     "launch/mesh.py": set(),
     "distributed/__init__.py": set(),
     "distributed/compression.py": set(),
-    "train/step.py": {"act_spec"},
+    "train/step.py": set(),
     "checkpoint/ckpt.py": set(),
     "launch/train.py": {"sc", "sc_shard_rules"},
     "launch/specs.py": set(),
-    "launch/dryrun.py": {"make_constrain"},
+    "launch/dryrun.py": set(),
     "launch/hlo_analysis.py": {"Instr", "analyze_hlo", "ICI_BW"},
     "launch/profile_cell.py": set(),
     "configs/base.py": set(),

@@ -335,11 +335,18 @@ def test_recompute_gathers_every_layer_again(remat):
     leaves outside the layer stack gathered once, each layer's once in
     the forward and, under ``remat="full"``, once more in the backward's
     recompute (so no layer's gathered weights are saved for it); every
-    gradient reduced once."""
+    gradient reduced once.  The residual sequence's gathers (site
+    ``seq.all_gather``) are ``sharding.seq.seq_collective_plan``'s."""
+    from repro_torch.sharding import seq
+
     mesh = RecordingMesh((2, 2), ("data", "model"))
     cfg, cost = _recorded_step(remat, mesh)
     plan = fsdp.collective_plan(cfg, mesh, reduce_axes=("data",))
-    got = _by_kind(mesh.records)
+    sites = list(zip(mesh.records, mesh.sites))
+    got = _by_kind([r for r, site in sites if site != "seq.all_gather"])
+    assert _by_kind([r for r, site in sites if site == "seq.all_gather"])[
+        "all-gather"] == seq.seq_collective_plan(cfg, mesh, 8, 16)[
+            "all-gather"]
     for kind in ("all-gather", "reduce-scatter"):
         assert got[kind] == plan[kind], kind
     # the gradient all-reduces of the leaves no dimension splits over
