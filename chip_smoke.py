@@ -122,7 +122,18 @@ code is non-zero):
    64-position cache's boundary, every SC call's K split over the model
    pair: kernel 1's launches the unsharded step's, logits within 2e-2
    of max |logit| (FM_S_B_TOL); in both the ranks of a model group hold
-   the same logits bits;
+   the same logits bits (FM-s runs with ``tensor_parallel=False``, the
+   layout it came with); then FM-t in the same ranks: decode under the
+   in-layer layout (``sharding/tp.py``) against the same mesh with
+   ``make_constrain(..., tensor_parallel=False)``: (a) FM-s (b)'s shape
+   on a whole cache (the attention on a rank's 7 of 14 heads, the MLP
+   hidden's half): logits bit-equal or within 1e-6 of max |logit|,
+   tokens equal, kernel 1's launches the whole layout's; (b)
+   mamba2-370m at full width, 4 layers, ``exact`` float32, 2 rows a
+   data rank, a 16-token prefill and 8 teacher-forced decode steps on a
+   rank's block of the SSM state (``lay_out_cache``: 16 of 32 heads,
+   ``conv_x`` 1,024 of 2,048): the state and ``conv_x`` half the whole
+   layout's bytes, logits within 1e-5 of max |logit|, tokens equal;
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
 6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
@@ -192,7 +203,18 @@ code is non-zero):
    TM-f's bit for bit, kernel 5's launches ``kernel5_plan``'s, the
    sequence's gathers a step (span ``seq.all_gather``) and the FSDP
    collectives equal in count and bytes to their plans, the step ms
-   and the peak beside TM-f's;
+   and the peak beside TM-f's (TM-a, TM-f, TM-s and TM-c run with
+   ``tensor_parallel=False``, the layout they came with; TM-b with the step's
+   default); TM-t, TM-s with the in-layer layout on (the mesh step's
+   default: 7 heads, 1 kv head, the MLP hidden's and the loss
+   vocabulary's halves a rank), 2 steps: losses within 1e-6 of TM-s's,
+   every step-1 gradient leaf within 1e-5 of its max |g|, the in-layer
+   collectives a step (spans ``tp.gather`` / ``tp.sum`` / ``tp.vocab``)
+   equal in count and bytes to ``sharding.tp.tp_collective_plan``,
+   kernel 5's launches ``kernel5_plan``'s, the step ms and the peak
+   beside TM-s's; TM-cp, the same on data 1 x model 4 (14 heads do not
+   divide: the context-parallel branch) against that mesh with the
+   layout off;
 8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
    decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
    kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
@@ -2467,8 +2489,9 @@ def fm_seq(mesh, layers: int) -> dict:
         params = _qwen_params(cfg, mesh.device)
         lengths, tokens, batch = _fm_s_inputs(cfg, mesh, rows, fills, steps,
                                               seed=7)
-        whole_cst = make_constrain(mesh, seq_parallel=False)
-        cst = make_constrain(mesh)
+        whole_cst = make_constrain(mesh, seq_parallel=False,
+                                   tensor_parallel=False)
+        cst = make_constrain(mesh, tensor_parallel=False)
         blk = cst.lay_out_cache(batch, max_len)
         whole_cst.batch = cst.batch = rows
         scope = contextlib.nullcontext()
@@ -2508,6 +2531,131 @@ def fm_seq(mesh, layers: int) -> dict:
         del params, runs
         torch.cuda.empty_cache()
     return out
+
+
+# Phase FM-t: decode under the in-layer layout on FM's data 2 x model 2
+# mesh, against the same mesh with ``tensor_parallel=False``.  (a) FM-s
+# (b)'s shape (``pallas_bitexact`` bf16, kernel 1, FM_S_B_ROWS rows a
+# data rank, FM_S_B_STEPS steps) on a whole cache: the attention on the
+# rank's heads block, the MLP hidden's block; logits bit-equal or within
+# FM_T_TOL of max |logit|, tokens equal, kernel 1's launches the whole
+# layout's.  (b) mamba2-370m at full width, FM_T_SSM_LAYERS deep
+# (phase S's depth), ``exact`` float32, FM_T_ROWS rows a data rank: a
+# prompt of FM_T_PROMPT tokens, then FM_T_STEPS teacher-forced decode
+# steps on the rank's block of the SSM state (``lay_out_cache``: 16 of
+# 32 heads, ``conv_x`` 1,024 of 2,048): logits within FM_T_SSM_TOL of
+# max |logit|, tokens equal, the state half the whole's bytes.
+FM_T_TOL = 1e-6
+FM_T_SSM_LAYERS, FM_T_ROWS, FM_T_PROMPT, FM_T_STEPS = 4, 2, 16, 8
+FM_T_SSM_TOL = 1e-5
+
+
+def _fm_t_bitexact(mesh, layers: int) -> dict:
+    from repro_torch import sc
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import sc_shard_rules
+    from repro_torch.train.step import make_constrain
+
+    cfg = get_config("qwen2-0.5b").replace(
+        n_layers=layers, sc_backend="pallas_bitexact", sc_nbit=1024,
+        param_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
+    params = _qwen_params(cfg, mesh.device)
+    rows, max_len = FM_S_B_ROWS, FM_S_B_LEN
+    lengths, tokens, _ = _fm_s_inputs(cfg, mesh, rows, FM_S_B_FILLS,
+                                      FM_S_B_STEPS, seed=7)
+    runs = {}
+    scope = sc.use_mesh(mesh, dataclasses.replace(sc_shard_rules(mesh),
+                                                  local_rows=True))
+    with scope:
+        for name, on in (("whole", False), ("tp", True)):
+            cst = make_constrain(mesh, tensor_parallel=on)
+            cst.batch = rows
+            cache = _fm_s_cache(cfg, mesh, rows, max_len,
+                                range(mesh.shape["model"]), seed=11)
+            runs[name] = _fm_s_decode(params, cfg, cache, lengths, tokens,
+                                      cst)
+            del cache
+    gap, scale, same, bits = _logit_gap(runs["tp"]["logits"],
+                                        runs["whole"]["logits"])
+    bit_equal = all(torch.equal(a, b) for a, b in
+                    zip(runs["tp"]["logits"], runs["whole"]["logits"]))
+    del params
+    torch.cuda.empty_cache()
+    return dict(backend="pallas_bitexact", dtype="bfloat16", rows=rows,
+                max_len=max_len, steps=FM_S_B_STEPS,
+                launches={k: r["launches"] for k, r in runs.items()},
+                step_ms={k: r["ms"] for k, r in runs.items()},
+                max_memory_allocated={k: r["max_memory_allocated"]
+                                      for k, r in runs.items()},
+                max_abs_err=gap, max_abs_logit=scale, tokens_equal=same,
+                bit_equal=bit_equal, logits_checksum=bits)
+
+
+def _fm_t_ssm(mesh) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_constrain
+
+    cfg = get_config("mamba2-370m").replace(
+        n_layers=FM_T_SSM_LAYERS, sc_backend="exact",
+        param_dtype=torch.float32, act_dtype=torch.float32)
+    params = _qwen_params(cfg, mesh.device)
+    rng = np.random.default_rng(13)
+    batch = FM_T_ROWS * mesh.shape["data"]
+    d = mesh.coords["data"]
+    mine = slice(d * FM_T_ROWS, (d + 1) * FM_T_ROWS)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        batch, FM_T_PROMPT))[mine]).to(mesh.device)
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        FM_T_STEPS, batch))[:, mine]).to(mesh.device)
+    runs = {}
+    for name, on in (("whole", False), ("tp", True)):
+        cst = make_constrain(mesh, tensor_parallel=on)
+        cst.lay_out_cache(batch, FM_T_PROMPT + FM_T_STEPS)
+        cst.batch = FM_T_ROWS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        logits, ms = [], []
+        with torch.no_grad():
+            (lg, cache, lengths), t = _synced_ms(lambda: lm.prefill(
+                params, prompt, cfg, FM_T_PROMPT + FM_T_STEPS,
+                constrain=cst))
+            logits.append(lg.cpu())
+            ms.append(t)
+            state_bytes = {k: v.numel() * v.element_size()
+                           for k, v in cache["ssm"].items()}
+            for tok in forced:
+                (lg, cache), t = _synced_ms(lambda: lm.decode_step(
+                    params, cache, tok, lengths, cfg, constrain=cst))
+                logits.append(lg.cpu())
+                ms.append(t)
+                lengths = lengths + 1
+        runs[name] = dict(logits=logits, ms=ms, state_bytes=state_bytes,
+                          launches=dict(cuda_lib.launches),
+                          max_memory_allocated=torch.cuda
+                          .max_memory_allocated())
+        del cache
+    gap, scale, same, bits = _logit_gap(runs["tp"]["logits"],
+                                        runs["whole"]["logits"])
+    del params
+    torch.cuda.empty_cache()
+    return dict(backend="exact", dtype="float32", rows=FM_T_ROWS,
+                layers=FM_T_SSM_LAYERS, prompt=FM_T_PROMPT,
+                steps=FM_T_STEPS,
+                state_bytes={k: r["state_bytes"] for k, r in runs.items()},
+                launches={k: r["launches"] for k, r in runs.items()},
+                step_ms={k: r["ms"] for k, r in runs.items()},
+                max_memory_allocated={k: r["max_memory_allocated"]
+                                      for k, r in runs.items()},
+                max_abs_err=gap, max_abs_logit=scale, tokens_equal=same,
+                logits_checksum=bits)
+
+
+def fm_tp(mesh, layers: int) -> dict:
+    """Phase FM-t (on every rank): (a) and (b) above."""
+    return {"a": _fm_t_bitexact(mesh, layers), "b": _fm_t_ssm(mesh)}
 
 
 def fm_rank(outdir: str, layers: int) -> int:
@@ -2554,6 +2702,7 @@ def fm_rank(outdir: str, layers: int) -> int:
     torch.cuda.empty_cache()
     dist.barrier()
     rec["seq"] = fm_seq(mesh, layers)
+    rec["tp"] = fm_tp(mesh, layers)
     with open(os.path.join(outdir, f"fm_rank{mesh.rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.barrier()
@@ -2687,8 +2836,80 @@ def mesh_phase(params, cfg, prompts, tokens_f, card: str, ranks: list,
         if not ok:
             raise AssertionError(f"serve_fm: {what}")
     seq_rec = fm_seq_phase(ranks, card)
+    tp_rec = fm_tp_phase(ranks, card)
     return dict(summary, launches=first["launches"], ranks_detail=ranks,
-                counts_one=counts_one, seq=seq_rec)
+                counts_one=counts_one, seq=seq_rec, tp=tp_rec)
+
+
+def fm_tp_phase(ranks: list, card: str) -> dict:
+    """Phase FM-t's checks (``ranks``: what each FM rank wrote, its
+    ``tp`` record): (a) logits bit-equal to the whole layout's or within
+    FM_T_TOL of max |logit|, tokens equal, kernel 1's launches the whole
+    layout's and no other kernel; (b) logits within FM_T_SSM_TOL, tokens
+    equal, the state half the whole's bytes (``conv_x`` too), no kernel;
+    the ranks of a model group hold the same logits."""
+    out = {}
+    for tag, tol in (("a", FM_T_TOL), ("b", FM_T_SSM_TOL)):
+        recs = []
+        for r in ranks:
+            rec = dict(r["tp"][tag], rank=r["rank"], coords=r["coords"])
+            rec["median_step_ms"] = {k: float(np.median(v))
+                                     for k, v in rec["step_ms"].items()}
+            emit("serve_fm_tp_rank", case=tag, **{
+                k: v for k, v in rec.items() if k != "step_ms"})
+            launches = rec["launches"]
+            checks = [
+                (rec["max_abs_err"] <= tol * rec["max_abs_logit"],
+                 f"logits {rec['max_abs_err']} from the whole layout's "
+                 f"(max |logit| {rec['max_abs_logit']}, tolerance {tol})"),
+                (rec["tokens_equal"], "greedy tokens differ from the whole "
+                 "layout's"),
+            ]
+            if tag == "a":
+                checks.append((
+                    launches["tp"] == launches["whole"]
+                    and launches["tp"].get("sc_fused", 0) > 0
+                    and not any(launches["tp"].get(k, 0)
+                                for k in NOT_KERNEL_1),
+                    f"kernel launches {launches}: kernel 1's must equal the "
+                    "whole layout's"))
+            else:
+                sb = rec["state_bytes"]
+                checks += [
+                    (all(2 * sb["tp"][k] == sb["whole"][k]
+                         for k in ("state", "conv_x")),
+                     f"state bytes {sb}: the block must hold half"),
+                    (not any(launches["tp"].values()),
+                     f"a kernel launched on exact: {launches}"),
+                ]
+            for ok, what in checks:
+                if not ok:
+                    raise AssertionError(f"serve_fm_tp ({tag}): rank "
+                                         f"{rec['rank']}: {what}")
+            recs.append(rec)
+        groups: dict = {}
+        for rec in recs:
+            groups.setdefault(rec["coords"]["data"], set()).add(
+                rec["logits_checksum"])
+        if any(len(v) != 1 for v in groups.values()):
+            raise AssertionError(f"serve_fm_tp ({tag}): the ranks of a "
+                                 "model group hold different logits")
+        first = recs[0]
+        out[tag] = dict(
+            card=card, backend=first["backend"], dtype=first["dtype"],
+            rows=first["rows"], steps=first["steps"],
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            max_abs_logit=max(r["max_abs_logit"] for r in recs), tol=tol,
+            tokens_equal=all(r["tokens_equal"] for r in recs),
+            median_step_ms=[r["median_step_ms"] for r in recs],
+            max_memory_allocated=[r["max_memory_allocated"] for r in recs],
+            launches=first["launches"])
+        if tag == "a":
+            out[tag]["bit_equal"] = all(r["bit_equal"] for r in recs)
+        else:
+            out[tag]["state_bytes"] = first["state_bytes"]
+    emit("serve_fm_tp", **out)
+    return out
 
 
 def fm_seq_phase(ranks: list, card: str) -> dict:
@@ -3542,20 +3763,23 @@ def _span_totals(tracer, names) -> dict:
 # the collectives of a mesh step, each a span of the tracer
 TM_SPANS = ("train.grad_allreduce", "sc.merge", "train.pod_exchange",
             "train.ef_exchange", "mesh.all_gather", "mesh.reduce_scatter",
-            "fsdp.grad_allreduce", "seq.all_gather")
+            "fsdp.grad_allreduce", "seq.all_gather", "tp.gather", "tp.sum",
+            "tp.vocab")
+TP_SPANS = ("tp.gather", "tp.sum", "tp.vocab")
 
 
 @contextlib.contextmanager
-def whole_sequence():
+def step_layout(**kw):
     """``make_train_step`` builds its step with ``make_constrain(...,
-    seq_parallel=False)`` inside: the residual sequence whole between
-    layers, the layout before the sequence layout (TM-f's)."""
+    **kw)`` inside: ``seq_parallel=False`` keeps the residual sequence
+    whole between layers (TM-f's layout), ``tensor_parallel=False``
+    every in-layer tensor (the layout TM-a, TM-f and TM-s came with)."""
     import functools
 
     from repro_torch.train import step as step_mod
 
     orig = step_mod.make_constrain
-    step_mod.make_constrain = functools.partial(orig, seq_parallel=False)
+    step_mod.make_constrain = functools.partial(orig, **kw)
     try:
         yield
     finally:
@@ -3563,20 +3787,29 @@ def whole_sequence():
 
 
 def tm_steps(mesh, cfg, tcfg, steps: int, state=None, *,
-             seq_parallel: bool = True) -> dict:
+             seq_parallel: bool = True, tensor_parallel: bool = False,
+             keep_grads: bool = False) -> dict:
     """``steps`` mesh train steps from seed 0's weights (or ``state``):
     each step's loss, ms (the ranks start it together), the collective
     spans and every leaf's checksum after it.  ``seq_parallel=False``
-    keeps the residual sequence whole between layers."""
+    keeps the residual sequence whole between layers;
+    ``tensor_parallel`` lays the in-layer tensors out over ``model``
+    (the mesh step's default; off here unless asked, the layout the
+    earlier phases came with);
+    ``keep_grads`` takes step 1 in its two parts (``loss_and_grads``,
+    ``apply``) and keeps its gradient (on the host) in
+    ``rec["grads"]``."""
     import torch.distributed as dist
 
+    from repro_torch.models.params import tree_map
     from repro_torch.obs.trace import Tracer, install_tracer, uninstall_tracer
     from repro_torch.train import make_train_step, train_state_init
 
     if state is None:
         state = train_state_init(0, cfg, tcfg, device=mesh.device,
                                  mesh=mesh)
-    with (contextlib.nullcontext() if seq_parallel else whole_sequence()):
+    with step_layout(seq_parallel=seq_parallel,
+                     tensor_parallel=tensor_parallel):
         step = make_train_step(cfg, tcfg, mesh)
     tracer = install_tracer(Tracer())
     rec = {"loss": [], "ms": [], "spans": [], "checksums": []}
@@ -3585,13 +3818,22 @@ def tm_steps(mesh, cfg, tcfg, steps: int, state=None, *,
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, _tm_batch(cfg, i))
-            loss = float(m["loss"])
+            grads = None
+            if keep_grads and i == 0:
+                loss, grads, ef = step.loss_and_grads(state, _tm_batch(cfg, i))
+                state, _ = step.apply(state, grads, ef)
+                loss = float(loss)
+            else:
+                state, m = step(state, _tm_batch(cfg, i))
+                loss = float(m["loss"])
             torch.cuda.synchronize()
             rec["ms"].append((time.perf_counter() - t0) * 1e3)
             rec["loss"].append(loss)
             rec["spans"].append(_span_totals(tracer, TM_SPANS))
             rec["checksums"].append(state_checksums(state))
+            if grads is not None:
+                rec["grads"] = tree_map(lambda g: g.detach().cpu(), grads)
+                del grads
     finally:
         uninstall_tracer(tracer)
     rec["state"] = state
@@ -3747,7 +3989,7 @@ def tm_seq(mesh, cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    run = tm_steps(mesh, cfg, tcfg, TM_S_STEPS, state)
+    run = tm_steps(mesh, cfg, tcfg, TM_S_STEPS, state, keep_grads=True)
     peak = torch.cuda.max_memory_allocated()
     launches = dict(cuda_lib.launches)
     del state, run["state"]
@@ -3756,7 +3998,102 @@ def tm_seq(mesh, cfg) -> dict:
     return dict(plan=plan["all-gather"], loss=run["loss"],
                 checksums=run["checksums"], step_ms=run["ms"],
                 spans=run["spans"], max_memory_allocated=peak,
-                launches=launches)
+                launches=launches, grads=run["grads"])
+
+
+# Phases TM-t and TM-cp: the in-layer layout (``sharding/tp.py``).  TM-t
+# is TM-s (data 2 x model 2, FSDP ∘ TP, the sequence layout) with
+# ``tensor_parallel=True``: 14 heads and 2 kv heads over model 2 (the
+# heads branch), the MLP hidden and the loss's vocabulary blocks.  TM-cp
+# is the same on data 1 x model 4, where 14 heads do not divide (the
+# context-parallel branch: a rank's query block of 16 positions, k / v
+# whole), against the same mesh with ``tensor_parallel=False``.  Each is
+# held to its whole layout: the step-1 loss within TP_LOSS_TOL
+# (relative) and every step-1 gradient leaf (the rank's shard) within
+# TP_GRAD_TOL of its max |g|; the step-2 loss within TP_LOSS2_TOL, the
+# grid-on tolerance of tests/test_torch_train_mesh.py: Adam's first
+# update moves a parameter by about lr·sign(g), so where a gradient is
+# within its float noise of zero the two layouts move it apart, and
+# with the 10-bit operand grid on that reaches the SC operands.
+TP_STEPS = 2
+TP_LOSS_TOL = 1e-6
+TP_LOSS2_TOL = 1e-4
+TP_GRAD_TOL = 1e-5
+
+
+def _tp_run(mesh, cfg, tcfg, tensor_parallel: bool) -> dict:
+    """TP_STEPS steps of the FSDP ∘ TP layout from seed 0's weights with
+    the in-layer layout on or off: losses, step ms, spans, step-1
+    gradient (host), kernel 5's launches and the peak."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train import train_state_init
+
+    torch.cuda.empty_cache()
+    state = train_state_init(0, cfg, tcfg, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    run = tm_steps(mesh, cfg, tcfg, TP_STEPS, state,
+                   tensor_parallel=tensor_parallel, keep_grads=True)
+    run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    run["launches"] = dict(cuda_lib.launches)
+    del state, run["state"]
+    torch.cuda.empty_cache()
+    return run
+
+
+def _tp_record(mesh, cfg, run, whole) -> dict:
+    """TM-t's / TM-cp's record from its run and the whole layout's
+    (``whole``: losses, step-1 gradient, peak, step ms)."""
+    from repro_torch.sharding.tp import tp_collective_plan
+
+    leaf, gap = _leaf_gap(run["grads"], whole["grads"])
+    rows = TM_BATCH // mesh.shape["data"]
+    return dict(
+        mesh=mesh.shape, coords=mesh.coords, loss=run["loss"],
+        whole_loss=whole["loss"][:TP_STEPS],
+        loss_rel=[abs(a - b) / abs(b) for a, b in
+                  zip(run["loss"], whole["loss"])],
+        grad_gap=gap, grad_gap_leaf=leaf, step_ms=run["ms"],
+        whole_step_ms=whole["ms"][:TP_STEPS],
+        max_memory_allocated=run["max_memory_allocated"],
+        whole_max_memory_allocated=whole["max_memory_allocated"],
+        launches=run["launches"],
+        whole_launches=whole["launches"],
+        kernel5_plan=kernel5_plan(cfg, rows, TM_SEQ,
+                                  model_parallel=mesh.shape["model"]),
+        tp_spans=[{n: sp[n] for n in TP_SPANS} for sp in run["spans"]],
+        tp_plan=tp_collective_plan(cfg, mesh, TM_BATCH, TM_SEQ))
+
+
+def tm_tp(mesh, cfg, tm_s) -> dict:
+    """Phase TM-t (in every rank): TM-s's model, batch, optimizer, data,
+    FSDP ∘ TP layout and sequence layout with the in-layer layout on,
+    TP_STEPS steps, against TM-s (``tm_s``, this rank's record)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM), fsdp=True)
+    run = _tp_run(mesh, cfg, tcfg, True)
+    whole = dict(loss=tm_s["loss"], grads=tm_s["grads"], ms=tm_s["step_ms"],
+                 max_memory_allocated=tm_s["max_memory_allocated"],
+                 launches=tm_s["launches"])
+    return _tp_record(mesh, cfg, run, whole)
+
+
+def tm_cp(cfg) -> dict:
+    """Phase TM-cp (in every rank): TM-t on data 1 x model 4 (the
+    context-parallel branch), against the same mesh with the in-layer
+    layout off."""
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+
+    mesh = DeviceMesh((1, 4), ("data", "model"))
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM), fsdp=True)
+    whole = _tp_run(mesh, cfg, tcfg, False)
+    run = _tp_run(mesh, cfg, tcfg, True)
+    return _tp_record(mesh, cfg, run, whole)
 
 
 def tm_rank(outdir: str, layers: int) -> int:
@@ -3800,6 +4137,9 @@ def tm_rank(outdir: str, layers: int) -> int:
     rec["fsdp"] = tm_fsdp(mesh, cfg, tm_a_params)
     del tm_a_params
     rec["seq"] = tm_seq(mesh, cfg)
+    rec["tp"] = tm_tp(mesh, cfg, rec["seq"])
+    del rec["seq"]["grads"]
+    rec["cp"] = tm_cp(cfg)
 
     rec["smoke"] = tm_smoke(mesh, make_local_mesh(TM_MODEL_PARALLEL,
                                                   device="cpu"))
@@ -3941,8 +4281,86 @@ def train_mesh_phase(layers: int, card: str, t_losses: dict, ranks: list,
             raise AssertionError(f"train_tm: {what}")
     fsdp = train_fsdp_phase(ranks, plan, card)
     seq_rec = train_seq_phase(ranks, plan, card)
-    return dict(summary, launches=first["launches"], ranks_detail=ranks,
-                fsdp=fsdp, seq=seq_rec)
+    tp_rec = {tag: train_tp_phase(ranks, tag, card) for tag in ("tp", "cp")}
+    launches = {k: first["launches"].get(k, 0)
+                + sum(first[t]["launches"].get(k, 0) for t in ("tp", "cp"))
+                for k in plan}
+    return dict(summary, launches=launches, ranks_detail=ranks,
+                fsdp=fsdp, seq=seq_rec, tp=tp_rec)
+
+
+def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
+    """Phase TM-t's (``tag`` "tp") or TM-cp's ("cp") checks (``ranks``:
+    what each TM rank wrote): per rank the step-1 loss within
+    TP_LOSS_TOL of the whole layout's and the step-2 loss within
+    TP_LOSS2_TOL, every step-1 gradient leaf within TP_GRAD_TOL of its
+    max |g|, kernel 5's launches a step ``kernel5_plan``'s (and
+    the whole layout's), the in-layer collectives a step (spans
+    ``tp.gather`` / ``tp.sum`` / ``tp.vocab``: count and bytes) equal to
+    ``sharding.tp.tp_collective_plan``; the step ms and the peak beside
+    the whole layout's."""
+    name = {"tp": "train_tm_t", "cp": "train_tm_cp"}[tag]
+    out = []
+    for rec in ranks:
+        t = rec[tag]
+        plan = t["kernel5_plan"]
+        per_step = {k: t["launches"].get(k, 0) / TP_STEPS for k in plan}
+        spans = [{n: {"count": sp[n]["count"], "bytes": sp[n]["bytes"]}
+                  for n in TP_SPANS if sp[n]["count"]} for sp in t["tp_spans"]]
+        step_s = [ms / 1e3 for ms in t["step_ms"]]
+        tp_s = [sum(sp[n]["s"] for n in TP_SPANS) for sp in t["tp_spans"]]
+        r = dict(
+            rank=rec["rank"], mesh=t["mesh"], coords=t["coords"],
+            loss=t["loss"], whole_loss=t["whole_loss"],
+            loss_rel=t["loss_rel"], grad_gap=t["grad_gap"],
+            grad_gap_leaf=t["grad_gap_leaf"], tp_per_step=spans[0],
+            tp_plan=t["tp_plan"], launches_per_step=per_step,
+            kernel5_plan=plan, step_ms=t["step_ms"],
+            whole_step_ms=t["whole_step_ms"],
+            median_step_ms=float(np.median(t["step_ms"])),
+            whole_median_step_ms=float(np.median(t["whole_step_ms"])),
+            tp_share=float(np.median([a / b for a, b in zip(tp_s,
+                                                            step_s)])),
+            max_memory_allocated=t["max_memory_allocated"],
+            whole_max_memory_allocated=t["whole_max_memory_allocated"])
+        emit(f"{name}_rank", **r)
+        for ok, what in (
+            (all(math.isfinite(v) for v in t["loss"]), "a loss is not "
+             "finite"),
+            (t["loss_rel"][0] <= TP_LOSS_TOL
+             and max(t["loss_rel"]) <= TP_LOSS2_TOL,
+             f"losses {t['loss']}, the whole layout's {t['whole_loss']}"),
+            (t["grad_gap"] <= TP_GRAD_TOL, f"step-1 gradient "
+             f"{t['grad_gap_leaf']} {t['grad_gap']} of its max |g| from the "
+             "whole layout's"),
+            (all(sp == t["tp_plan"] for sp in spans),
+             f"in-layer collectives a step {spans}, planned {t['tp_plan']}"),
+            (per_step == plan and set(t["launches"]) <= set(plan)
+             and t["launches"] == t["whole_launches"],
+             f"kernel-5 launches a step {per_step}, planned {plan}, the "
+             f"whole layout's {t['whole_launches']}"),
+        ):
+            if not ok:
+                raise AssertionError(f"{name}: rank {r['rank']}: {what}")
+        out.append(r)
+    if any(r["loss"] != out[0]["loss"] for r in out):
+        raise AssertionError(f"{name}: the ranks' losses differ")
+    summary = dict(
+        card=card, mesh=out[0]["mesh"], ranks=len(out), steps=TP_STEPS,
+        loss=out[0]["loss"], whole_loss=out[0]["whole_loss"],
+        loss_rel=[max(r["loss_rel"][i] for r in out)
+                  for i in range(TP_STEPS)],
+        grad_gap=max(r["grad_gap"] for r in out),
+        tp_per_step=out[0]["tp_per_step"],
+        launches_per_step=out[0]["launches_per_step"],
+        median_step_ms=[r["median_step_ms"] for r in out],
+        whole_median_step_ms=[r["whole_median_step_ms"] for r in out],
+        tp_share=[r["tp_share"] for r in out],
+        max_memory_allocated=[r["max_memory_allocated"] for r in out],
+        whole_max_memory_allocated=[r["whole_max_memory_allocated"]
+                                    for r in out])
+    emit(name, **summary)
+    return summary
 
 
 def train_seq_phase(ranks: list, plan: dict, card: str) -> dict:
@@ -4895,6 +5313,7 @@ def main(argv=None) -> int:
         serve_f["launches"],
         serve_ft["launches"],
         serve_fm["launches"],
+        serve_fm["tp"]["a"]["launches"]["tp"],
         serve_fm["counts_one"],
         faulty["counts"],
         serve_m["counts_bitexact"],
@@ -4927,7 +5346,8 @@ def main(argv=None) -> int:
             library_ms=None,
             shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi); "
             "launches from phases A, B, P, F (one key a call), FT, FM "
-            "(rank 0 of the mesh and the world of one), M, S and H; "
+            "(rank 0 of the mesh and the world of one), FM-t (a) (rank "
+            "0, the in-layer layout), M, S and H; "
             "mesh: a rank's block on phase FM's 2 x 2 mesh, one key a "
             "call",
             mesh={
@@ -5039,7 +5459,8 @@ def main(argv=None) -> int:
             shape="M=512 K=896 N=151936 f32 on the operand grid, w the "
             "K-major view table.T (tied unembed); max_abs_err relative to "
             "max |out|; bound 3xTF32, 5 products a pair on the grid; "
-            "launches from phases T, TM (rank 0), TS, TH and TA; "
+            "launches from phases T, TM (rank 0: TM-a, TM-t and TM-cp's "
+            "in-layer run), TS, TH and TA; "
             "train_shapes: the family phases' shapes (ts_ / th_ / ta_) and "
             "a rank's blocks of phase TM (tm_), each within 1e-5 of its "
             "plain version; mesh_steps: phase TM's steps a rank",

@@ -36,11 +36,13 @@ activation recompute, backward and optimizer) and records:
   ``all_gather`` and ``reduce_scatter`` record ``(kind, axis, operand
   bytes)``: under the FSDP layout each layer's gathers and each
   gradient's reduce-scatter; under the sequence layouts each layer's
-  sequence gathers and the decode's combine), by kind, by (kind, operand
-  bytes), by mesh axis and by site (``coll_by_site``: an all-gather's
-  span name, ``mesh.all_gather`` for a parameter's, ``seq.all_gather``
-  for a sequence block's and ``seq.combine`` for the attention
-  partials'; else the kind).
+  sequence gathers and the decode's combine; under the in-layer layout
+  its gathers and sums), by kind, by (kind, operand bytes), by mesh
+  axis and by site (``coll_by_site``: an all-gather's span name,
+  ``mesh.all_gather`` for a parameter's, ``seq.all_gather`` for a
+  sequence block's, ``seq.combine`` for the attention partials',
+  ``tp.gather`` / ``tp.sum`` / ``tp.vocab`` for the in-layer layout's
+  blocks, sums and the loss's vocabulary reductions; else the kind).
 
 The roofline keeps the reference's names and meanings, at an NVIDIA
 H100 SXM's rates: the matmul FLOPs over the tensor-core (bf16) or CUDA-

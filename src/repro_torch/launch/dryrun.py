@@ -12,9 +12,11 @@ allocated, nothing runs), as rank 0 of a
   the parameters and AdamW state (bf16 state for the 400B config, as the
   reference's dry-run has it), each layer all-gathered inside its
   checkpointed function and the gradients reduce-scattered, the step
-  keeping its rank's rows over ``pod`` x ``data`` and its block of the
+  keeping its rank's rows over ``pod`` x ``data``, its block of the
   residual stream's sequence over ``model`` between layers
-  (``sharding/seq.py``);
+  (``sharding/seq.py``) and, inside each layer, its block of the heads
+  (or of the query sequence), the MLP hidden, the loss's vocabulary and
+  the SSM's ``d_inner`` / heads (``sharding/tp.py``);
 * ``prefill`` is ``lm.prefill`` and ``decode`` ``lm.decode_step`` on the
   rank's rows of the batch over ``pod`` x ``data`` (the whole batch
   where it does not divide: ``long_500k``'s batch of 1), the rank's
@@ -23,10 +25,14 @@ allocated, nothing runs), as rank 0 of a
   block of the KV cache's sequence laid out as the reference's
   ``cache_shardings`` lays it (``make_constrain``'s
   ``lay_out_cache``): prefill writes the block, decode combines the
-  ranks' attention partials.
+  ranks' attention partials; the SSM state holds the rank's block of
+  its heads; the in-layer layout as in training (decode attention on a
+  cache laid out by its sequence keeps the heads whole).
 
-The gathers, reduce-scatters and the sequence's gathers enter the
-account's collectives through the ``RecordingMesh``.
+The gathers, reduce-scatters, the sequence's gathers and the in-layer
+layout's gathers and sums (sites ``tp.gather``, ``tp.sum``,
+``tp.vocab``) enter the account's collectives through the
+``RecordingMesh``.
 ``memory.reference_layout_gb`` is the same rank's arguments under the
 reference's layout (``launch/specs.py``).  A cell that does not fit a
 card's 80 GB is recorded with its number.  The models run the ``exact``

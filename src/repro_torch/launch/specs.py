@@ -123,7 +123,9 @@ def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
       batch leaves (pod, data) unused, as ``long_500k``'s batch of 1):
       ``sharding.rules.cache_seq_axes``, the axes the port's prefill and
       decode lay a rank's block out by;
-    * SSM heads / d_inner over ``model`` when divisible.
+    * SSM heads / d_inner over ``model`` when divisible: the block
+      ``lm.init_cache`` gives under ``cst.lay_out_cache`` with the
+      in-layer layout on (``sharding/tp.py``).
     """
     dp = _dp_axes(mesh, batch)
     seq_ax = sharding_rules.cache_seq_axes(mesh, batch, max_len) or None

@@ -25,6 +25,7 @@ from repro_torch.kernels import paged_attention
 from repro_torch.models import layers
 from repro_torch.models.params import ParamSpec
 from repro_torch.sc import ctr_rng
+from repro_torch.sharding import tp as tp_lib
 
 NEG_INF = -1e30
 
@@ -48,9 +49,17 @@ def attn_specs(cfg):
     return sp
 
 
-def _project_qkv(x, p, cfg, positions, key=None):
+def _project_qkv(x, p, cfg, positions, key=None, q_cols=None,
+                 kv_cols=None):
+    """q, k, v ``(b, s, heads, hd)`` after the norms and RoPE.  With
+    ``q_cols`` / ``kv_cols`` (``sharding.rules.ColBlock``s of the
+    projections' columns) q / k and v hold this rank's heads block."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if q_cols is not None:
+        h = q_cols.width // hd
+    if kv_cols is not None:
+        kv = kv_cols.width // hd
     if key is None:
         keys = [None] * 3
     elif key.dim() > 1:
@@ -59,13 +68,17 @@ def _project_qkv(x, p, cfg, positions, key=None):
         keys = [layers.fold_keys(key, 23 + j) for j in range(3)]
     else:
         keys = list(ctr_rng.split(key, 3))
-    q = layers.dense(x, p["wq"], cfg, keys[0], p.get("bq"))
-    k = layers.dense(x, p["wk"], cfg, keys[1], p.get("bk"))
-    v = layers.dense(x, p["wv"], cfg, keys[2], p.get("bv"))
+    q = layers.dense(x, p["wq"], cfg, keys[0], p.get("bq"), cols=q_cols)
+    k = layers.dense(x, p["wk"], cfg, keys[1], p.get("bk"), cols=kv_cols)
+    v = layers.dense(x, p["wv"], cfg, keys[2], p.get("bv"), cols=kv_cols)
     q, k = q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p["q_norm"])
-        k = layers.rms_norm(k, p["k_norm"])
+        # a whole norm weight on a rank's heads: its gradient is partial
+        qn, kn = p["q_norm"], p["k_norm"]
+        q = layers.rms_norm(q, qn if q_cols is None
+                            else tp_lib.enter(qn, q_cols))
+        k = layers.rms_norm(k, kn if kv_cols is None
+                            else tp_lib.enter(kn, kv_cols))
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, kv, hd)
@@ -76,8 +89,10 @@ def _grouped(q, kv_heads: int):
     return q.reshape(b, s, kv_heads, h // kv_heads, hd)
 
 
-def full_attention(q, k, v, *, causal: bool = True):
-    """Reference O(S²) attention. q: (b,s,h,d), k/v: (b,t,kv,d)."""
+def full_attention(q, k, v, *, causal: bool = True, q_offset=None):
+    """Reference O(S²) attention. q: (b,s,h,d), k/v: (b,t,kv,d).  The
+    queries sit at positions ``q_offset + i`` of the KV timeline (default
+    the last s positions)."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qg = _grouped(q, kv).to(torch.float32)  # (b,s,kv,g,d)
@@ -86,8 +101,9 @@ def full_attention(q, k, v, *, causal: bool = True):
     logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
     if causal:
         t = k.shape[1]
+        off = t - s if q_offset is None else q_offset
         mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-        mask = torch.tril(mask, diagonal=t - s)
+        mask = torch.tril(mask, diagonal=off)
         logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     vf = v.to(torch.float32)
@@ -95,24 +111,27 @@ def full_attention(q, k, v, *, causal: bool = True):
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
-def blockwise_attention(q, k, v, *, causal: bool = True, chunk: int = 1024):
+def blockwise_attention(q, k, v, *, causal: bool = True, chunk: int = 1024,
+                        q_chunk=None, q_offset=None):
     """Flash-style attention: query chunks outside, KV chunks inside, with
     an online softmax (running max, denominator, accumulator).  Matches
     :func:`full_attention` to float tolerance; the peak intermediate is
     one (b, kv, g, cq, ckv) logits tile.  Queries are the LAST s
-    positions of the KV timeline.
+    positions of the KV timeline, or start at ``q_offset`` (context
+    parallelism: a rank's block of the query sequence); ``q_chunk``
+    (default ``chunk``) is the query tile, the reference's argument.
     """
     b, s, h, hd = q.shape
     kv = k.shape[2]
     t = k.shape[1]
     ckv = min(chunk, t)
-    cq = min(chunk, s)
+    cq = min(chunk if q_chunk is None else q_chunk, s)
     g = h // kv
     scale = paged_attention._scale(hd)
     qg = _grouped(q, kv).to(torch.float32).permute(0, 2, 3, 1, 4)
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
-    q_off = t - s
+    q_off = t - s if q_offset is None else q_offset
     outs = []
     for q0 in range(0, s, cq):
         qi = qg[:, :, :, q0 : q0 + cq]  # (b,kv,g,cq,d)
@@ -143,7 +162,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True, chunk: int = 1024):
 
 
 def attention_block(x, p, cfg, positions, key=None, *, cache=None,
-                    cache_length=None, seq=None):
+                    cache_length=None, seq=None, constrain=None,
+                    need_kv: bool = False):
     """Self-attention sub-block.  Returns ``(out, (k, v))``.
 
     Without a cache (training, eval, prefill): causal attention over the
@@ -157,7 +177,36 @@ def attention_block(x, p, cfg, positions, key=None, *, cache=None,
     the cache's sequence: the write keeps the positions inside it and
     the attention combines the ranks' partials.  The output projection
     draws under the key folded with 7.
+
+    Under a mesh step's in-layer layout (``constrain.tp``,
+    ``sharding/tp.py``), the reference's choice per architecture x mesh:
+
+    * ``"heads"`` where the query heads divide ``model``: q is this
+      rank's heads block (``wq`` column-parallel), k / v its kv heads
+      block where those divide too and nothing needs them whole, else
+      whole, of which the rank uses the kv heads its q heads group into;
+      ``wo`` is row-parallel.  Decode takes this branch only on a whole
+      cache: where the cache's sequence lies over ``model`` (``seq``)
+      the heads stay whole (one mesh axis a tensor);
+    * ``"cp"`` (context parallelism) where they do not: q keeps this
+      rank's block of the sequence and k / v stay whole, one query tile
+      (the reference's ``q_chunk=q.shape[1]``) at the block's global
+      positions; the output's blocks are gathered before ``wo``.
+      A sequence that does not divide stays whole.
+
+    ``need_kv`` (prefill) returns k / v whole for the cache.
     """
+    tp = tp_lib.of(constrain)
+    layout = None
+    if tp is not None:
+        layout = tp.heads(cfg)
+        if cache is not None and (layout == "cp" or seq is not None):
+            layout = None
+        elif layout == "cp" and tp.block(x.shape[1]) is None:
+            layout = None
+    if layout == "heads":
+        return _heads_block(x, p, cfg, positions, key, tp, cache=cache,
+                            cache_length=cache_length, need_kv=need_kv)
     q, k, v = _project_qkv(x, p, cfg, positions, key)
     if cache is not None:
         kc, vc = cache
@@ -165,22 +214,83 @@ def attention_block(x, p, cfg, positions, key=None, *, cache=None,
         _write_rows(vc, v, positions[:, 0], seq)
         out = decode_attention(q, kc, vc, cache_length, seq)
         kv = (kc, vc)
+    elif layout == "cp":
+        sb = tp.block(x.shape[1])  # the query sequence's block
+        ke, ve = tp_lib.enter(k, sb), tp_lib.enter(v, sb)
+        out = _attend(sb.slice(q, 1), ke, ve, cfg, q_offset=sb.start,
+                      q_chunk=sb.size)
+        out = sb.gather(out, 1)
+        kv = (k, v)
     else:
-        if cfg.attn_impl == "full":
-            out = full_attention(q, k, v, causal=True)
-        elif cfg.attn_impl == "blockwise":
-            out = blockwise_attention(
-                q, k, v, causal=True, chunk=cfg.attn_chunk
-            )
-        else:
-            raise ValueError(
-                f"unknown cfg.attn_impl={cfg.attn_impl!r} "
-                "(expected 'blockwise' or 'full')"
-            )
+        out = _attend(q, k, v, cfg)
         kv = (k, v)
     b, s = out.shape[:2]
     okey = layers.fold_keys(key, 7)
     y = layers.dense(out.reshape(b, s, -1), p["wo"], cfg, okey)
+    return y, kv
+
+
+def _attend(q, k, v, cfg, *, q_offset=None, q_chunk=None):
+    """Causal attention over a whole sequence through ``cfg.attn_impl``."""
+    if cfg.attn_impl == "full":
+        return full_attention(q, k, v, causal=True, q_offset=q_offset)
+    if cfg.attn_impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                   q_chunk=q_chunk, q_offset=q_offset)
+    raise ValueError(
+        f"unknown cfg.attn_impl={cfg.attn_impl!r} "
+        "(expected 'blockwise' or 'full')"
+    )
+
+
+def _pick_kv(t, cfg, hb):
+    """The kv heads of a whole ``t`` (b, L, kv, d) that this rank's query
+    heads block ``hb`` groups into: a contiguous run of them where the
+    rank's heads cover whole groups or sit in one, else one kv head per
+    query head.  Several ranks may use one kv head, so ``t`` is entered
+    (its gradient is the ranks' partials summed); where the kv heads
+    divide the span each rank's run is its block (a slice)."""
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    g = h // kv
+    hq = hb.width // hd
+    h0 = hb.start // hd
+    kb = tp_lib.col_block(hb.mesh, hb.axes, kv)
+    if kb is not None:
+        return kb.slice(t, 2)
+    t = tp_lib.enter(t, hb)
+    if (h0 % g == 0 and hq % g == 0) or (g % hq == 0):
+        lo, hi = h0 // g, (h0 + hq - 1) // g + 1
+        return t.narrow(2, lo, hi - lo)
+    idx = (h0 + torch.arange(hq, device=t.device)) // g
+    return t.index_select(2, idx)
+
+
+def _heads_block(x, p, cfg, positions, key, tp, *, cache=None,
+                 cache_length=None, need_kv=False):
+    """:func:`attention_block`'s ``"heads"`` branch."""
+    hd = cfg.resolved_head_dim
+    hb = tp.block(cfg.n_heads * hd)
+    kvb = None
+    if cache is None and not need_kv and cfg.n_kv_heads % tp.span == 0:
+        kvb = tp.block(cfg.n_kv_heads * hd)
+    q, k, v = _project_qkv(x, p, cfg, positions, key, q_cols=hb,
+                           kv_cols=kvb)
+    if cache is not None:
+        kc, vc = cache
+        _write_rows(kc, k, positions[:, 0])
+        _write_rows(vc, v, positions[:, 0])
+        out = decode_attention(q, _pick_kv(kc, cfg, hb),
+                               _pick_kv(vc, cfg, hb), cache_length)
+        kv = (kc, vc)
+    else:
+        ka, va = (k, v) if kvb is not None else (_pick_kv(k, cfg, hb),
+                                                 _pick_kv(v, cfg, hb))
+        out = _attend(q, ka, va, cfg)
+        kv = (k, v)
+    b, s = out.shape[:2]
+    okey = layers.fold_keys(key, 7)
+    y = layers.dense(out.reshape(b, s, -1), p["wo"], cfg, okey, rows=hb)
     return y, kv
 
 

@@ -13,11 +13,14 @@ straight-through gradient of ``sc.sc_dot`` / ``sc.sc_dot_rows``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch import sc
 from repro_torch.models.params import ParamSpec
 from repro_torch.sc import ctr_rng
+from repro_torch.sharding import tp as tp_lib
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -95,7 +98,8 @@ def _sc_config(cfg):
     )
 
 
-def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
+def dense(x, w, cfg, key=None, bias=None, site: str = "dense", *,
+          cols=None, rows=None):
     """x @ w with the configured multiplication substrate.
 
     Stochastic backends REQUIRE a key (raw ``(2,)``, or per-row keys whose
@@ -103,7 +107,18 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
     own key and data only).  Inside ``sc.use_mesh`` a one-key call goes
     through ``sc.sc_dot_sharded`` on that mesh; per-row keys keep
     precedence.
+
+    The in-layer layout (``sharding/tp.py``): with ``cols`` (a
+    ``sharding.rules.ColBlock`` of w's columns) the call is
+    column-parallel and returns this rank's block of the output; with
+    ``rows`` (a block of w's rows) ``x`` holds this rank's block of the
+    contraction and the call is row-parallel, returning the whole
+    output.  See :func:`_dense_cols` and :func:`_dense_contract`.
     """
+    if cols is not None:
+        return _dense_cols(x, w, cfg, key, bias, site, cols)
+    if rows is not None:
+        return _dense_contract(x, w, cfg, key, bias, site, rows)
     if cfg.sc_backend == "exact":
         y = x @ w.to(x.dtype)
     elif key is None:
@@ -130,6 +145,60 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense"):
     return y
 
 
+def _dense_cols(x, w, cfg, key, bias, site, cols):
+    """Column-parallel: this rank's block of ``x @ w``'s columns.  On
+    ``exact`` only the block is computed (``x`` entered: its gradient is
+    the ranks' partials summed).  On the SC substrate the product is the
+    whole layout's (every one-key call's K split merged over ``model``
+    already), and the block is a slice of it, so no bit changes."""
+    if cfg.sc_backend == "exact":
+        y = tp_lib.enter(x, cols) @ cols.slice(w, 1).to(x.dtype)
+        if bias is not None:
+            y = y + cols.slice(bias, 0).to(y.dtype)
+        return y
+    return cols.slice(dense(x, w, cfg, key, bias, site), -1)
+
+
+def contract_local_ok(cfg, key, rows) -> bool:
+    """Whether a row-parallel call on the block ``rows`` of the
+    contraction runs on the block itself: always on ``exact``; on the SC
+    substrate a one-key call inside ``sc.use_mesh`` whose K split
+    resolves to exactly ``rows``' axes (``sc_dot_sharded`` then cuts the
+    same block and folds the same coordinate into the key, so no bit
+    changes).  Elsewhere (per-row keys, no mesh scope) the block is
+    gathered back whole first."""
+    if cfg.sc_backend == "exact":
+        return True
+    scope = sc.active_mesh()
+    if key is None or key.dim() != 1 or scope is None:
+        return False
+    mesh, rules = scope
+    r = sc.resolve_rules(mesh, 1, rows.length, rules)
+    return tuple(r.contract) == tuple(rows.axes)
+
+
+def _dense_contract(x, w, cfg, key, bias, site, rows):
+    """Row-parallel: ``x`` holds this rank's block of the contraction.
+    On ``exact`` each rank's partial product is summed over ``model`` in
+    coordinate order (``tp.row_sum``); on the SC substrate
+    ``sc_dot_sharded`` takes the block as its K block
+    (``ScShardRules.contract_local``)."""
+    if not contract_local_ok(cfg, key, rows):
+        return dense(rows.gather(x, -1), w, cfg, key, bias, site)
+    ws = rows.slice(w, 0)
+    if cfg.sc_backend == "exact":
+        y = tp_lib.row_sum(x @ ws.to(x.dtype), rows)
+    else:
+        mesh, rules = sc.active_mesh()
+        y = sc.sc_dot_sharded(
+            key, x.to(torch.float32), ws.to(torch.float32), _sc_config(cfg),
+            mesh=mesh, rules=dataclasses.replace(rules, contract_local=True))
+        y = y.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
 # ----------------------------- MLP (SwiGLU / GELU) -------------------------
 
 
@@ -142,11 +211,24 @@ def mlp_specs(cfg):
     }
 
 
-def mlp(x, p, cfg, key=None):
+def mlp(x, p, cfg, key=None, constrain=None):
     """SwiGLU on a (d, 2·d_ff) ``wi``, or (``mlp_variant="gelu"``) the
     tanh-approximated GELU on a (d, d_ff) ``wi`` — ``jax.nn.gelu``'s
-    default, as the reference calls it."""
-    h = dense(x, p["wi"], cfg, site_key(key, "mlp_wi"), site="mlp_wi")
+    default, as the reference calls it.
+
+    Under a mesh step's in-layer layout (``constrain.tp``) the hidden is
+    this rank's ``"mlp"`` block: ``wi`` column-parallel on the f-block
+    of ``gate`` and the same f-block of ``up`` (two slices of its
+    columns), ``wo`` row-parallel; a ``d_ff`` that does not divide stays
+    whole."""
+    tp = tp_lib.of(constrain)
+    fb = None if tp is None else tp.block(cfg.d_ff)
+    wi_cols = None
+    if fb is not None:
+        wi_cols = (tp.block(2 * cfg.d_ff, parts=2)
+                   if cfg.mlp_variant == "swiglu" else fb)
+    h = dense(x, p["wi"], cfg, site_key(key, "mlp_wi"), site="mlp_wi",
+              cols=wi_cols)
     if cfg.mlp_variant == "swiglu":
         gate, up = torch.chunk(h, 2, dim=-1)
         act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype)
@@ -154,7 +236,8 @@ def mlp(x, p, cfg, key=None):
     else:
         act = torch.nn.functional.gelu(h.to(torch.float32),
                                        approximate="tanh").to(x.dtype)
-    return dense(act, p["wo"], cfg, site_key(key, "mlp_wo"), site="mlp_wo")
+    return dense(act, p["wo"], cfg, site_key(key, "mlp_wo"), site="mlp_wo",
+                 rows=fb)
 
 
 # ----------------------------- RoPE -----------------------------------------
@@ -188,8 +271,8 @@ def embed(tokens, p):
     return p["table"][tokens.long()]
 
 
-def unembed(x, p, cfg, key=None):
-    return dense(x, p["table"].T, cfg, key, site="unembed")
+def unembed(x, p, cfg, key=None, cols=None):
+    return dense(x, p["table"].T, cfg, key, site="unembed", cols=cols)
 
 
 # ----------------------------- Expert matmul --------------------------------

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import attention, frontend, layers, moe, ssm
 from repro_torch.models.params import ParamSpec, tree_map_specs
+from repro_torch.sharding import tp as tp_lib
 
 # The families that carry recurrent state (the reference's
 # ``serve/kv_cache.py:CachePlan``); every other one is an attention stack.
@@ -115,16 +116,17 @@ def lm_param_specs(cfg):
     return sp
 
 
-def _logits(x, params, cfg, key=None):
+def _logits(x, params, cfg, key=None, cols=None):
     """Output projection (site ``unembed``): ``key`` is the caller's rng
     root — raw (2,) or per-row (..., 2) — folded here with the site's
-    salt."""
+    salt.  With ``cols`` (a block of the vocabulary) this rank's block
+    of the logits (``layers.dense``'s column-parallel call)."""
     key = layers.site_key(key, "unembed")
     if cfg.tie_embeddings:
-        y = layers.unembed(x, params["embed"], cfg, key)
+        y = layers.unembed(x, params["embed"], cfg, key, cols=cols)
     else:
         w = params["unembed"]
-        y = layers.dense(x, w, cfg, key, site="unembed")
+        y = layers.dense(x, w, cfg, key, site="unembed", cols=cols)
     return y.to(torch.float32)
 
 
@@ -140,26 +142,30 @@ def _layer(tree, idx: int):
 # ---------------------------------------------------------------------------
 
 
-def _ffn(x, p, cfg, key):
-    """The block's FFN: the MoE layer for family moe, else the MLP."""
+def _ffn(x, p, cfg, key, cst=None):
+    """The block's FFN: the MoE layer for family moe (whole: its
+    ``"experts"`` axis has no layout yet), else the MLP."""
     if cfg.family == "moe":
         return moe.moe_ffn(x, p, cfg, key)
-    return layers.mlp(x, p, cfg, key)
+    return layers.mlp(x, p, cfg, key, constrain=cst)
 
 
 def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None,
-                 seq=None):
+                 seq=None, cst=None, need_kv=False):
     """One backbone block (pre-norm residual).  Returns ``(x, cache)``.
 
     Attention families: the sequence's K/V, or the ring-buffer ``cache``
     it wrote into (``seq``: the block of its sequence the cache holds).
     SSM / hybrid: the Mamba2 block under the layer's key unfolded, with
     ``cache`` None, ``"prefill"`` or a state dict
-    (:func:`ssm.ssm_block`)."""
+    (:func:`ssm.ssm_block`).  ``cst`` (a mesh step's constraint) goes
+    to every sub-block, as the reference's ``_apply_block`` passes it:
+    its in-layer layout (``sharding/tp.py``); ``need_kv``: return K/V
+    whole (prefill's cache)."""
     if cfg.family in STATE_FAMILIES:
         h, new_cache = ssm.ssm_block(
-            layers.rms_norm(x, p["ln1"]), p["ssm"], cfg, key, cache=cache
-        )
+            layers.rms_norm(x, p["ln1"]), p["ssm"], cfg, key, cache=cache,
+            constrain=cst)
         return x + h, new_cache
     akey = layers.fold_keys(key, 11)
     h, kv = attention.attention_block(
@@ -171,15 +177,17 @@ def _apply_block(x, p, cfg, positions, key, cache=None, cache_length=None,
         cache=cache,
         cache_length=cache_length,
         seq=seq,
+        constrain=cst,
+        need_kv=need_kv,
     )
     x = x + h
     fkey = layers.fold_keys(key, 13)
-    h = _ffn(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey)
+    h = _ffn(layers.rms_norm(x, p["ln2"]), p["ffn"], cfg, fkey, cst)
     return x + h, kv
 
 
 def _apply_shared(x, p, cfg, positions, key, cache=None, cache_length=None,
-                  seq=None):
+                  seq=None, cst=None, need_kv=False):
     """zamba2's weight-shared block: attention under ``fold_in(key, 17)``,
     the MLP under ``fold_in(key, 19)``.  Returns ``(x, (k, v))`` as
     :func:`_apply_block` does for an attention layer."""
@@ -192,10 +200,13 @@ def _apply_shared(x, p, cfg, positions, key, cache=None, cache_length=None,
         cache=cache,
         cache_length=cache_length,
         seq=seq,
+        constrain=cst,
+        need_kv=need_kv,
     )
     x = x + h
     mkey = layers.fold_keys(key, 19)
-    h = layers.mlp(layers.rms_norm(x, p["ln2"]), p["mlp"], cfg, mkey)
+    h = layers.mlp(layers.rms_norm(x, p["ln2"]), p["mlp"], cfg, mkey,
+                   constrain=cst)
     return x + h, kv
 
 
@@ -225,6 +236,14 @@ def _cache_block(constrain, length: int | None = None):
         raise ValueError(f"the cache is laid out for {blk.length} "
                          f"positions, not {length}")
     return blk
+
+
+def _state_block(constrain, cfg):
+    """The block of the SSM heads the decode state holds under
+    ``constrain`` (``cst.lay_out_cache`` under the in-layer layout), or
+    None: whole."""
+    tp = getattr(constrain, "state", None)
+    return None if tp is None else tp.block(cfg.ssm_heads)
 
 
 def _whole(x, blk):
@@ -271,7 +290,11 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     checkpointed layer body and shared invocation gathers the whole
     sequence first and keeps its block of the output last, so a
     checkpoint saves only the block and the recompute gathers again;
-    the last layer's output is gathered before the final norm."""
+    the last layer's output is gathered before the final norm.
+
+    Inside each layer ``constrain.tp`` lays the heads, the MLP hidden and
+    the SSM's ``d_inner`` / heads out over ``model`` (``sharding/tp.py``;
+    ``make_constrain(..., tensor_parallel=False)`` keeps them whole)."""
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
@@ -283,12 +306,13 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
 
     def body(xc, lp, key):
         xc = _whole(xc, blk)
-        return _part(_apply_block(xc, cstp(lp), cfg, positions, key)[0], blk)
+        return _part(_apply_block(xc, cstp(lp), cfg, positions, key,
+                                  cst=constrain)[0], blk)
 
     def shared(xc, key):
         xc = _whole(xc, blk)
         return _part(_apply_shared(xc, params["shared"], cfg, positions,
-                                   key)[0], blk)
+                                   key, cst=constrain)[0], blk)
 
     body, shared = _maybe_remat(body, cfg), _maybe_remat(shared, cfg)
     for idx in range(n_backbone_layers(cfg)):
@@ -304,7 +328,10 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
 def forward(params, inputs, cfg, *, rng=None, constrain=None,
             constrain_params=None):
     """Full logits (b, s, vocab).  Prefer :func:`lm_loss` for training:
-    it never holds the whole logits tensor."""
+    it never holds the whole logits tensor.  The logits are the whole
+    vocabulary on every rank (as :func:`prefill`'s and
+    :func:`decode_step`'s): their callers, samplers and evaluators, read
+    every entry; only the loss works on a rank's vocabulary block."""
     cst = constrain or (lambda v, *a: v)
     x = encode(params, inputs, cfg, rng=rng, constrain=constrain,
                constrain_params=constrain_params)
@@ -314,7 +341,13 @@ def forward(params, inputs, cfg, *, rng=None, constrain=None,
 LOSS_SEQ_CHUNK = 1024
 
 
-def _chunk_nll(xi, li, params, cfg, key):
+def _chunk_nll(xi, li, params, cfg, key, vb=None):
+    """One chunk's summed NLL; with ``vb`` (a vocabulary block) from this
+    rank's block of the logits, the log-softmax reduced over ``model``
+    (``sharding.tp.vocab_nll``)."""
+    if vb is not None:
+        logits = _logits(xi, params, cfg, key, cols=vb)  # (b, c, V/m) f32
+        return tp_lib.vocab_nll(logits, li, vb).sum()
     logits = _logits(xi, params, cfg, key)  # (b, c, vocab) f32
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, li[..., None].long())[..., 0].sum()
@@ -330,10 +363,16 @@ def lm_loss(params, batch, cfg, *, rng=None, constrain=None,
     is O(chunk·vocab), not O(s·vocab).  Chunk ``i`` draws from
     ``fold_in(rng, i)``.  ``batch["inputs"]`` is tokens, or frame
     embeddings under ``frontend="embeddings"``.  ``constrain`` /
-    ``constrain_params`` go to :func:`encode`.
+    ``constrain_params`` go to :func:`encode`.  Under ``constrain.tp``
+    each chunk's logits are this rank's vocabulary block (the reference's
+    ``"vocab"`` over ``model``; a vocabulary that does not divide stays
+    whole): ``_chunk_nll``'s log-softmax reduces over ``model``, and the
+    unembed's backward gathers its gradient's blocks.
     """
     x = encode(params, batch["inputs"], cfg, rng=rng, constrain=constrain,
                constrain_params=constrain_params)
+    tp = tp_lib.of(constrain)
+    vb = None if tp is None else tp.block(cfg.vocab)
     labels = batch["labels"]
     b, s, _ = x.shape
     c = min(LOSS_SEQ_CHUNK, s)
@@ -350,6 +389,7 @@ def lm_loss(params, batch, cfg, *, rng=None, constrain=None,
             params,
             cfg,
             key,
+            vb,
             use_reentrant=False,
         )
         total = total + nll
@@ -361,9 +401,10 @@ def lm_loss(params, batch, cfg, *, rng=None, constrain=None,
 # ---------------------------------------------------------------------------
 
 
-def _stacked_state(cfg, n: int, batch: int, dtype, device):
-    """:func:`ssm.init_ssm_cache` stacked over ``n`` backbone layers."""
-    one = ssm.init_ssm_cache(cfg, batch, dtype, device=device)
+def _stacked_state(cfg, n: int, batch: int, dtype, device, heads=None):
+    """:func:`ssm.init_ssm_cache` stacked over ``n`` backbone layers
+    (``heads``: the block of the SSM heads each layer's state holds)."""
+    one = ssm.init_ssm_cache(cfg, batch, dtype, device=device, heads=heads)
     return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in one.items()}
 
 
@@ -377,7 +418,10 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None,
     adds ``shared_k`` / ``shared_v`` of (invocations, batch, max_len,
     kv_heads, head_dim).  With ``constrain.cache`` (a mesh's cache
     layout, ``train.step.make_constrain``) the K/V sequence is this
-    rank's block of the ``max_len`` positions."""
+    rank's block of the ``max_len`` positions; with ``constrain.state``
+    (the in-layer layout's) each state holds this rank's block of the
+    SSM heads ``(batch, heads/m, n, p)`` and ``conv_x`` its block of
+    ``d_inner``, as ``launch/specs.py:cache_shardings`` declares."""
     device = resolve_device(device)
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     dtype = dtype or cfg.act_dtype
@@ -385,7 +429,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device=None,
     max_len = max_len if blk is None else blk.size
     if cfg.family in STATE_FAMILIES:
         n = n_backbone_layers(cfg)
-        cache = {"ssm": _stacked_state(cfg, n, batch, dtype, device)}
+        cache = {"ssm": _stacked_state(cfg, n, batch, dtype, device,
+                                       _state_block(constrain, cfg))}
         if cfg.family == "hybrid":
             shape = (n_shared_invocations(cfg), batch, max_len, kvh, hd)
             for name in ("shared_k", "shared_v"):
@@ -420,7 +465,12 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
     and after every layer, ``constrain_params`` each backbone layer's
     weights, as in :func:`encode`.  Where ``constrain.cache`` lays the
     cache out by a block of its sequence, the cache holds that block
-    and each layer's K/V writes only the positions inside it.
+    and each layer's K/V writes only the positions inside it; where
+    ``constrain.state`` lays the SSM state out by its heads, each layer
+    runs on its block and the cache holds it.  Inside each layer
+    ``constrain.tp`` lays the heads and the MLP hidden out over
+    ``model``; the K/V are gathered whole for the cache.  The logits are
+    the whole vocabulary (see :func:`forward`).
     """
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
@@ -444,13 +494,15 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
         for idx in range(n_backbone_layers(cfg)):
             key = layers.fold_keys(rng, idx)
             x, nc = _apply_block(x, cstp(_layer(params["blocks"], idx)),
-                                 cfg, positions, key, cache="prefill")
+                                 cfg, positions, key, cache="prefill",
+                                 cst=constrain)
             states.append(nc)
             inv = _shared_after(cfg, idx)
             if inv is not None:
                 key = layers.fold_keys(rng, SHARED_KEY_BASE + inv)
                 x, (k, v) = _apply_shared(x, params["shared"], cfg,
-                                          positions, key)
+                                          positions, key, cst=constrain,
+                                          need_kv=True)
                 write(cache["shared_k"], inv, k)
                 write(cache["shared_v"], inv, v)
             x = cst(x, "batch", "resid_seq", None)
@@ -460,8 +512,8 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
         for idx in range(cfg.n_layers):
             key = layers.fold_keys(rng, idx)
             x, (k, v) = _apply_block(
-                x, cstp(_layer(params["blocks"], idx)), cfg, positions, key
-            )
+                x, cstp(_layer(params["blocks"], idx)), cfg, positions, key,
+                cst=constrain, need_kv=True)
             write(cache["k"], idx, k)
             write(cache["v"], idx, v)
             x = cst(x, "batch", "resid_seq", None)
@@ -493,7 +545,11 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
     ``constrain.cache`` lays the cache out by a block of its sequence,
     ``cache`` holds that block, each attention layer writes the new K/V
     only inside it and combines the ranks' partials
-    (``attention.chunk_decode_attention``).
+    (``attention.chunk_decode_attention``).  Where ``constrain.state``
+    lays the SSM state out by its heads, ``cache["ssm"]`` holds that
+    block and each SSM layer decodes on it.  Inside each layer
+    ``constrain.tp`` lays the MLP hidden (and, on a whole K/V cache, the
+    attention heads) out over ``model``.
     """
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
@@ -504,6 +560,12 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
         raise ValueError(f"decode_step: a cache of {cache[kv_name].shape[2]} "
                          f"positions, but the layout's block holds "
                          f"{blk.size}")
+    hb = _state_block(constrain, cfg) if "ssm" in cache else None
+    heads = cfg.ssm_heads if hb is None else hb.width
+    if "ssm" in cache and cache["ssm"]["state"].shape[2] != heads:
+        raise ValueError(f"decode_step: a state of "
+                         f"{cache['ssm']['state'].shape[2]} SSM heads, but "
+                         f"the layout's block holds {heads}")
     x = layers.embed(tokens, params["embed"]).to(cfg.act_dtype)[:, None]
     x = cst(x, "batch", None, None)
     positions = lengths.to(torch.int64)[:, None]
@@ -513,7 +575,8 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
             key = layers.fold_keys(rng, idx)
             lc = _layer(cache["ssm"], idx)
             x, nc = _apply_block(x, cstp(_layer(params["blocks"], idx)),
-                                 cfg, positions, key, cache=lc)
+                                 cfg, positions, key, cache=lc,
+                                 cst=constrain)
             _write_state(cache["ssm"], idx, nc)
             inv = _shared_after(cfg, idx)
             if inv is not None:
@@ -521,7 +584,7 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
                 x, _ = _apply_shared(
                     x, params["shared"], cfg, positions, key,
                     cache=(cache["shared_k"][inv], cache["shared_v"][inv]),
-                    cache_length=new_lengths, seq=blk,
+                    cache_length=new_lengths, seq=blk, cst=constrain,
                 )
             x = cst(x, "batch", None, None)
     else:
@@ -536,6 +599,7 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
                 cache=(cache["k"][idx], cache["v"][idx]),
                 cache_length=new_lengths,
                 seq=blk,
+                cst=constrain,
             )
             x = cst(x, "batch", None, None)
     x = layers.rms_norm(x, params["final_norm"])

@@ -24,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import tp as tp_lib
 
 
 def ssm_specs(cfg):
@@ -76,19 +77,23 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _project(x, p, cfg, key=None):
+def _project(x, p, cfg, key=None, hb=None, ib=None):
     """Input / B / C / dt projections through the substrate, one site
     each.  ``key`` is None, a raw (2,) key, or per-token (b, s, 2) keys:
-    each projection folds its own site salt."""
+    each projection folds its own site salt.  With ``hb`` / ``ib`` (the
+    rank's blocks of the SSM heads and of ``d_inner``) z / xin are its
+    ``d_inner`` block and dt its heads block (column-parallel); B and C
+    stay whole."""
 
-    def proj(name):
+    def proj(name, cols=None):
         site = "ssm_" + name
         return layers.dense(x, p[name], cfg, layers.site_key(key, site),
-                            site=site)
+                            site=site, cols=cols)
 
-    z, xin, B, C = proj("wz"), proj("wx"), proj("wB"), proj("wC")
-    dt = _softplus(proj("wdt").to(torch.float32)
-                   + p["dt_bias"].to(torch.float32))
+    z, xin, B, C = proj("wz", ib), proj("wx", ib), proj("wB"), proj("wC")
+    bias = p["dt_bias"] if hb is None else hb.slice(p["dt_bias"], 0)
+    dt = _softplus(proj("wdt", hb).to(torch.float32)
+                   + bias.to(torch.float32))
     return z, xin, B, C, dt
 
 
@@ -163,7 +168,41 @@ def _outer(Bf, dt, xh):
     return (dt[:, :, None] * Bf[:, None, :])[..., None] * xh[:, :, None, :]
 
 
-def ssm_block(x, p, cfg, key=None, *, cache=None):
+def _blocks(cfg, constrain, cache):
+    """This rank's blocks ``(heads, d_inner)`` of the in-layer layout, or
+    ``(None, None)``: training lays them out wherever the SSM heads
+    divide ``model``; prefill and decode only where the decode state
+    holds the block (``constrain.state``, ``cst.lay_out_cache``)."""
+    tp = tp_lib.of(constrain) if cache is None \
+        else getattr(constrain, "state", None)
+    hb = None if tp is None else tp.block(cfg.ssm_heads)
+    if hb is None:
+        return None, None
+    return hb, tp.block(cfg.d_inner)
+
+
+def _gated_norm(y, gate, p, cfg, key, ib):
+    """``rms_norm(y · gate)`` then the ``out`` projection.  On a block
+    ``ib`` of ``d_inner``: where ``out`` runs row-parallel the norm's sum
+    of squares is summed over ``model`` (``tp.all_sum``) and the norm's
+    weight sliced; where it takes per-row keys the block is gathered
+    whole first and the norm is the whole layout's."""
+    okey = layers.site_key(key, "ssm_out")
+    yg = y * gate
+    if ib is None or not layers.contract_local_ok(cfg, okey, ib):
+        if ib is not None:
+            yg = ib.gather(yg, -1)
+        yn = layers.rms_norm(yg, p["norm"])
+        return layers.dense(yn, p["out"], cfg, okey, site="ssm_out")
+    dt = yg.dtype
+    xf = yg.to(torch.float32)
+    var = tp_lib.all_sum((xf * xf).sum(dim=-1, keepdim=True),
+                         ib) / ib.length
+    yn = (xf * torch.rsqrt(var + 1e-6)).to(dt) * ib.slice(p["norm"], 0)
+    return layers.dense(yn, p["out"], cfg, okey, site="ssm_out", rows=ib)
+
+
+def ssm_block(x, p, cfg, key=None, *, cache=None, constrain=None):
     """The full Mamba2 block.  Returns ``(out, new_cache)``.
 
     ``cache`` None -> train (no cache out); the string ``"prefill"`` ->
@@ -174,24 +213,40 @@ def ssm_block(x, p, cfg, key=None, *, cache=None):
     Keys: a raw (2,) key with s > 1 fans out PER SSD CHUNK (position t
     draws from ``fold_in(key, t // ssm_chunk)``); decode (s == 1) keeps
     the raw key; per-token (b, s, 2) keys pass through.
+
+    Under the in-layer layout (``constrain``, ``sharding/tp.py``; see
+    :func:`_blocks`) z, xin, ``conv_x``, y and the gated norm's weight
+    run on the rank's ``d_inner`` block, dt, A, D and the SSD on its
+    heads block, and B and C stay whole (entered: each rank's heads use
+    them); the decode cache's ``conv_x`` and ``state`` are the blocks.
     """
     b, s, _ = x.shape
+    hb, ib = _blocks(cfg, constrain, cache)
     h, pdim = cfg.ssm_heads, cfg.ssm_headdim
+    di = cfg.d_inner
+    if hb is not None:
+        h, di = hb.width, ib.width
     if key is not None and key.dim() == 1 and s > 1:
         # folded where the key lies (the trainer's keys stay on the host;
         # the substrate moves each draw's keys to the operands' device)
         ck = torch.arange(s, device=key.device) // cfg.ssm_chunk
         key = layers.fold_keys(key.expand(b, s, 2), ck[None].expand(b, s))
-    z, xin, B, C, dt = _project(x, p, cfg, key)
-    A = -torch.exp(p["A_log"].to(torch.float32))  # (h,) negative
-    D = p["D"].to(torch.float32)[None, None, :, None]
+    z, xin, B, C, dt = _project(x, p, cfg, key, hb, ib)
+    a_log, d_skip, conv_x = p["A_log"], p["D"], p["conv_x"]
+    if hb is not None:
+        a_log, d_skip = hb.slice(a_log, 0), hb.slice(d_skip, 0)
+        conv_x = ib.slice(conv_x, 1)
+    A = -torch.exp(a_log.to(torch.float32))  # (h,) negative
+    D = d_skip.to(torch.float32)[None, None, :, None]
 
     if cache is None or isinstance(cache, str):
         k = cfg.ssm_conv
         raw = (xin, B, C)
-        xin, _ = _causal_conv(xin, p["conv_x"])
+        xin, _ = _causal_conv(xin, conv_x)
         B, _ = _causal_conv(B, p["conv_B"])
         C, _ = _causal_conv(C, p["conv_C"])
+        if hb is not None:
+            B, C = tp_lib.enter(B, hb), tp_lib.enter(C, hb)
         xin = torch.nn.functional.silu(xin.to(torch.float32)).to(x.dtype)
         xh = xin.reshape(b, s, h, pdim)
         y, H_final = ssd_chunked(xh, dt, A, B.to(torch.float32),
@@ -207,7 +262,7 @@ def ssm_block(x, p, cfg, key=None, *, cache=None):
                 "state": H_final,
             }
     else:
-        xin, cx = _causal_conv(xin, p["conv_x"], cache["conv_x"])
+        xin, cx = _causal_conv(xin, conv_x, cache["conv_x"])
         B, cB = _causal_conv(B, p["conv_B"], cache["conv_B"])
         C, cC = _causal_conv(C, p["conv_C"], cache["conv_C"])
         xin = torch.nn.functional.silu(xin.to(torch.float32)).to(x.dtype)
@@ -222,11 +277,9 @@ def ssm_block(x, p, cfg, key=None, *, cache=None):
         new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC,
                      "state": state}
 
-    y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
+    y = y.reshape(b, s, di).to(x.dtype)
     gate = torch.nn.functional.silu(z.to(torch.float32)).to(x.dtype)
-    y = layers.rms_norm(y * gate, p["norm"])
-    okey = layers.site_key(key, "ssm_out")
-    return layers.dense(y, p["out"], cfg, okey, site="ssm_out"), new_cache
+    return _gated_norm(y, gate, p, cfg, key, ib), new_cache
 
 
 def ssm_stream(x, p, cfg, key, cache, valid):
@@ -257,11 +310,15 @@ def ssm_stream(x, p, cfg, key, cache, valid):
     return torch.stack(ys, dim=1), cache
 
 
-def init_ssm_cache(cfg, batch: int, dtype=torch.float32, *, device=None):
+def init_ssm_cache(cfg, batch: int, dtype=torch.float32, *, device=None,
+                   heads=None):
     """Zero conv tails in ``dtype`` and a float32 SSD state for ``batch``
-    rows."""
+    rows; with ``heads`` (a block of the SSM heads) the state holds that
+    block of the heads and ``conv_x`` the matching block of ``d_inner``."""
     device = resolve_device(device)
     k, di, n = cfg.ssm_conv, cfg.d_inner, cfg.ssm_state
+    h = cfg.ssm_heads if heads is None else heads.width
+    di = di if heads is None else h * cfg.ssm_headdim
 
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -270,6 +327,5 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, *, device=None):
         "conv_x": zeros((batch, k - 1, di), dtype),
         "conv_B": zeros((batch, k - 1, n), dtype),
         "conv_C": zeros((batch, k - 1, n), dtype),
-        "state": zeros((batch, cfg.ssm_heads, n, cfg.ssm_headdim),
-                       torch.float32),
+        "state": zeros((batch, h, n, cfg.ssm_headdim), torch.float32),
     }

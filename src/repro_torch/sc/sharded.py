@@ -79,11 +79,17 @@ class ScShardRules:
     ``local_rows``: ``x`` holds only this rank's rows, its block over
     the mesh's batch axes (``launch.mesh.batch_axes``), and the output
     is its block of the product (training's data parallelism).
+
+    ``contract_local``: ``x`` and ``w`` hold only this rank's block of
+    the contraction over the contract axes (a row-parallel layer of the
+    in-layer layout, ``sharding/tp.py``): the call takes them as its K
+    block as they are, which is the block it would cut from the whole.
     """
 
     batch: tuple = ("pod", "data")
     contract: tuple = ("model",)
     local_rows: bool = False
+    contract_local: bool = False
 
 
 DEFAULT_RULES = ScShardRules()
@@ -109,7 +115,8 @@ def resolve_rules(mesh, m: int, k: int,
 
     return ScShardRules(batch=live(tuple(rules.batch), m),
                         contract=live(tuple(rules.contract), k),
-                        local_rows=rules.local_rows)
+                        local_rows=rules.local_rows,
+                        contract_local=rules.contract_local)
 
 
 def _axis_span(mesh, axes) -> int:
@@ -164,8 +171,11 @@ def _sharded_dispatch(key, x2, w, cfg, *, mesh, rules):
     over the contract axes and (unless the rows are local) the gather
     over the batch axes."""
     m, k = x2.shape
-    cols = k // _axis_span(mesh, rules.contract)
-    c = _coord(mesh, rules.contract)
+    if rules.contract_local:  # the rank's K block already
+        cols, c = k, 0
+    else:
+        cols = k // _axis_span(mesh, rules.contract)
+        c = _coord(mesh, rules.contract)
     if rules.local_rows:
         rows, b = m, 0
     else:
@@ -212,16 +222,28 @@ def sc_dot_sharded(key, x, w, cfg: ScConfig = ScConfig(), *, mesh,
     ``rules.batch``; K shards over ``rules.contract``.  When no axis
     survives :func:`resolve_rules` this is ``sc_dot(key, x, w, cfg)``.
     Under ``rules.local_rows`` x holds this rank's rows and the result
-    is their rows of the product.
+    is their rows of the product; under ``rules.contract_local`` x and
+    w hold this rank's K block (the straight-through gradient is then
+    the block's: ``g @ w_blockᵀ``, ``x_blockᵀ @ g``).
     """
     lead = x.shape[:-1]
     k_dim = x.shape[-1]
     m = math.prod(lead) if lead else 1
     rules = rules if rules is not None else DEFAULT_RULES
+    k_whole = k_dim
+    if rules.contract_local:
+        k_whole = k_dim * _axis_span(mesh, tuple(
+            a for a in rules.contract if mesh.shape.get(a, 1) > 1))
     if rules.local_rows:
-        r = _resolve_local(mesh, m, k_dim, rules)
+        r = _resolve_local(mesh, m, k_whole, rules)
     else:
-        r = resolve_rules(mesh, m, k_dim, rules)
+        r = resolve_rules(mesh, m, k_whole, rules)
+    if rules.contract_local and k_dim * _axis_span(mesh, r.contract) \
+            != k_whole:
+        raise ValueError(
+            f"sc_dot_sharded: x holds a contraction block of {k_dim} over "
+            f"{rules.contract}, but the rules split K {k_whole} over "
+            f"{r.contract}")
     if not r.batch and not r.contract:
         return sc_dot(key, x, w, cfg)
     n_shards = _axis_span(mesh, r.batch) * _axis_span(mesh, r.contract)

@@ -312,3 +312,80 @@ def seq_block(mesh, axes: tuple, length: int):
         raise ValueError(f"a sequence of {length} does not split over "
                          f"{live} ({span})")
     return SeqBlock(mesh, live, length)
+
+
+# ---------------------------------------------------------------------------
+# In-layer layouts: a rank's block of a feature dimension over ``model``
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ColBlock:
+    """This rank's block of a dimension of ``length`` split over the mesh
+    ``axes``: the dimension is ``parts`` equal segments (SwiGLU's gate and
+    up halves of ``mlp_wi``), each split over the axes, and the rank
+    holds positions ``[p·seg + start, p·seg + stop)`` of every part
+    ``p`` (``seg = length / parts``), concatenated: ``width`` of them.
+    :meth:`slice` and :meth:`gather` move a tensor between the block and
+    the whole dimension through ``sharding/tp.py``'s autograd functions
+    (a ``SeqBlock``'s arithmetic, on any dimension)."""
+
+    mesh: object
+    axes: tuple
+    length: int
+    parts: int = 1
+
+    @property
+    def span(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.axes)
+
+    @property
+    def size(self) -> int:
+        return self.length // (self.parts * self.span)
+
+    @property
+    def width(self) -> int:
+        return self.parts * self.size
+
+    @property
+    def index(self) -> int:
+        c = 0
+        for a in self.axes:
+            c = c * self.mesh.shape[a] + self.mesh.coords[a]
+        return c
+
+    @property
+    def start(self) -> int:
+        return self.index * self.size
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.size
+
+    def slice(self, x, dim: int = -1):
+        """This rank's block of the whole ``x`` along ``dim``; the
+        backward gathers the gradient's blocks."""
+        from repro_torch.sharding.tp import ColSlice
+
+        return ColSlice.apply(x, self, dim)
+
+    def gather(self, x, dim: int = -1):
+        """The whole dimension from every rank's block ``x``; the
+        backward keeps the gradient's block."""
+        from repro_torch.sharding.tp import ColGather
+
+        return ColGather.apply(x, self, dim)
+
+
+def col_block(mesh, axes: tuple, length: int, parts: int = 1):
+    """This rank's :class:`ColBlock` of ``length`` over ``axes`` (those
+    of size 1 dropped), or None where no axis splits it or it does not
+    divide into ``parts`` segments over their span (the dimension stays
+    whole)."""
+    live = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+    if not live:
+        return None
+    span = math.prod(mesh.shape[a] for a in live)
+    if length <= 0 or length % (parts * span):
+        return None
+    return ColBlock(mesh, live, length, parts)

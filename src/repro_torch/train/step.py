@@ -44,6 +44,16 @@ sequence; a sequence that does not divide stays whole
 (:func:`make_constrain`).  The ranks of a model group compute the same
 values either way, so the step is the whole-sequence step bit for bit.
 
+Inside each layer the step lays the reference's in-layer axes out over
+``model`` (``sharding/tp.py``, ``cst.tp``): each rank computes its block
+of the heads (or, where the heads do not divide, of the query sequence:
+context parallelism), of the MLP hidden, of the loss's vocabulary and of
+the SSM's ``d_inner`` and heads; every parameter's gradient stays whole
+and equal on the ranks of a model group, so the reductions below are
+unchanged.  On the SC substrate every SC call sees the whole layout's
+operands (the forward is the whole layout's bit for bit); on ``exact``
+the row-parallel sums reorder float additions.
+
 ``TrainConfig(fsdp=True)`` is the reference's FSDP ∘ TP layout
 (``sharding/fsdp.py``): ``params``, ``m`` and ``v`` (and the residual)
 hold only the rank's shard of each leaf (``train_state_init(...,
@@ -85,6 +95,7 @@ from repro_torch.sc import ctr_rng
 from repro_torch.sharding import fsdp as fsdp_lib
 from repro_torch.sharding import act_spec, param_shardings, sc_shard_rules
 from repro_torch.sharding import rules
+from repro_torch.sharding import tp as tp_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +109,11 @@ class TrainConfig:
     fsdp: bool = False
 
 
-def make_constrain(mesh, *, seq_parallel: bool = True):
+def make_constrain(mesh, *, seq_parallel: bool = True,
+                   tensor_parallel: bool = True):
     """The activation constraint of a mesh step (None without a mesh):
     the reference's ``make_constrain``, which lays activations out by
-    ``ACT_RULES``, for the two layouts the port moves itself.
+    ``ACT_RULES``, for the layouts the port moves itself.
 
     ``cst(v, *logical_axes)`` returns ``v``.  It checks that a tensor
     whose first logical axis is ``"batch"`` holds this rank's rows of
@@ -122,7 +134,20 @@ def make_constrain(mesh, *, seq_parallel: bool = True):
 
     ``seq_parallel=False`` keeps both sequences whole: the layout of
     earlier steps, which no entry point asks for (the tests compare the
-    two with it)."""
+    two with it).
+
+    The in-layer layout (``sharding/tp.py``): ``cst.tp`` is the
+    ``sharding.tp.TensorParallel`` of the mesh's ``model`` axis (None
+    where it has one rank): the model code lays the heads / kv heads,
+    the MLP hidden, the loss's vocabulary and the SSM's ``d_inner`` and
+    heads out over it inside each layer, and takes the context-parallel
+    attention branch where the heads do not divide; every dimension that
+    does not divide stays whole.  ``lay_out_cache`` also sets
+    ``cst.state`` (the same object): the SSM decode state holds the
+    rank's block of the heads.  ``tensor_parallel=False`` keeps every
+    in-layer tensor whole: the sequence layouts alone, bit for bit,
+    which only the tests and ``chip_smoke.py`` ask for (to compare
+    with)."""
     if mesh is None:
         return None
 
@@ -144,6 +169,7 @@ def make_constrain(mesh, *, seq_parallel: bool = True):
     def lay_out_cache(batch: int, max_len: int):
         cst.cache = None if not seq_parallel else rules.seq_block(
             mesh, rules.cache_seq_axes(mesh, batch, max_len), max_len)
+        cst.state = cst.tp
         return cst.cache
 
     cst.axis_sizes = dict(mesh.shape)
@@ -153,6 +179,9 @@ def make_constrain(mesh, *, seq_parallel: bool = True):
     cst.lay_out_cache = lay_out_cache
     cst.cache = None
     cst.batch = None
+    tp = tp_lib.TensorParallel(mesh)
+    cst.tp = tp if tensor_parallel and tp.axes else None
+    cst.state = None
     return cst
 
 
@@ -358,20 +387,27 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
                 new_ef = state.get("ef")
         return loss, grads, new_ef
 
-    def step(state, batch):
+    def apply(state, grads, new_ef=None):
+        """The AdamW update of ``state`` by ``grads`` (``loss_and_grads``'
+        gradient): ``(new_state, metrics)``."""
         params = state["params"]
-        loss, grads, new_ef = loss_and_grads(state, batch)
         grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
         new_params, new_opt, metrics = adamw_update(
             grads, state["opt"], params, tcfg.optimizer,
             placements=placements)
-        metrics["loss"] = loss
         new_state = {"params": new_params, "opt": new_opt}
         if "ef" in state:
             new_state["ef"] = new_ef
         return new_state, metrics
 
-    step.loss_and_grads = loss_and_grads  # what the update is applied to
+    def step(state, batch):
+        loss, grads, new_ef = loss_and_grads(state, batch)
+        new_state, metrics = apply(state, grads, new_ef)
+        metrics["loss"] = loss
+        return new_state, metrics
+
+    # a step in two parts, for callers that keep the gradient
+    step.loss_and_grads, step.apply = loss_and_grads, apply
     return step
 
 

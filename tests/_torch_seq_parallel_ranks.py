@@ -14,7 +14,8 @@
         tests/_torch_seq_parallel_ranks.py port INPUTS OUT
         the port on 4 gloo ranks of the CPU, each writing OUT.rank<r>:
         every family's mesh train step with and without the sequence
-        layout (``make_constrain(..., seq_parallel=False)``), on the
+        layout (``make_constrain(..., seq_parallel=False)``; both with
+        ``tensor_parallel=False``, every in-layer tensor whole), on the
         replicated and FSDP layouts, on ``exact`` and ``pallas_moment``;
         and each decode case on the rank's block of the cache.
 
@@ -159,14 +160,17 @@ def run_ref(inputs, out):
 def whole_sequence(on: bool):
     """``make_train_step`` built with ``make_constrain(...,
     seq_parallel=False)`` (the sequence whole between layers) while
-    ``on``."""
+    ``on``; either way with ``tensor_parallel=False``: the sequence
+    layouts are held with every in-layer tensor whole (the layout they
+    came with; the in-layer layout is
+    ``tests/test_torch_tensor_parallel.py``'s)."""
     import functools
 
     from repro_torch.train import step as step_mod
 
     orig = step_mod.make_constrain
-    if on:
-        step_mod.make_constrain = functools.partial(orig, seq_parallel=False)
+    step_mod.make_constrain = functools.partial(
+        orig, seq_parallel=not on, tensor_parallel=False)
     try:
         yield
     finally:
@@ -227,7 +231,7 @@ def port_decode(mesh, data, res, meta):
         cfg = _tcfg(arch, **decode_cfg_kw(arch))
         params = params_from_numpy(_sub(data, f"{arch}/params"),
                                    device="cpu")
-        cst = make_constrain(mesh)
+        cst = make_constrain(mesh, tensor_parallel=False)
         blk = cst.lay_out_cache(batch, max_len)
         dp = mesh.shape["data"] if batch % mesh.shape["data"] == 0 else 1
         rows = slice(mesh.coords["data"] * batch // dp,

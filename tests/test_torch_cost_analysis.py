@@ -185,11 +185,12 @@ def _tm_cfg():
 
 def test_recorded_allreduce_is_the_gradient_and_loss():
     """One float32 all-reduce over ``data`` of every gradient leaf and
-    the loss; over ``model`` only the residual sequence's gathers
-    (``exact`` shards no contraction): 8 a step (the embedding's
-    gradient, 3 a layer under remat, the final norm's input) of a rank's
-    4 rows x 32 positions x 896 in bf16."""
-    from repro_torch.sharding import seq
+    the loss; over ``model`` the residual sequence's gathers (8 a step:
+    the embedding's gradient, 3 a layer under remat, the final norm's
+    input, of a rank's 4 rows x 32 positions x 896 in bf16) and the
+    in-layer layout's gathers and sums (``sharding.tp.
+    tp_collective_plan``; ``exact`` shards no SC contraction)."""
+    from repro_torch.sharding import seq, tp
     cfg = _tm_cfg()
     mesh = RecordingMesh((2, 2), ("data", "model"))
     tt = TrainConfig()
@@ -204,17 +205,24 @@ def test_recorded_allreduce_is_the_gradient_and_loss():
     plan = seq.seq_collective_plan(cfg, mesh, 8, 64)["all-gather"]
     assert plan == {"count": 8, "bytes": 8 * 229_376}
     gathers = plan["bytes"]
-    assert cost.coll_by_kind == {"all-reduce": want, "all-gather": gathers}
-    assert cost.coll_by_axis == {"data": want, "model": gathers}
+    tpp = tp.tp_collective_plan(cfg, mesh, 8, 64)
+    assert set(tpp) == {"tp.gather", "tp.sum", "tp.vocab"}
+    tp_bytes = sum(e["bytes"] for e in tpp.values())
+    assert cost.coll_by_kind == {"all-reduce": want,
+                                 "all-gather": gathers + tp_bytes}
+    assert cost.coll_by_axis == {"data": want, "model": gathers + tp_bytes}
     assert cost.coll_by_site == {"all-reduce": want,
-                                 "seq.all_gather": gathers}
-    assert cost.coll_by_shape == {f"all-reduce:{want}": want,
-                                  "all-gather:229376": gathers}
+                                 "seq.all_gather": gathers,
+                                 **{k: e["bytes"] for k, e in tpp.items()}}
+    assert cost.coll_by_shape[f"all-reduce:{want}"] == want
+    assert sum(cost.coll_by_shape.values()) == want + gathers + tp_bytes
     assert [r for r in mesh.records if r[0] == "all-reduce"] == [
         ("all-reduce", "data", want)]
-    assert mesh.records.count(("all-gather", "model", 229_376)) == 8
+    assert [r for r, site in zip(mesh.records, mesh.sites)
+            if site == "seq.all_gather"] == [
+                ("all-gather", "model", 229_376)] * 8
     assert cost.collective_seconds() == pytest.approx(
-        (want + gathers) / C.NVLINK_BW)
+        (want + gathers + tp_bytes) / C.NVLINK_BW)
     assert cost.off_meta == 0
 
 
@@ -230,7 +238,7 @@ def test_dryrun_train_cell_on_shards(multi_pod):
     shape = ShapeConfig("train_cut", 64, 64, "train")
     tcfg = dryrun.train_config("qwen2-0.5b")
     assert tcfg.fsdp
-    from repro_torch.sharding import seq
+    from repro_torch.sharding import seq, tp
 
     cost, _, ref = dryrun.trace_cell(cfg, shape, mesh, tcfg)
     axes = ("pod", "data") if multi_pod else ("data",)
@@ -240,8 +248,11 @@ def test_dryrun_train_cell_on_shards(multi_pod):
     assert cost.coll_by_site["seq.all_gather"] == gathers["bytes"]
     assert cost.coll_by_site["mesh.all_gather"] == plan["all-gather"][
         "bytes"]
+    tpp = tp.tp_collective_plan(cfg, mesh, 64, 64)
+    for site, e in tpp.items():
+        assert cost.coll_by_site[site] == e["bytes"], site
     assert cost.coll_by_kind["all-gather"] == plan["all-gather"][
-        "bytes"] + gathers["bytes"]
+        "bytes"] + gathers["bytes"] + sum(e["bytes"] for e in tpp.values())
     assert cost.coll_by_kind["reduce-scatter"] == plan["reduce-scatter"][
         "bytes"]
     # the port's step is handed the global batch (it keeps its rows)
@@ -379,7 +390,7 @@ def test_no_compile_records_placements_and_inputs():
 def test_profile_prints_the_cell(capsys):
     from repro_torch.launch import profile_cell
 
-    result, cost = profile_cell.profile("qwen2-0.5b", "decode_32k", top=4)
+    result, cost = profile_cell.profile("qwen2-0.5b", "decode_32k", top=6)
     text = capsys.readouterr().out
     assert "qwen2-0.5b x decode_32k x 16x16" in text
     assert "bytes by aten op" in text and "aten.mm" in text

@@ -5,7 +5,10 @@ decode cache's sequence in prefill and decode.
 
 The reference runs in a subprocess on 4 host devices with an Auto-axes
 mesh; the port as 4 gloo ranks of the CPU under ``torchrun``; both sides
-live in ``tests/_torch_seq_parallel_ranks.py`` and start together.  Held:
+live in ``tests/_torch_seq_parallel_ranks.py`` and start together.  The
+port runs with every in-layer tensor whole (``make_constrain(...,
+tensor_parallel=False)``, the layout these layouts came with; the
+in-layer layout is ``tests/test_torch_tensor_parallel.py``'s).  Held:
 
 * the mesh train step with the sequence layout, on the replicated and
   FSDP layouts, for the dense, SSM and hybrid smoke configs under
@@ -247,7 +250,7 @@ def test_prefill_keeps_the_rank_slice_of_the_cache(arch, batch):
     seen = set()
     for coords in np.ndindex(*ranks.MESH[0]):
         mesh = _mesh_at(*ranks.MESH, coords)
-        cst = make_constrain(mesh)
+        cst = make_constrain(mesh, tensor_parallel=False)
         blk = cst.lay_out_cache(batch, max_len)
         assert blk.axes == (("model",) if batch == 4 else ("data", "model"))
         with torch.no_grad():
@@ -297,7 +300,7 @@ def test_each_layer_saves_its_block(arch):
     bodies = tlm.n_backbone_layers(cfg) + tlm.n_shared_invocations(cfg)
     for sp, want in ((True, s // 2), (False, s)):
         mesh = RecordingMesh(*ranks.MESH)
-        cst = make_constrain(mesh, seq_parallel=sp)
+        cst = make_constrain(mesh, seq_parallel=sp, tensor_parallel=False)
         saved = []
 
         def pack(t):
@@ -319,7 +322,7 @@ def test_each_layer_saves_its_block(arch):
 def test_an_indivisible_sequence_stays_whole():
     cfg = _tcfg("qwen2-0.5b", remat="full")
     mesh = RecordingMesh(*ranks.MESH)
-    cst = make_constrain(mesh)
+    cst = make_constrain(mesh, tensor_parallel=False)
     assert cst.seq_axes == ("model",)
     assert cst.seq_block(15) is None and cst.seq_block(16).size == 8
     assert seq.seq_collective_plan(cfg, mesh, 4, 15) == {}
@@ -327,7 +330,8 @@ def test_an_indivisible_sequence_stays_whole():
     state = {"params": params, "opt": adamw_init(params,
                                                  TrainConfig().optimizer)}
     tok = torch.zeros((4, 15), dtype=torch.int32)
-    step = make_train_step(cfg, TrainConfig(), mesh)
+    with ranks.whole_sequence(False):
+        step = make_train_step(cfg, TrainConfig(), mesh)
     _, cost = C.trace_cost(step, state, {"inputs": tok, "labels": tok},
                            mesh=mesh)
     assert "all-gather" not in cost.coll_by_kind

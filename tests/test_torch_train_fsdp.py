@@ -336,14 +336,16 @@ def test_recompute_gathers_every_layer_again(remat):
     the forward and, under ``remat="full"``, once more in the backward's
     recompute (so no layer's gathered weights are saved for it); every
     gradient reduced once.  The residual sequence's gathers (site
-    ``seq.all_gather``) are ``sharding.seq.seq_collective_plan``'s."""
+    ``seq.all_gather``) are ``sharding.seq.seq_collective_plan``'s; the
+    in-layer layout's (``tp.*``) are ``sharding.tp``'s, apart."""
     from repro_torch.sharding import seq
 
     mesh = RecordingMesh((2, 2), ("data", "model"))
     cfg, cost = _recorded_step(remat, mesh)
     plan = fsdp.collective_plan(cfg, mesh, reduce_axes=("data",))
     sites = list(zip(mesh.records, mesh.sites))
-    got = _by_kind([r for r, site in sites if site != "seq.all_gather"])
+    got = _by_kind([r for r, site in sites if site != "seq.all_gather"
+                    and not site.startswith("tp.")])
     assert _by_kind([r for r, site in sites if site == "seq.all_gather"])[
         "all-gather"] == seq.seq_collective_plan(cfg, mesh, 8, 16)[
             "all-gather"]
