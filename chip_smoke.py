@@ -134,6 +134,17 @@ code is non-zero):
    rank's block of the SSM state (``lay_out_cache``: 16 of 32 heads,
    ``conv_x`` 1,024 of 2,048): the state and ``conv_x`` half the whole
    layout's bytes, logits within 1e-5 of max |logit|, tokens equal;
+   then FM-e in the same ranks: prefill and decode with the MoE FFN's
+   experts over ``model`` at moonshot-v1-16b-a3b's full width, 1 layer:
+   (a) ``exact`` float32 on 2 x 2 (32 of 64 experts a rank), 2 rows a
+   data rank, a 16-token prefill and 4 teacher-forced decode steps
+   against ``tensor_parallel=False``: logits within 1e-5 of max |logit|,
+   tokens equal, no kernel; (b) ``pallas_bitexact`` bf16 on data 1 x
+   model 4 (16 experts a rank), one row, a 4-token prefill with every
+   one-key call whole on each rank: kernel 1's launches a rank
+   ``moe_kernel1_plan``'s at 16 experts, and every rank's logits
+   bit-equal to the experts-whole prefill, run once on rank 0 without a
+   mesh (its launches the plan's at 64);
 5. the tiny parity-test configuration served on the card and on the CPU
    (``device="cpu"``, plain versions) in this process: equal tokens;
 6. train phase T: qwen2-0.5b at full width, depth ``--layers``, float32,
@@ -214,7 +225,17 @@ code is non-zero):
    kernel 5's launches ``kernel5_plan``'s, the step ms and the peak
    beside TM-s's; TM-cp, the same on data 1 x model 4 (14 heads do not
    divide: the context-parallel branch) against that mesh with the
-   layout off;
+   layout off; TM-e, the MoE FFN's experts over ``model``
+   (``sharding/ep.py``): T's recipe at moonshot-v1-16b-a3b's full width
+   (64 experts, top-6), 1 of 48 layers, FSDP on data 2 x model 2, 2
+   steps with the layout on (32 experts a rank, each gathering its
+   experts' block of wi / wo over ``data`` only) against
+   ``tensor_parallel=False``: losses and step-1 gradients within TM-t's
+   tolerances, the ``ep.*`` / ``tp.*`` spans and each layout's FSDP
+   collectives a step equal to their plans, kernel 5's launches a step
+   ``kernel5_plan``'s at 32 experts (the layout off's at 64), step 1's
+   forward and backward peak below the layout off's (the step's own
+   peak, AdamW's, printed beside it), the step ms beside it;
 8. validation phase V: qwen2-0.5b layer-0 weights at full width, one
    decode row through ``sc_dot`` under ``pallas_bitexact`` (the packed
    kernel, fed its stream in chunks) for wk, wv, wq and wo, each equal
@@ -247,7 +268,8 @@ code is non-zero):
     and the unembed; the share of its MULs on empty capacity slots);
     float32 ``exact`` with ``fused`` attention (kernel 2): the paged
     engine's greedy tokens equal the fixed-slot engine's; both MoE SMOKE
-    configs on the card and on the CPU: equal tokens;
+    configs (1 of their 2 layers) on the card and on the CPU: equal
+    tokens;
 12. phase S: mamba2-370m at its published width (d_model 1024, d_inner
     2048, 32 SSM heads of 64, state 128, conv 4, vocab 50,280, tied),
     depth ``--ssm-layers`` (default 4 of 48), bf16, random weights from
@@ -345,8 +367,14 @@ THREEFRY_ALU = 19 * 2 + 1
 THREEFRY_ADDS = 20 + 4 * 2 + 1 + 1
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def sc_mul_ops(nbit: int) -> tuple:
@@ -1086,9 +1114,18 @@ def check_sc_mac(rates: dict) -> dict:
     del mean, sd, live, zs
     if not (abs(mu) < 0.01 and abs(var - 1.0) < 0.02):
         raise AssertionError(f"sc_mac_fused_prng noise: mean {mu} var {var}")
-    ms = time_ms(
-        lambda: km.sc_mac_fused_prng(seed, x, w, nbit=nbit), 10
-    )
+    xa, wa, xq, wq = x.abs(), w.abs(), x * x, w * w
+
+    def library():  # row 5's yardstick, its noise drawn by torch.randn
+        mean = torch.matmul(x, w)
+        p = torch.matmul(xa, wa)
+        p2 = torch.matmul(xq, wq)
+        var = torch.clamp_min(p - p2, 0.0) * (1.0 / nbit)
+        return mean + torch.randn_like(mean) * torch.sqrt(var)
+
+    lib_ms, ms = paired_ms(
+        library, lambda: km.sc_mac_fused_prng(seed, x, w, nbit=nbit), 10)
+    del xa, wa, xq, wq
     plain_ms = time_ms(
         lambda: km.sc_mac_fused_prng_plain(seed, x, w, nbit=nbit), 3
     )
@@ -1100,7 +1137,8 @@ def check_sc_mac(rates: dict) -> dict:
         ms=ms,
         plain_ms=plain_ms,
         **_moment_bound(m, k, n, rates, False, False),
-        library_ms=None,
+        library_ms=lib_ms,
+        vs_library=ms / lib_ms,
     )
     emit("kernel_check", kernel="sc_mac_fused_prng", case="unembed",
          **rows["prng"])
@@ -2658,6 +2696,148 @@ def fm_tp(mesh, layers: int) -> dict:
     return {"a": _fm_t_bitexact(mesh, layers), "b": _fm_t_ssm(mesh)}
 
 
+# Phase FM-e: the MoE FFN's expert-parallel layout (``sharding/ep.py``)
+# in prefill and decode, at moonshot-v1-16b-a3b's full width (64 experts,
+# top-6), FM_E_LAYERS of 48 layers.  (a) ``exact`` float32 on FM's data 2
+# x model 2 (32 experts a rank): FM_E_ROWS rows a data rank, a prompt of
+# FM_E_PROMPT tokens and FM_E_STEPS teacher-forced decode steps against
+# the same mesh with ``tensor_parallel=False``: logits within FM_E_TOL of
+# max |logit|, tokens equal, no kernel.  (b) ``pallas_bitexact`` bf16 on
+# data 1 x model 4 (16 experts a rank): one row, a FM_E_B_PROMPT-token
+# prefill with every one-key call whole on each rank (no SC scope), so
+# the same prefill with the experts whole runs once, on rank 0 alone,
+# without a mesh: kernel 1's launches a rank ``moe_kernel1_plan``'s at 16
+# experts, the whole run's at 64, and every rank's logits bit-equal to
+# that run's.
+FM_E_LAYERS, FM_E_ROWS, FM_E_PROMPT, FM_E_STEPS = 1, 2, 16, 4
+FM_E_TOL = 1e-5
+FM_E_B_PROMPT = 4
+
+
+def _fm_e_cfg(**kw):
+    from repro_torch.configs import get_config
+
+    return get_config("moonshot-v1-16b-a3b").replace(
+        n_layers=FM_E_LAYERS, **kw)
+
+
+def _fm_e_exact(mesh) -> dict:
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.sharding import ep
+    from repro_torch.train.step import make_constrain
+
+    cfg = _fm_e_cfg(sc_backend="exact", param_dtype=torch.float32,
+                    act_dtype=torch.float32)
+    params = _moe_params(cfg, mesh.device, torch.float32)
+    rng = np.random.default_rng(17)
+    batch = FM_E_ROWS * mesh.shape["data"]
+    d = mesh.coords["data"]
+    mine = slice(d * FM_E_ROWS, (d + 1) * FM_E_ROWS)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        batch, FM_E_PROMPT))[mine]).to(mesh.device)
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        FM_E_STEPS, batch))[:, mine]).to(mesh.device)
+    max_len = FM_E_PROMPT + FM_E_STEPS
+    runs = {}
+    for name, on in (("whole", False), ("ep", True)):
+        cst = make_constrain(mesh, tensor_parallel=on)
+        cst.batch = FM_E_ROWS
+        blk = ep.expert_block(cst, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        logits, ms = [], []
+        with torch.no_grad():
+            (lg, cache, lengths), t = _synced_ms(lambda: lm.prefill(
+                params, prompt, cfg, max_len, constrain=cst))
+            logits.append(lg.cpu())
+            ms.append(t)
+            for tok in forced:
+                (lg, cache), t = _synced_ms(lambda: lm.decode_step(
+                    params, cache, tok, lengths, cfg, constrain=cst))
+                logits.append(lg.cpu())
+                ms.append(t)
+                lengths = lengths + 1
+        runs[name] = dict(
+            logits=logits, ms=ms, launches=dict(cuda_lib.launches),
+            experts=cfg.n_experts if blk is None else blk.size,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        del cache
+    gap, scale, same, bits = _logit_gap(runs["ep"]["logits"],
+                                        runs["whole"]["logits"])
+    del params
+    torch.cuda.empty_cache()
+    return dict(backend="exact", dtype="float32", rows=FM_E_ROWS,
+                layers=FM_E_LAYERS, prompt=FM_E_PROMPT, steps=FM_E_STEPS,
+                experts={k: r["experts"] for k, r in runs.items()},
+                launches={k: r["launches"] for k, r in runs.items()},
+                step_ms={k: r["ms"] for k, r in runs.items()},
+                max_memory_allocated={k: r["max_memory_allocated"]
+                                      for k, r in runs.items()},
+                max_abs_err=gap, max_abs_logit=scale, tokens_equal=same,
+                logits_checksum=bits)
+
+
+def _fm_e_bitexact() -> dict:
+    """FM-e (b) on every rank of a data 1 x model 4 mesh; rank 0 also
+    runs the experts-whole prefill alone (the others wait)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import lm
+    from repro_torch.sc import ctr_rng
+    from repro_torch.sharding import ep
+    from repro_torch.train.step import make_constrain
+
+    mesh = DeviceMesh((1, 4), ("data", "model"))
+    cfg = _fm_e_cfg(sc_backend="pallas_bitexact", sc_nbit=1024,
+                    param_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
+    params = _moe_params(cfg, mesh.device, torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, (1, FM_E_B_PROMPT))).to(mesh.device)
+    key = ctr_rng.prng_key(23).to(mesh.device)  # a serving engine's
+    cst = make_constrain(mesh)
+    cst.batch = 1
+    blk = ep.expert_block(cst, cfg)
+    rec = {}
+    dist.barrier()
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        (lg, _, _), ms = _synced_ms(lambda: lm.prefill(
+            params, prompt, cfg, FM_E_B_PROMPT, rng=key, constrain=cst))
+    rec["ep"] = dict(launches=dict(cuda_lib.launches), ms=ms,
+                     experts=blk.size, logits=lg.float().cpu())
+    dist.barrier()
+    if mesh.rank == 0:
+        cuda_lib.reset_launches()
+        with torch.no_grad():
+            (lw, _, _), ms = _synced_ms(lambda: lm.prefill(
+                params, prompt, cfg, FM_E_B_PROMPT, rng=key))
+        rec["whole"] = dict(launches=dict(cuda_lib.launches), ms=ms,
+                            experts=cfg.n_experts, logits=lw.float().cpu())
+    dist.barrier()
+    del params
+    torch.cuda.empty_cache()
+    out = dict(backend="pallas_bitexact", dtype="bfloat16", rows=1,
+               layers=FM_E_LAYERS, prompt=FM_E_B_PROMPT, mesh=mesh.shape,
+               coords=mesh.coords,
+               plan=moe_kernel1_plan(cfg, 1, experts=blk.size)["launches"],
+               whole_plan=moe_kernel1_plan(cfg, 1)["launches"])
+    for name, r in rec.items():
+        logits = r.pop("logits")
+        r["logits_checksum"] = int(logits.view(torch.int32)
+                                   .to(torch.int64).sum())
+        out[name] = r
+    return out
+
+
+def fm_ep(mesh) -> dict:
+    """Phase FM-e (on every rank): (a) and (b) above."""
+    return {"a": _fm_e_exact(mesh), "b": _fm_e_bitexact()}
+
+
 def fm_rank(outdir: str, layers: int) -> int:
     """One rank of phase FM, started by :func:`mesh_phase` under
     ``torchrun``: qwen2-0.5b at full width, depth ``layers``, bf16,
@@ -2703,6 +2883,7 @@ def fm_rank(outdir: str, layers: int) -> int:
     dist.barrier()
     rec["seq"] = fm_seq(mesh, layers)
     rec["tp"] = fm_tp(mesh, layers)
+    rec["ep"] = fm_ep(mesh)
     with open(os.path.join(outdir, f"fm_rank{mesh.rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.barrier()
@@ -2837,8 +3018,9 @@ def mesh_phase(params, cfg, prompts, tokens_f, card: str, ranks: list,
             raise AssertionError(f"serve_fm: {what}")
     seq_rec = fm_seq_phase(ranks, card)
     tp_rec = fm_tp_phase(ranks, card)
+    ep_rec = fm_ep_phase(ranks, card)
     return dict(summary, launches=first["launches"], ranks_detail=ranks,
-                counts_one=counts_one, seq=seq_rec, tp=tp_rec)
+                counts_one=counts_one, seq=seq_rec, tp=tp_rec, ep=ep_rec)
 
 
 def fm_tp_phase(ranks: list, card: str) -> dict:
@@ -2909,6 +3091,89 @@ def fm_tp_phase(ranks: list, card: str) -> dict:
         else:
             out[tag]["state_bytes"] = first["state_bytes"]
     emit("serve_fm_tp", **out)
+    return out
+
+
+def fm_ep_phase(ranks: list, card: str) -> dict:
+    """Phase FM-e's checks (``ranks``: what each FM rank wrote, its
+    ``ep`` record): (a) logits within FM_E_TOL of max |logit| of the
+    layout off's, tokens equal, a rank's half of the experts, no kernel,
+    the ranks of a model group the same logits; (b) kernel 1's launches
+    a rank ``moe_kernel1_plan``'s at the rank's 16 experts and no other
+    kernel, the experts-whole run's (rank 0) at 64, and every rank's
+    logits bits that run's."""
+    a_recs = []
+    for r in ranks:
+        rec = dict(r["ep"]["a"], rank=r["rank"], coords=r["coords"])
+        rec["median_step_ms"] = {k: float(np.median(v))
+                                 for k, v in rec["step_ms"].items()}
+        emit("serve_fm_e_rank", case="a", **{
+            k: v for k, v in rec.items() if k != "step_ms"})
+        for ok, what in (
+            (rec["max_abs_err"] <= FM_E_TOL * rec["max_abs_logit"],
+             f"logits {rec['max_abs_err']} from the layout off's (max "
+             f"|logit| {rec['max_abs_logit']}, tolerance {FM_E_TOL})"),
+            (rec["tokens_equal"], "greedy tokens differ from the layout "
+             "off's"),
+            (rec["experts"]["ep"] * FM_MODEL_PARALLEL
+             == rec["experts"]["whole"], f"experts a rank "
+             f"{rec['experts']}"),
+            (not any(v for run in rec["launches"].values()
+                     for v in run.values()),
+             f"a kernel launched on exact: {rec['launches']}"),
+        ):
+            if not ok:
+                raise AssertionError(f"serve_fm_e (a): rank {rec['rank']}: "
+                                     f"{what}")
+        a_recs.append(rec)
+    groups: dict = {}
+    for rec in a_recs:
+        groups.setdefault(rec["coords"]["data"], set()).add(
+            rec["logits_checksum"])
+    if any(len(v) != 1 for v in groups.values()):
+        raise AssertionError("serve_fm_e (a): the ranks of a model group "
+                             "hold different logits")
+    b_recs = [dict(r["ep"]["b"], rank=r["rank"]) for r in ranks]
+    whole = b_recs[0]["whole"]
+    for rec in b_recs:
+        emit("serve_fm_e_rank", case="b", **rec)
+        run = rec["ep"]
+        for ok, what in (
+            (run["launches"].get("sc_fused", 0) == rec["plan"]
+             and not any(run["launches"].get(k, 0) for k in NOT_KERNEL_1),
+             f"kernel launches {run['launches']}, {rec['plan']} kernel-1 "
+             "launches planned"),
+            (run["logits_checksum"] == whole["logits_checksum"],
+             "logits differ from the experts-whole prefill's"),
+        ):
+            if not ok:
+                raise AssertionError(f"serve_fm_e (b): rank {rec['rank']}: "
+                                     f"{what}")
+    if whole["launches"].get("sc_fused", 0) != b_recs[0]["whole_plan"]:
+        raise AssertionError(f"serve_fm_e (b): the experts-whole prefill's "
+                             f"launches {whole['launches']}, "
+                             f"{b_recs[0]['whole_plan']} planned")
+    first = a_recs[0]
+    out = dict(
+        card=card,
+        a=dict(backend=first["backend"], dtype=first["dtype"],
+               rows=first["rows"], layers=first["layers"],
+               prompt=first["prompt"], steps=first["steps"],
+               experts=first["experts"],
+               max_abs_err=max(r["max_abs_err"] for r in a_recs),
+               max_abs_logit=max(r["max_abs_logit"] for r in a_recs),
+               tol=FM_E_TOL,
+               tokens_equal=all(r["tokens_equal"] for r in a_recs),
+               median_step_ms=[r["median_step_ms"] for r in a_recs],
+               max_memory_allocated=[r["max_memory_allocated"]
+                                     for r in a_recs]),
+        b=dict(mesh=b_recs[0]["mesh"], prompt=b_recs[0]["prompt"],
+               plan=b_recs[0]["plan"], whole_plan=b_recs[0]["whole_plan"],
+               launches=[r["ep"]["launches"] for r in b_recs],
+               ms=[r["ep"]["ms"] for r in b_recs],
+               whole_launches=whole["launches"], whole_ms=whole["ms"],
+               bit_equal=True))
+    emit("serve_fm_e", **out)
     return out
 
 
@@ -3382,7 +3647,8 @@ def step_parts(state, cfg, tcfg) -> dict:
 FAMILY_STEPS = 3  # steps a family phase trains
 
 
-def kernel5_plan(cfg, batch: int, seq: int, model_parallel: int = 1) -> dict:
+def kernel5_plan(cfg, batch: int, seq: int, model_parallel: int = 1,
+                 experts=None) -> dict:
     """Kernel-5 and split-K launches of one ``pallas_moment`` training
     step, derived from the code before the run.  Each site of
     ``arch.dense_workload`` is one ``sc_dot`` or ``sc_dot_rows`` call,
@@ -3393,10 +3659,14 @@ def kernel5_plan(cfg, batch: int, seq: int, model_parallel: int = 1) -> dict:
     loss chunk twice (its checkpoint).  A call launches
     ``sc_mac_reduce`` once where ``sc_mac_plan`` splits its K.  On a
     mesh, ``batch`` is a rank's rows and a site's K is its block over
-    ``model_parallel`` ranks wherever they divide it."""
+    ``model_parallel`` ranks wherever they divide it.  The MoE FFN
+    (``models/moe.py``): per layer one row-key call per expert for wi
+    and for wo over ``batch x capacity`` rows, K whole, twice under remat,
+    for the ``experts`` a rank runs (the expert-parallel layout's block;
+    default all); a shared expert's MLP as the MLP."""
     from repro_torch.arch import dense_workload
     from repro_torch.kernels import sc_mac as km
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
 
     tokens = batch * seq
     c = min(lm.LOSS_SEQ_CHUNK, seq)
@@ -3404,16 +3674,26 @@ def kernel5_plan(cfg, batch: int, seq: int, model_parallel: int = 1) -> dict:
         c = seq
     remat = 2 if cfg.remat == "full" else 1
     plan = {"sc_mac_fused": 0, "sc_mac_reduce": 0}
-    for site in dense_workload(cfg, tokens):
-        if site.label == "unembed":
-            calls, m = 2 * (seq // c), batch * c
-        elif site.label == "frontend.proj":
-            calls, m = 1, tokens
-        else:
-            calls, m = site.count * remat, tokens
+    sites = dense_workload(cfg, tokens)
+    if cfg.family == "moe" and cfg.shared_expert:
+        sites += [s for s in dense_workload(cfg.replace(family="dense"),
+                                            tokens)
+                  if s.label.startswith("mlp.")]
+    for site in sites:
         k = site.k
-        if k % model_parallel == 0:
-            k //= model_parallel
+        if site.label in ("moe.wi", "moe.wo"):
+            e = cfg.n_experts if experts is None else experts
+            calls = e * cfg.n_layers * remat
+            m = batch * moe.capacity(cfg, seq)
+        else:
+            if k % model_parallel == 0:
+                k //= model_parallel
+            if site.label == "unembed":
+                calls, m = 2 * (seq // c), batch * c
+            elif site.label == "frontend.proj":
+                calls, m = 1, tokens
+            else:
+                calls, m = site.count * remat, tokens
         k4 = max(4, -(-k // 4) * 4)
         plan["sc_mac_fused"] += calls
         if km.sc_mac_plan(m, site.n, k4)[0] > 1:
@@ -3764,8 +4044,9 @@ def _span_totals(tracer, names) -> dict:
 TM_SPANS = ("train.grad_allreduce", "sc.merge", "train.pod_exchange",
             "train.ef_exchange", "mesh.all_gather", "mesh.reduce_scatter",
             "fsdp.grad_allreduce", "seq.all_gather", "tp.gather", "tp.sum",
-            "tp.vocab")
+            "tp.vocab", "ep.gather", "ep.sum", "ep.grad")
 TP_SPANS = ("tp.gather", "tp.sum", "tp.vocab")
+EP_SPANS = ("ep.gather", "ep.sum", "ep.grad")
 
 
 @contextlib.contextmanager
@@ -3821,6 +4102,8 @@ def tm_steps(mesh, cfg, tcfg, steps: int, state=None, *,
             grads = None
             if keep_grads and i == 0:
                 loss, grads, ef = step.loss_and_grads(state, _tm_batch(cfg, i))
+                # the forward and backward's peak, before the update's
+                rec["grad_peak"] = torch.cuda.max_memory_allocated()
                 state, _ = step.apply(state, grads, ef)
                 loss = float(loss)
             else:
@@ -4096,6 +4379,75 @@ def tm_cp(cfg) -> dict:
     return _tp_record(mesh, cfg, run, whole)
 
 
+# Phase TM-e: the MoE FFN's expert-parallel layout (``sharding/ep.py``) in
+# the mesh train step.  T's recipe (float32, ``pallas_moment`` nbit 1024,
+# remat, global batch 8 x 64) at moonshot-v1-16b-a3b's full width
+# (64 experts, top-6), TM_E_LAYERS of 48 layers, on TM's data 2 x model 2
+# mesh with ``TrainConfig(fsdp=True)``, against the same mesh with
+# ``tensor_parallel=False``, TP_STEPS steps each, held to TM-t's
+# tolerances: with the layout on a rank runs 32 of the 64 experts and
+# gathers its experts' block of wi / wo over ``data`` only.  The ``ep.*``
+# and ``tp.*`` spans a step equal ``tp_collective_plan``, the FSDP
+# collectives ``sharding.fsdp.collective_plan`` (each layout's), and
+# kernel 5's launches ``kernel5_plan`` at a rank's experts.
+TM_E_LAYERS = 1
+
+
+def _tm_e_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("moonshot-v1-16b-a3b").replace(
+        n_layers=TM_E_LAYERS, sc_backend="pallas_moment",
+        param_dtype=torch.float32, act_dtype=torch.float32, remat="full")
+    if cfg.sc_nbit != 1024:
+        raise AssertionError(f"train_tm_e: nbit {cfg.sc_nbit}")
+    return cfg
+
+
+def tm_ep(mesh) -> dict:
+    """Phase TM-e (in every rank): the layout off, then on; each run's
+    losses, step-1 gradient (host), spans, launches, peak and step ms,
+    and the plans of both from the code."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import ep, fsdp
+    from repro_torch.sharding.tp import tp_collective_plan
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import make_constrain
+
+    cfg = _tm_e_cfg()
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM), fsdp=True)
+    whole = _tp_run(mesh, cfg, tcfg, False)
+    run = _tp_run(mesh, cfg, tcfg, True)
+    rows = TM_BATCH // mesh.shape["data"]
+    mp = mesh.shape["model"]
+    local = ep.expert_block(make_constrain(mesh), cfg).size
+    leaf, gap = _leaf_gap(run["grads"], whole["grads"])
+    out = dict(
+        mesh=mesh.shape, coords=mesh.coords, layers=TM_E_LAYERS,
+        experts={"ep": local, "whole": cfg.n_experts},
+        loss_rel=[abs(a - b) / abs(b) for a, b in
+                  zip(run["loss"], whole["loss"])],
+        grad_gap=gap, grad_gap_leaf=leaf,
+        tp_plan=tp_collective_plan(cfg, mesh, TM_BATCH, TM_SEQ, fsdp=True),
+        kernel5_plan={
+            "ep": kernel5_plan(cfg, rows, TM_SEQ, model_parallel=mp,
+                               experts=local),
+            "whole": kernel5_plan(cfg, rows, TM_SEQ, model_parallel=mp)},
+        fsdp_plan={name: fsdp.collective_plan(
+            cfg, mesh, reduce_axes=batch_axes(mesh), expert_parallel=on)
+            for name, on in (("ep", True), ("whole", False))})
+    for name, r in (("ep", run), ("whole", whole)):
+        out[name] = dict(
+            loss=r["loss"], step_ms=r["ms"], launches=r["launches"],
+            max_memory_allocated=r["max_memory_allocated"],
+            grad_peak=r["grad_peak"],
+            spans=[{n: {"count": sp[n]["count"], "bytes": sp[n]["bytes"],
+                        "s": sp[n]["s"]} for n in TM_SPANS if sp[n]["count"]}
+                   for sp in r["spans"]])
+    return out
+
+
 def tm_rank(outdir: str, layers: int) -> int:
     """One rank of phase TM, started by :func:`train_mesh_phase` under
     ``torchrun``: TM-a (qwen2-0.5b at full width, depth ``layers``, on
@@ -4140,6 +4492,7 @@ def tm_rank(outdir: str, layers: int) -> int:
     rec["tp"] = tm_tp(mesh, cfg, rec["seq"])
     del rec["seq"]["grads"]
     rec["cp"] = tm_cp(cfg)
+    rec["ep"] = tm_ep(mesh)
 
     rec["smoke"] = tm_smoke(mesh, make_local_mesh(TM_MODEL_PARALLEL,
                                                   device="cpu"))
@@ -4282,11 +4635,13 @@ def train_mesh_phase(layers: int, card: str, t_losses: dict, ranks: list,
     fsdp = train_fsdp_phase(ranks, plan, card)
     seq_rec = train_seq_phase(ranks, plan, card)
     tp_rec = {tag: train_tp_phase(ranks, tag, card) for tag in ("tp", "cp")}
+    ep_rec = train_ep_phase(ranks, card)
     launches = {k: first["launches"].get(k, 0)
                 + sum(first[t]["launches"].get(k, 0) for t in ("tp", "cp"))
+                + first["ep"]["ep"]["launches"].get(k, 0)
                 for k in plan}
     return dict(summary, launches=launches, ranks_detail=ranks,
-                fsdp=fsdp, seq=seq_rec, tp=tp_rec)
+                fsdp=fsdp, seq=seq_rec, tp=tp_rec, ep=ep_rec)
 
 
 def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
@@ -4360,6 +4715,110 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
         whole_max_memory_allocated=[r["whole_max_memory_allocated"]
                                     for r in out])
     emit(name, **summary)
+    return summary
+
+
+def train_ep_phase(ranks: list, card: str) -> dict:
+    """Phase TM-e's checks (``ranks``: what each TM rank wrote, its
+    ``ep`` record): per rank the step-1 loss within TP_LOSS_TOL of the
+    layout off's and the step-2 loss within TP_LOSS2_TOL, every step-1
+    gradient leaf within TP_GRAD_TOL of its max |g|, the ``ep.*`` and
+    ``tp.*`` spans a step equal to ``tp_collective_plan``, each layout's
+    FSDP collectives a step equal to its ``collective_plan``, kernel 5's
+    launches a step ``kernel5_plan``'s at the rank's experts (and the
+    layout off's at all 64), the peak below the layout off's; the step
+    ms beside it.  The peak compared is step 1's forward and backward
+    (``grad_peak``), where the expert leaves live: the step's own peak
+    is the AdamW update's (its new parameters, ``m`` and ``v`` beside the
+    old ones), the same in both layouts, and is printed beside it."""
+    out = []
+    for rec in ranks:
+        t = rec["ep"]
+        per_step, coll, launches = {}, {}, {}
+        for name in ("ep", "whole"):
+            run = t[name]
+            per_step[name] = [{n: {k: sp[n][k] for k in ("count", "bytes")}
+                               for n in TP_SPANS + EP_SPANS if n in sp}
+                              for sp in run["spans"]]
+            coll[name] = [{kind: {k: sp[n][k] for k in ("count", "bytes")}
+                           for kind, n in FSDP_COLLECTIVES.items()
+                           if n in sp} for sp in run["spans"]]
+            launches[name] = {k: run["launches"].get(k, 0) / TP_STEPS
+                              for k in t["kernel5_plan"][name]}
+        fsdp_want = {name: {kind: p[kind] for kind in FSDP_COLLECTIVES
+                            if kind in p}
+                     for name, p in t["fsdp_plan"].items()}
+        step_s = [ms / 1e3 for ms in t["ep"]["step_ms"]]
+        ep_s = [sum(sp[n]["s"] for n in EP_SPANS if n in sp)
+                for sp in t["ep"]["spans"]]
+        r = dict(
+            rank=rec["rank"], mesh=t["mesh"], coords=t["coords"],
+            experts=t["experts"], loss=t["ep"]["loss"],
+            whole_loss=t["whole"]["loss"], loss_rel=t["loss_rel"],
+            grad_gap=t["grad_gap"], grad_gap_leaf=t["grad_gap_leaf"],
+            in_layer_per_step=per_step["ep"][0], tp_plan=t["tp_plan"],
+            fsdp_per_step={k: v[0] for k, v in coll.items()},
+            fsdp_plan=fsdp_want, launches_per_step=launches,
+            kernel5_plan=t["kernel5_plan"],
+            step_ms=t["ep"]["step_ms"], whole_step_ms=t["whole"]["step_ms"],
+            median_step_ms=float(np.median(t["ep"]["step_ms"])),
+            whole_median_step_ms=float(np.median(t["whole"]["step_ms"])),
+            ep_share=float(np.median([a / b for a, b in zip(ep_s,
+                                                            step_s)])),
+            max_memory_allocated=t["ep"]["max_memory_allocated"],
+            whole_max_memory_allocated=t["whole"]["max_memory_allocated"],
+            grad_peak=t["ep"]["grad_peak"],
+            whole_grad_peak=t["whole"]["grad_peak"])
+        r["peak_drop"] = r["whole_grad_peak"] - r["grad_peak"]
+        emit("train_tm_e_rank", **r)
+        for ok, what in (
+            (all(math.isfinite(v) for v in r["loss"]), "a loss is not "
+             "finite"),
+            (r["loss_rel"][0] <= TP_LOSS_TOL
+             and max(r["loss_rel"]) <= TP_LOSS2_TOL,
+             f"losses {r['loss']}, the layout off's {r['whole_loss']}"),
+            (r["grad_gap"] <= TP_GRAD_TOL, f"step-1 gradient "
+             f"{r['grad_gap_leaf']} {r['grad_gap']} of its max |g| from "
+             "the layout off's"),
+            (all(sp == t["tp_plan"] for sp in per_step["ep"]),
+             f"in-layer collectives a step {per_step['ep']}, planned "
+             f"{t['tp_plan']}"),
+            (all(s == fsdp_want[name] for name in coll for s in coll[name]),
+             f"FSDP collectives a step {coll}, planned {fsdp_want}"),
+            (all(launches[name] == t["kernel5_plan"][name]
+                 and set(t[name]["launches"]) <= set(t["kernel5_plan"][name])
+                 for name in launches),
+             f"kernel-5 launches a step {launches}, planned "
+             f"{t['kernel5_plan']}"),
+            (r["peak_drop"] > 0, f"step-1 forward and backward peak "
+             f"{r['grad_peak']} not below the layout off's "
+             f"{r['whole_grad_peak']}"),
+        ):
+            if not ok:
+                raise AssertionError(f"train_tm_e: rank {r['rank']}: {what}")
+        out.append(r)
+    if any(r["loss"] != out[0]["loss"] for r in out):
+        raise AssertionError("train_tm_e: the ranks' losses differ")
+    summary = dict(
+        card=card, mesh=out[0]["mesh"], ranks=len(out), steps=TP_STEPS,
+        experts=out[0]["experts"], loss=out[0]["loss"],
+        whole_loss=out[0]["whole_loss"],
+        loss_rel=[max(r["loss_rel"][i] for r in out)
+                  for i in range(TP_STEPS)],
+        grad_gap=max(r["grad_gap"] for r in out),
+        in_layer_per_step=out[0]["in_layer_per_step"],
+        fsdp_per_step=out[0]["fsdp_per_step"],
+        launches_per_step=out[0]["launches_per_step"],
+        median_step_ms=[r["median_step_ms"] for r in out],
+        whole_median_step_ms=[r["whole_median_step_ms"] for r in out],
+        ep_share=[r["ep_share"] for r in out],
+        max_memory_allocated=[r["max_memory_allocated"] for r in out],
+        whole_max_memory_allocated=[r["whole_max_memory_allocated"]
+                                    for r in out],
+        grad_peak=[r["grad_peak"] for r in out],
+        whole_grad_peak=[r["whole_grad_peak"] for r in out],
+        peak_drop=[r["peak_drop"] for r in out])
+    emit("train_tm_e", **summary)
     return summary
 
 
@@ -4754,16 +5213,20 @@ def _moe_params(cfg, device, dtype):
     return params.init_params(lm.lm_param_specs(cfg), gen, device, dtype)
 
 
-def moe_kernel1_plan(cfg, slots: int) -> dict:
+def moe_kernel1_plan(cfg, slots: int, experts=None) -> dict:
     """Kernel 1's launches and SC MULs in one decode tick of the paged
     engine at width 1: per layer wq / wk / wv / wo, the router, and one
     launch per expert for wi and for wo over ``slots x capacity`` rows
     (every capacity slot, empty or not, as the reference runs them); the
     unembed once.  Live expert rows: ``slots x top_k`` (capacity 8 holds
-    every token of a width-1 tick)."""
+    every token of a width-1 tick).  The launch count is also a
+    prefill's; with ``experts`` (the block a rank runs under the
+    expert-parallel layout) it is that rank's (the MULs stay the whole
+    layout's)."""
     from repro_torch.models import moe
 
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    ran = e if experts is None else experts
     hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     rows = slots * moe.capacity(cfg, 1)
     per_row = d * 2 * f + f * d
@@ -4773,7 +5236,7 @@ def moe_kernel1_plan(cfg, slots: int) -> dict:
     layer = attn + slots * d * e + expert
     total = cfg.n_layers * layer + slots * d * cfg.vocab
     return dict(
-        launches=cfg.n_layers * (4 + 1 + 2 * e) + 1,
+        launches=cfg.n_layers * (4 + 1 + 2 * ran) + 1,
         sc_muls=total,
         expert_muls=cfg.n_layers * expert,
         empty_slot_muls=cfg.n_layers * (expert - live),
@@ -4891,16 +5354,21 @@ def moe_phase(layers: int) -> dict:
                 counts_bitexact=counts, counts_exact=exact_counts)
 
 
+M_CROSS_LAYERS = 1  # of the SMOKE configs' 2: cut to make room for TM-e
+
+
 def moe_cross_device() -> dict:
     """Both MoE SMOKE configs (narrowed as the CPU parity tests run
-    them) on ``pallas_bitexact`` with ``fused_sc`` attention through the
-    paged engine, on the card and on the CPU: equal tokens."""
+    them, M_CROSS_LAYERS deep) on ``pallas_bitexact`` with ``fused_sc``
+    attention through the paged engine, on the card and on the CPU:
+    equal tokens."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.serve import ServeOptions
 
     out = {}
     for arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"):
         cfg = get_smoke_config(arch).replace(
+            n_layers=M_CROSS_LAYERS,
             d_model=32, d_ff=48, vocab=128, param_dtype=torch.float32,
             act_dtype=torch.float32, sc_backend="pallas_bitexact",
             sc_nbit=32, paged_attn="fused_sc",
@@ -5314,6 +5782,7 @@ def main(argv=None) -> int:
         serve_ft["launches"],
         serve_fm["launches"],
         serve_fm["tp"]["a"]["launches"]["tp"],
+        serve_fm["ep"]["b"]["launches"][0],
         serve_fm["counts_one"],
         faulty["counts"],
         serve_m["counts_bitexact"],
@@ -5347,7 +5816,8 @@ def main(argv=None) -> int:
             shape="rows mode M=2 K=896 N=9728 nbit=1024 (mlp_wi); "
             "launches from phases A, B, P, F (one key a call), FT, FM "
             "(rank 0 of the mesh and the world of one), FM-t (a) (rank "
-            "0, the in-layer layout), M, S and H; "
+            "0, the in-layer layout), FM-e (b) (rank 0, the "
+            "expert-parallel prefill), M, S and H; "
             "mesh: a rank's block on phase FM's 2 x 2 mesh, one key a "
             "call",
             mesh={
@@ -5460,7 +5930,7 @@ def main(argv=None) -> int:
             "K-major view table.T (tied unembed); max_abs_err relative to "
             "max |out|; bound 3xTF32, 5 products a pair on the grid; "
             "launches from phases T, TM (rank 0: TM-a, TM-t and TM-cp's "
-            "in-layer run), TS, TH and TA; "
+            "in-layer run, TM-e's expert-parallel run), TS, TH and TA; "
             "train_shapes: the family phases' shapes (ts_ / th_ / ta_) and "
             "a rank's blocks of phase TM (tm_), each within 1e-5 of its "
             "plain version; mesh_steps: phase TM's steps a rank",
@@ -5510,10 +5980,12 @@ def main(argv=None) -> int:
             bound_ms=mac["prng"]["bound_ms"],
             bound_by=mac["prng"]["bound_by"],
             bound_fp32_ms=mac["prng"]["bound_fp32_ms"],
-            library_ms=None,
+            library_ms=mac["prng"]["library_ms"],
             shape="M=512 K=896 N=151936 f32 on the operand grid, taken on "
             "the general route (bound 9 products a pair); no path of the "
-            "package runs it; max_abs_err relative to max |out|",
+            "package runs it; max_abs_err relative to max |out|; "
+            "library_ms three float32 torch.matmul + the epilogue with "
+            "torch.randn's noise, timed in turns with the kernel",
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

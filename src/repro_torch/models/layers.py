@@ -278,19 +278,31 @@ def unembed(x, p, cfg, key=None, cols=None):
 # ----------------------------- Expert matmul --------------------------------
 
 
-def expert_dense(x, w, cfg, key=None, site: str = "moe_wi"):
+def expert_dense(x, w, cfg, key=None, site: str = "moe_wi", *,
+                 experts=None):
     """Per-expert batched matmul: (b, e, c, d) @ (e, d, f) -> (b, e, c, f).
 
     The MoE capacity-buffer contraction.  Under ``exact`` it is one
     einsum.  Stochastic backends loop over the experts, one
     ``sc_dot_rows`` call per expert (one launch of the fused kernel in
-    row-key mode), and every capacity slot draws from its own key folded
-    with ``site``'s salt and the expert index.
+    row-key mode, or of the moment kernel's row-key route), and every
+    capacity slot draws from its own key folded with ``site``'s salt and
+    the expert's GLOBAL index.  A per-row call is never split over a
+    mesh (``sc.use_mesh`` shards one-key calls only), so an expert's K
+    stays whole on a rank.
 
     ``key`` is None (``exact`` only: a stochastic backend raises naming
     the site), one raw (2,) key (broadcast to every slot), or a
     (b, e, c, 2) buffer of per-slot keys dispatched alongside ``x``.
+    ``experts`` (a ``sharding.rules.ColBlock`` of the expert axis) says
+    that ``x`` and ``w`` hold this rank's block of the experts
+    (``models/moe.py`` under the expert-parallel layout): expert ``i``
+    here is global expert ``experts.start + i``, so its outputs are the
+    whole layout's for that expert, bit for bit.
     """
+    if w.shape[0] != x.shape[1]:
+        raise ValueError(f"layers.expert_dense: {x.shape[1]} experts' "
+                         f"buffers but {w.shape[0]} experts' weights")
     if cfg.sc_backend == "exact":
         return torch.einsum("becd,edf->becf", x, w.to(x.dtype))
     if key is None:
@@ -300,10 +312,17 @@ def expert_dense(x, w, cfg, key=None, site: str = "moe_wi"):
             "so expert matmuls draw on the substrate"
         )
     b, e, c, _ = x.shape
+    # one copy of the trainer's host key, not one a row-key call
+    key = key.to(x.device)
     if key.dim() == 1:
         key = key.expand(b, e, c, 2)
-    eidx = torch.arange(e, device=x.device)[None, :, None].expand(b, e, c)
+    first = 0 if experts is None else experts.start
+    eidx = torch.arange(first, first + e, device=x.device)
+    eidx = eidx[None, :, None].expand(b, e, c)
     keys = site_key(key, site, eidx)  # (b, e, c, 2)
     sc_cfg = _sc_config(cfg)
-    ys = [_dense_rows(keys[:, i], x[:, i], w[i], sc_cfg) for i in range(e)]
+    # unbind, not x[:, i] / w[i]: the backward stacks the experts'
+    # gradients once instead of adding a whole-leaf zero tensor for each
+    ys = [_dense_rows(ki, xi, wi, sc_cfg) for ki, xi, wi in
+          zip(keys.unbind(1), x.unbind(1), w.unbind(0))]
     return torch.stack(ys, dim=1)

@@ -143,10 +143,11 @@ def _layer(tree, idx: int):
 
 
 def _ffn(x, p, cfg, key, cst=None):
-    """The block's FFN: the MoE layer for family moe (whole: its
-    ``"experts"`` axis has no layout yet), else the MLP."""
+    """The block's FFN: the MoE layer for family moe (under ``cst``'s
+    in-layer layout a rank's block of the experts over ``model``,
+    ``sharding/ep.py``), else the MLP."""
     if cfg.family == "moe":
-        return moe.moe_ffn(x, p, cfg, key)
+        return moe.moe_ffn(x, p, cfg, key, constrain=cst)
     return layers.mlp(x, p, cfg, key, constrain=cst)
 
 
@@ -246,6 +247,18 @@ def _state_block(constrain, cfg):
     return None if tp is None else tp.block(cfg.ssm_heads)
 
 
+def _check_layouts(constrain, constrain_params):
+    """The weights' expert layout (``make_param_constrain``'s
+    ``expert_parallel``) must be the activations' (``constrain.tp``):
+    the two cannot silently disagree."""
+    want = getattr(constrain_params, "expert_parallel", None)
+    if want is not None and want != (tp_lib.of(constrain) is not None):
+        raise ValueError(
+            f"the parameter constraint lays the experts out "
+            f"{'over model' if want else 'whole'}, the activation "
+            f"constraint {'whole' if want else 'over model'}")
+
+
 def _whole(x, blk):
     return x if blk is None else blk.gather(x)
 
@@ -292,9 +305,13 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     checkpoint saves only the block and the recompute gathers again;
     the last layer's output is gathered before the final norm.
 
-    Inside each layer ``constrain.tp`` lays the heads, the MLP hidden and
-    the SSM's ``d_inner`` / heads out over ``model`` (``sharding/tp.py``;
-    ``make_constrain(..., tensor_parallel=False)`` keeps them whole)."""
+    Inside each layer ``constrain.tp`` lays the heads, the MLP hidden,
+    the SSM's ``d_inner`` / heads and the MoE FFN's experts out over
+    ``model`` (``sharding/tp.py``, ``sharding/ep.py``;
+    ``make_constrain(..., tensor_parallel=False)`` keeps them whole).
+    ``constrain_params``' expert layout must be ``constrain``'s: a
+    mismatch raises."""
+    _check_layouts(constrain, constrain_params)
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
@@ -468,10 +485,12 @@ def prefill(params, inputs, cfg, max_len: int, *, rng=None, constrain=None,
     and each layer's K/V writes only the positions inside it; where
     ``constrain.state`` lays the SSM state out by its heads, each layer
     runs on its block and the cache holds it.  Inside each layer
-    ``constrain.tp`` lays the heads and the MLP hidden out over
-    ``model``; the K/V are gathered whole for the cache.  The logits are
+    ``constrain.tp`` lays the heads, the MLP hidden and the MoE FFN's
+    experts out over ``model``; the K/V are gathered whole for the
+    cache.  The logits are
     the whole vocabulary (see :func:`forward`).
     """
+    _check_layouts(constrain, constrain_params)
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
     x = _embed_inputs(params, inputs, cfg, rng)
@@ -548,9 +567,10 @@ def decode_step(params, cache, tokens, lengths, cfg, *, rng=None,
     (``attention.chunk_decode_attention``).  Where ``constrain.state``
     lays the SSM state out by its heads, ``cache["ssm"]`` holds that
     block and each SSM layer decodes on it.  Inside each layer
-    ``constrain.tp`` lays the MLP hidden (and, on a whole K/V cache, the
-    attention heads) out over ``model``.
+    ``constrain.tp`` lays the MLP hidden, the MoE FFN's experts (and, on
+    a whole K/V cache, the attention heads) out over ``model``.
     """
+    _check_layouts(constrain, constrain_params)
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
     blk = _cache_block(constrain)

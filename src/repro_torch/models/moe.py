@@ -21,6 +21,13 @@ what is done about each:
   expert-sorted order).  Here each token's contributions are gathered in
   that order and added one by one, which is deterministic; CUDA's
   ``index_add_`` is not (its atomics reorder bf16 sums from run to run).
+
+Under a mesh's in-layer layout (``constrain.tp``) the experts are laid
+out over ``model`` (expert parallelism, ``sharding/ep.py``): the routing
+and the capacity run on the whole rows as before, each rank fills and
+runs only its block of the experts, and their outputs are all-gathered
+in coordinate order before the same combine, so the output is the whole
+layout's bit for bit on the SC substrates.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import ep as ep_lib
 
 
 def moe_specs(cfg):
@@ -61,23 +69,44 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _scatter_rows(n_rows: int, slot, rows):
-    """A (b, n_rows, ...) zero buffer with ``rows`` (b, sk, ...) set at
-    ``slot`` (b, sk).  Duplicate slots occur only at the trash row."""
+def _slot_sources(n_rows: int, slot, token):
+    """The source token of each of ``n_rows`` capacity slots, from the
+    sorted entries' ``slot`` and ``token`` (b, sk): (b, n_rows) int64,
+    -1 where no entry lands.  Duplicate slots occur only at the trash
+    row, which the caller drops."""
     b = slot.shape[0]
-    buf = rows.new_zeros((b, n_rows) + tuple(rows.shape[2:]))
-    bidx = torch.arange(b, device=slot.device)[:, None]
-    buf[bidx, slot] = rows
-    return buf
+    src = torch.full((b, n_rows + 1), -1, dtype=torch.int64,
+                     device=slot.device)
+    src.scatter_(1, slot, token)
+    return src[:, :n_rows]
 
 
-def moe_ffn(x, p, cfg, key=None):
+def _take_rows(t, src):
+    """``t`` (b, s, ...) gathered at the slots' sources ``src`` (b, n),
+    zero where a slot is empty."""
+    b, n = src.shape
+    tail = tuple(t.shape[2:])
+    idx = src.clamp_min(0).reshape(b, n, *([1] * len(tail)))
+    rows = torch.gather(t, 1, idx.expand(b, n, *tail))
+    full = (src >= 0).reshape(b, n, *([1] * len(tail)))
+    return torch.where(full, rows, torch.zeros((), dtype=t.dtype,
+                                               device=t.device))
+
+
+def moe_ffn(x, p, cfg, key=None, constrain=None):
     """x: (b, s, d) -> (b, s, d).
 
     ``key`` is None (exact substrate), one raw (2,) key, or per-token
     (b, s, 2) keys (the paged engine's contract): per-token keys follow
     the same token -> slot dispatch as ``x``, so a token's expert
     matmuls draw from its own key whatever slot it lands in.
+
+    ``constrain`` (a mesh step's, prefill's or decode's constraint, as
+    the reference takes it): under its in-layer layout each rank fills
+    and runs only its block of the experts (``sharding/ep.py``), taking
+    ``p["wi"]`` / ``p["wo"]`` whole (sliced here) or as that block (the
+    FSDP layout's gather); the shared expert's MLP takes the MLP's
+    in-layer layout.
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -107,26 +136,35 @@ def moe_ffn(x, p, cfg, key=None):
     slot = torch.where(rank < cap, sorted_e * cap + rank, e * cap)
     token = order // k  # source token of each sorted entry
 
-    # --- dispatch into (b, e, cap, d) capacity buffers ----------------
-    xg = torch.gather(x, 1, token[..., None].expand(b, s * k, d))
-    buf = _scatter_rows(e * cap + 1, slot, xg)[:, : e * cap]
-    buf = buf.reshape(b, e, cap, d)
+    # --- dispatch into (b, e, cap, d) capacity buffers: under the
+    # expert-parallel layout only this rank's experts' (b, e/m, cap, d) --
+    blk = ep_lib.expert_block(constrain, cfg)
+    xin, n, lslot = x, e, slot
+    if blk is not None:
+        xin, n = ep_lib.enter(x, blk), blk.size
+        lo = blk.start * cap
+        mine = (slot >= lo) & (slot < lo + n * cap)
+        lslot = torch.where(mine, slot - lo, n * cap)
+    src = _slot_sources(n * cap, lslot, token)  # (b, n·cap)
+    buf = _take_rows(xin, src).reshape(b, n, cap, d)
 
     ekey = key
     if key is not None and key.dim() == 3:
         # empty slots keep zero keys; their x rows are zero, so their
         # outputs are zero whatever they draw
-        kg = torch.gather(
-            key.to(torch.int64), 1, token[..., None].expand(b, s * k, 2)
-        )
-        kbuf = _scatter_rows(e * cap + 1, slot, kg)[:, : e * cap]
-        ekey = kbuf.reshape(b, e, cap, 2).to(torch.uint32)
+        kbuf = _take_rows(key.to(torch.int64), src)
+        ekey = kbuf.reshape(b, n, cap, 2).to(torch.uint32)
 
     # --- expert FFN (SwiGLU) on the substrate, per-expert keys --------
-    h = layers.expert_dense(buf, p["wi"], cfg, ekey, site="moe_wi")
+    wi = ep_lib.local_experts(p["wi"], blk, e)
+    wo = ep_lib.local_experts(p["wo"], blk, e)
+    h = layers.expert_dense(buf, wi, cfg, ekey, site="moe_wi", experts=blk)
     gate, up = torch.chunk(h, 2, dim=-1)
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(buf.dtype)
-    y = layers.expert_dense(act * up, p["wo"], cfg, ekey, site="moe_wo")
+    y = layers.expert_dense(act * up, wo, cfg, ekey, site="moe_wo",
+                            experts=blk)
+    if blk is not None:
+        y = ep_lib.GatherOutputs.apply(y, blk)  # every expert, in order
 
     # --- combine: gather per (token, k), weight, add in sorted order --
     yflat = torch.cat([y.reshape(b, e * cap, d), y.new_zeros(b, 1, d)], 1)
@@ -141,7 +179,8 @@ def moe_ffn(x, p, cfg, key=None):
         out = out + torch.gather(ytk, 1, idx)
 
     if cfg.shared_expert:
-        out = out + layers.mlp(x, p["shared"], cfg, key)
+        out = out + layers.mlp(x, p["shared"], cfg, key,
+                               constrain=constrain)
     return out
 
 

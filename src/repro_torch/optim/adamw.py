@@ -7,9 +7,14 @@ decode-update-encode runs in float32, so quantization error stays in the
 storage and out of the math.
 
 State and parameters are dict trees of tensors, updated leaf by leaf in
-sorted-key order.  The reference slices its depth-stacked leaves into
-chunks only to bound XLA's staging buffers; the update is elementwise,
-so eager PyTorch, which stages one leaf at a time, needs no chunks.
+sorted-key order.  The update is elementwise, so a leaf larger than
+``UPDATE_CHUNK_BYTES`` of float32 is updated in blocks of its leading
+dimension (the layer axis of a stacked leaf), as the reference slices
+its depth-stacked leaves into chunks: the same bits, with the float32
+temporaries of one block live at a time instead of about nine of the
+whole leaf (llama4-maverick's stacked expert shard is 4 GB in bf16 and
+8 GB in float32 a temporary).  An int8 state's scale needs the whole
+leaf's new moments, so its leaves are updated whole.
 
 Under the train step's FSDP ∘ TP layout the leaves are a rank's shards
 and ``placements`` says where each lies.  The update runs on the shards
@@ -81,6 +86,8 @@ def _decode(enc, kind: str):
 
 # ---------------------------- init / update ---------------------------------
 
+UPDATE_CHUNK_BYTES = 1 << 28  # float32 bytes of a leaf updated at once
+
 
 def adamw_init(params, cfg: AdamWConfig):
     def zeros(p):
@@ -140,7 +147,8 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, *,
     bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
     kind = cfg.state_dtype
 
-    def upd(p, g, m_enc, v_enc, pl=None):
+    def rows(p, g, m_enc, v_enc):
+        """The new parameter, ``m`` and ``v`` (float32) of a block."""
         g = g.to(torch.float32) * clip
         m = cfg.b1 * _decode(m_enc, kind) + (1 - cfg.b1) * g
         v = cfg.b2 * _decode(v_enc, kind) + (1 - cfg.b2) * g * g
@@ -148,7 +156,22 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, *,
         vhat = v / bc2
         pf = p.to(torch.float32)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
-        new_p = (pf - lr * delta).to(p.dtype)
+        return (pf - lr * delta).to(p.dtype), m, v
+
+    def upd(p, g, m_enc, v_enc, pl=None):
+        pieces = min(-(-4 * p.numel() // UPDATE_CHUNK_BYTES),
+                     p.shape[0] if p.dim() else 1)
+        if kind != "int8" and pieces > 1:
+            new_p, new_m, new_v = (torch.empty_like(t)
+                                   for t in (p, m_enc, v_enc))
+            n = p.shape[0]
+            for i in range(pieces):
+                b = slice(n * i // pieces, n * (i + 1) // pieces)
+                pb, mb, vb = rows(p[b], g[b], m_enc[b], v_enc[b])
+                new_p[b], new_m[b], new_v[b] = (pb, _encode(mb, kind),
+                                                _encode(vb, kind))
+            return new_p, new_m, new_v
+        new_p, m, v = rows(p, g, m_enc, v_enc)
         amax_m = amax_v = None
         if kind == "int8" and pl is not None and pl.live_axes(p.dim()):
             amax = torch.stack([m.abs().amax(), v.abs().amax()])

@@ -24,6 +24,14 @@ does for the SC contraction:
   over (``pod``, which never splits a parameter, and ``data`` for a leaf
   whose dimensions do not divide it), then the division by the batch
   span;
+* with the expert-parallel layout on (the step's default), the expert
+  leaves (``ffn/wi``, ``ffn/wo``, whose leading layer-less dimension is
+  ``"experts"``) gather over ``data`` only and keep their ``model``
+  block (:func:`keep_blocks`, ``Placement.keep``): ``models/moe.py``
+  runs the rank's experts on it, its gradient is the block's, and the
+  reduce-scatter over ``data`` runs at the block's size with no
+  ``model`` slice, so no rank holds a whole expert leaf or its whole
+  gradient;
 * :func:`gather_params` gathers the leaves outside the layer stack (the
   embedding and tied unembed, ``final_norm``, the frontend, zamba2's
   shared block) once a step; ``train/step.py:make_param_constrain``
@@ -39,6 +47,7 @@ does for the SC contraction:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -50,7 +59,7 @@ from repro_torch.launch.mesh import (
 )
 from repro_torch.models import lm
 from repro_torch.models.params import _leaves, tree_map
-from repro_torch.sharding.rules import Placement, param_shardings
+from repro_torch.sharding.rules import Placement, param_shardings, spec_axes
 
 
 def _live_dims(placement: Placement, ndim: int) -> list:
@@ -78,10 +87,12 @@ def reduce_grad(g: torch.Tensor, placement: Placement, reduce_axes: tuple
     for i, axes in enumerate(dims):
         if not axes or axes[0] in reduce_axes:
             continue
-        if any(a in reduce_axes for a in axes):
+        if all(a in placement.keep for a in axes):
+            continue  # the gradient of the kept block already
+        if any(a in reduce_axes or a in placement.keep for a in axes):
             raise ValueError(
                 f"dimension {i} of a leaf is split over {axes}: batch and "
-                "model axes on one dimension")
+                "model axes, or kept and gathered ones, on one dimension")
         block, n = 0, 1
         for a in axes:
             block, n = block * sizes[a] + coords[a], n * sizes[a]
@@ -145,8 +156,27 @@ def gather_params(params, placements, reduce_axes: tuple = ()):
 def layer_placements(placements):
     """The placements of one layer of the stacked ``blocks`` (the
     leading layer axis is never split)."""
-    return tree_map(lambda pl: Placement(pl.mesh, tuple(pl.spec[1:])),
+    return tree_map(lambda pl: dataclasses.replace(pl, spec=pl.spec[1:]),
                     placements["blocks"])
+
+
+# The logical axes whose leaves keep their block under the expert-parallel
+# layout (``train/step.py:make_param_constrain``).
+EXPERT_AXES = ("experts",)
+
+
+def keep_blocks(placements, specs, logical: tuple = EXPERT_AXES):
+    """``placements`` with every leaf that has a dimension of one of the
+    ``logical`` axes keeping its block along the mesh axes that
+    dimension is split over (``Placement.keeping``): gathered over the
+    other axes only.  A dimension that stays whole (an expert count the
+    ``model`` span does not divide) keeps nothing."""
+    def one(pl, spec):
+        axes = [a for ax, entry in zip(spec.axes, pl.spec)
+                if ax in logical for a in spec_axes(entry)]
+        return pl.keeping(axes) if axes else pl
+
+    return tree_map(one, placements, specs)
 
 
 def state_placements(state, placements):
@@ -181,7 +211,8 @@ def _record(plan, kind, axis, nbytes, times):
 
 
 def collective_plan(cfg, mesh, *, reduce_axes: tuple,
-                    microbatches: int = 1) -> dict:
+                    microbatches: int = 1,
+                    expert_parallel: bool = True) -> dict:
     """The parameter collectives one train step makes on ``mesh`` under
     the FSDP ∘ TP layout, from the placements alone: ``{"all-gather",
     "reduce-scatter", "all-reduce": {"count", "bytes"}, "by_axis":
@@ -190,9 +221,14 @@ def collective_plan(cfg, mesh, *, reduce_axes: tuple,
     gathers every leaf outside the layer stack once and every layer's
     leaves once more under ``remat="full"`` (the backward's recompute),
     and reduces each leaf's gradient once.  The loss's all-reduce and
-    the optimizer's norm / absmax reductions are not in it."""
+    the optimizer's norm / absmax reductions are not in it.  With
+    ``expert_parallel`` (``make_constrain``'s in-layer layout on) the
+    expert leaves gather over ``data`` only, at their ``model`` block's
+    bytes (:func:`keep_blocks`)."""
     specs = lm.lm_param_specs(cfg)
     placements = param_shardings(specs, mesh)
+    if expert_parallel:
+        placements = keep_blocks(placements, specs)
     dtype_bytes = torch.empty((), dtype=cfg.param_dtype).element_size()
     sizes = mesh.shape
     plan: dict = {}
@@ -203,7 +239,7 @@ def collective_plan(cfg, mesh, *, reduce_axes: tuple,
         layered = path[0] == "blocks"
         shape = list(spec.shape[1:] if layered else spec.shape)
         if layered:
-            pl = Placement(mesh, tuple(pl.spec[1:]))
+            pl = dataclasses.replace(pl, spec=pl.spec[1:])
         dims = _live_dims(pl, len(shape))
         if not any(dims) and all(sizes[a] == 1 for a in reduce_axes):
             continue
@@ -213,6 +249,8 @@ def collective_plan(cfg, mesh, *, reduce_axes: tuple,
         cur = list(pl.shard_shape(shape))
         for i, axes in enumerate(dims):
             for a in reversed(axes):
+                if a in pl.keep:
+                    continue
                 _record(plan, "all-gather", a, math.prod(cur) * nbytes,
                         gathers)
                 cur[i] *= sizes[a]

@@ -93,10 +93,22 @@ def param_partition_specs(specs, mesh):
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """A leaf's place on a mesh (the reference's ``NamedSharding``): the
-    mesh and one entry per dimension (a mesh axis, a tuple, or None)."""
+    mesh and one entry per dimension (a mesh axis, a tuple, or None).
+
+    ``keep`` names mesh axes that :meth:`gather` does not gather over:
+    along a dimension split over them the gathered leaf stays the rank's
+    block (the expert leaves of the expert-parallel layout keep their
+    ``model`` block and gather over ``data`` only; :meth:`keeping`)."""
 
     mesh: object
     spec: tuple
+    keep: tuple = ()
+
+    def keeping(self, axes) -> "Placement":
+        """This placement with :meth:`gather` keeping the rank's block
+        along ``axes`` as well."""
+        return dataclasses.replace(
+            self, keep=tuple(dict.fromkeys(self.keep + tuple(axes))))
 
     @property
     def device(self):
@@ -155,13 +167,14 @@ class Placement:
 
     def gather(self, shard):
         """The whole leaf from every rank's ``shard``: an all-gather
-        over each live axis, dimension by dimension, the minor axis of a
-        dimension first (bits copied exactly).  No autograd: the train
-        step gathers through ``sharding.fsdp.GatherParam``."""
+        over each live axis but the ``keep`` axes, dimension by
+        dimension, the minor axis of a dimension first (bits copied
+        exactly).  No autograd: the train step gathers through
+        ``sharding.fsdp.GatherParam``."""
         sizes = dict(self.mesh.shape)
         for i, axes in enumerate(self.dim_axes(shard.dim())):
             for a in reversed(axes):
-                if sizes[a] > 1:
+                if sizes[a] > 1 and a not in self.keep:
                     shard = all_gather(shard, self.mesh, a, i)
         return shard
 

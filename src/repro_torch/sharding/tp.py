@@ -1,5 +1,6 @@
 """The in-layer layout of a mesh step: heads, kv heads, the MLP hidden,
-the vocabulary, ``d_inner`` and the SSD heads over ``model``.
+the vocabulary, ``d_inner`` and the SSD heads over ``model`` (the MoE
+FFN's experts in ``sharding/ep.py``, on the same ``cst.tp``).
 
 The reference declares it (``sharding/rules.py:ACT_RULES``: ``"heads"``,
 ``"kv_heads"``, ``"mlp"``, ``"vocab"``, ``"ssm_inner"`` over ``model``;
@@ -72,16 +73,16 @@ def _stack(t, mesh, axes, span: str):
     return out
 
 
-def _gather_dim(x, blk: ColBlock, dim: int):
+def _gather_dim(x, blk: ColBlock, dim: int, span: str = "tp.gather"):
     """The whole dimension ``dim`` from every rank's block ``x`` (one
     block a part: gathered on ``dim`` itself, no reordering copy)."""
     dim = dim % x.dim()
     if blk.parts == 1:
         out = x.contiguous()
         for a in reversed(blk.axes):
-            out = all_gather(out, blk.mesh, a, dim, span="tp.gather")
+            out = all_gather(out, blk.mesh, a, dim, span=span)
         return out
-    st = _stack(x, blk.mesh, blk.axes, "tp.gather")  # (S, ..., width, ...)
+    st = _stack(x, blk.mesh, blk.axes, span)  # (S, ..., width, ...)
     shape = list(x.shape)
     st = st.reshape(st.shape[0], *shape[:dim], blk.parts, blk.size,
                     *shape[dim + 1:])
@@ -276,25 +277,28 @@ class _Plan:
     def gather(self, numel_block: int, esize: int, times: int = 1):
         self.add("tp.gather", numel_block * esize, times)
 
-    def sum(self, shape, esize: int, times: int = 1):
+    def sum(self, shape, esize: int, times: int = 1, site: str = "tp.sum"):
         rows = math.prod(shape[:-1]) if len(shape) else 1
-        self.add("tp.sum", math.prod(shape) * esize, times,
+        self.add(site, math.prod(shape) * esize, times,
                  count=min(self.span, rows))
 
 
 def tp_collective_plan(cfg, mesh, batch: int, seq: int, *,
-                       microbatches: int = 1) -> dict:
+                       microbatches: int = 1, fsdp: bool = False) -> dict:
     """The in-layer collectives one train step makes on a rank of
     ``mesh`` for a global ``batch`` of ``seq`` positions: ``{site:
-    {"count", "bytes"}}`` for ``tp.gather``, ``tp.sum`` and ``tp.vocab``
-    (empty without a live ``model`` axis), bytes counted as each
-    gather's operand, as the tracer's spans and a ``RecordingMesh``
-    count them.  It follows the layer code (``models/``): each
-    checkpointed body's forward twice under ``remat="full"`` (the
-    backward's recompute), each loss chunk's forward twice, every
-    backward once.  The MoE FFN has no in-layer layout yet."""
+    {"count", "bytes"}}`` for ``tp.gather``, ``tp.sum`` and ``tp.vocab``,
+    and for the MoE FFN's expert-parallel layout (``sharding/ep.py``)
+    ``ep.gather`` (the experts' outputs), ``ep.sum`` (the dispatched
+    input's gradient) and, in the replicated layout (``fsdp`` False),
+    ``ep.grad`` (the expert leaves' gradients); empty without a live
+    ``model`` axis.  Bytes are counted as each gather's operand, as the
+    tracer's spans and a ``RecordingMesh`` count them.  It follows the
+    layer code (``models/``): each checkpointed body's forward twice
+    under ``remat="full"`` (the backward's recompute), each loss chunk's
+    forward twice, every backward once."""
     from repro_torch.launch.mesh import batch_axes
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
 
     tp = TensorParallel(mesh)
     if not tp.axes:
@@ -359,6 +363,18 @@ def tp_collective_plan(cfg, mesh, batch: int, seq: int, *,
         dense_cols(d, tp.block(2 * cfg.d_ff, parts=2) if swiglu else fb)
         dense_rows(d, fb, 1)  # the body's last op
 
+    def experts(fw):
+        eb = tp.block(cfg.n_experts)
+        if eb is not None:
+            cap = moe.capacity(cfg, s)
+            plan.add("ep.gather", b * eb.size * cap * d * act, fw)
+            plan.sum((b, s, d), act, site="ep.sum")
+            if not fsdp:  # wi's and wo's gradient blocks
+                plan.add("ep.grad", eb.size * 3 * d * cfg.d_ff * par,
+                         count=2)
+        if cfg.shared_expert:
+            mlp()
+
     def ssm(fw):
         hb = tp.block(cfg.ssm_heads)
         if hb is None:
@@ -382,7 +398,9 @@ def tp_collective_plan(cfg, mesh, batch: int, seq: int, *,
                 ssm(fwd)
             else:
                 attention(fwd)
-                if cfg.family != "moe":
+                if cfg.family == "moe":
+                    experts(fwd)
+                else:
                     mlp()
         for _inv in range(lm.n_shared_invocations(cfg)):
             attention(fwd)

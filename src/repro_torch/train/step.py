@@ -47,23 +47,26 @@ values either way, so the step is the whole-sequence step bit for bit.
 Inside each layer the step lays the reference's in-layer axes out over
 ``model`` (``sharding/tp.py``, ``cst.tp``): each rank computes its block
 of the heads (or, where the heads do not divide, of the query sequence:
-context parallelism), of the MLP hidden, of the loss's vocabulary and of
-the SSM's ``d_inner`` and heads; every parameter's gradient stays whole
-and equal on the ranks of a model group, so the reductions below are
-unchanged.  On the SC substrate every SC call sees the whole layout's
-operands (the forward is the whole layout's bit for bit); on ``exact``
-the row-parallel sums reorder float additions.
+context parallelism), of the MLP hidden, of the loss's vocabulary, of
+the SSM's ``d_inner`` and heads, and of the MoE FFN's experts
+(``sharding/ep.py``: expert parallelism); every parameter's gradient
+stays whole and equal on the ranks of a model group, so the reductions
+below are unchanged.  On the SC substrate every SC call sees the whole
+layout's operands (the forward is the whole layout's bit for bit); on
+``exact`` the row-parallel sums reorder float additions.
 
 ``TrainConfig(fsdp=True)`` is the reference's FSDP ∘ TP layout
 (``sharding/fsdp.py``): ``params``, ``m`` and ``v`` (and the residual)
 hold only the rank's shard of each leaf (``train_state_init(...,
 mesh=)``); the step gathers the leaves outside the layer stack once and
 each layer's inside its checkpointed function
-(:func:`make_param_constrain`); the gradients arrive as the shards'
-gradients, reduced by the gathers' backward (a reduce-scatter over
-``data``, an all-reduce over ``pod``), so only the loss is all-reduced
-here; AdamW's norm and its int8 scales reduce over the ranks holding
-distinct shards, and the compression's scales are each leaf's.  Values
+(:func:`make_param_constrain`; the expert leaves of the expert-parallel
+layout over ``data`` only, each rank keeping its experts' block); the
+gradients arrive as the shards' gradients, reduced by the gathers'
+backward (a reduce-scatter over ``data``, an all-reduce over ``pod``),
+so only the loss is all-reduced here; AdamW's norm and its int8 scales
+reduce over the ranks holding distinct shards, and the compression's
+scales are each leaf's.  Values
 are the replicated layout's; only where they live and which collectives
 move them change.
 
@@ -139,15 +142,15 @@ def make_constrain(mesh, *, seq_parallel: bool = True,
     The in-layer layout (``sharding/tp.py``): ``cst.tp`` is the
     ``sharding.tp.TensorParallel`` of the mesh's ``model`` axis (None
     where it has one rank): the model code lays the heads / kv heads,
-    the MLP hidden, the loss's vocabulary and the SSM's ``d_inner`` and
-    heads out over it inside each layer, and takes the context-parallel
-    attention branch where the heads do not divide; every dimension that
-    does not divide stays whole.  ``lay_out_cache`` also sets
-    ``cst.state`` (the same object): the SSM decode state holds the
-    rank's block of the heads.  ``tensor_parallel=False`` keeps every
-    in-layer tensor whole: the sequence layouts alone, bit for bit,
-    which only the tests and ``chip_smoke.py`` ask for (to compare
-    with)."""
+    the MLP hidden, the loss's vocabulary, the SSM's ``d_inner`` and
+    heads and the MoE FFN's experts out over it inside each layer, and
+    takes the context-parallel attention branch where the heads do not
+    divide; every dimension that does not divide stays whole.
+    ``lay_out_cache`` also sets ``cst.state`` (the same object): the SSM
+    decode state holds the rank's block of the heads.
+    ``tensor_parallel=False`` keeps every in-layer tensor whole: the
+    sequence layouts alone, bit for bit, which only the tests and
+    ``chip_smoke.py`` ask for (to compare with)."""
     if mesh is None:
         return None
 
@@ -186,7 +189,7 @@ def make_constrain(mesh, *, seq_parallel: bool = True,
 
 
 def make_param_constrain(mesh, cfg, *, fsdp: bool = False,
-                         reduce_axes=None):
+                         reduce_axes=None, expert_parallel=None):
     """The per-layer weight constraint (None without a mesh), applied to
     each layer's weights inside the layer's checkpointed function.
 
@@ -195,16 +198,39 @@ def make_param_constrain(mesh, cfg, *, fsdp: bool = False,
     from the rank's shard (``sharding.fsdp.GatherParam``), and its
     backward reduces the layer's gradient over ``reduce_axes`` (default:
     the mesh's batch axes): per-layer gather -> use -> discard, gathered
-    again by the backward's recompute under ``remat="full"``."""
+    again by the backward's recompute under ``remat="full"``.
+
+    ``expert_parallel`` (default: on wherever the mesh's ``model`` axis
+    is live) is the expert layout of the activation constraint it runs
+    beside (``make_constrain``'s ``cst.tp``; ``make_train_step`` passes
+    it from there): under FSDP the expert leaves then gather over
+    ``data`` only and keep their ``model`` block
+    (``sharding.fsdp.keep_blocks``), else they gather whole.  In the
+    replicated layout the leaves are whole and ``models/moe.py`` slices
+    the rank's block (``sharding.ep.local_experts``, whose backward
+    gathers the block's gradient).  The result carries it as
+    ``.expert_parallel``; ``lm`` raises where it differs from the
+    constraint's layout."""
     if mesh is None:
         return None
+    ep_on = (bool(tp_lib.TensorParallel(mesh).axes)
+             if expert_parallel is None else bool(expert_parallel))
     if not fsdp:
-        return lambda layer_tree: layer_tree
-    placements = fsdp_lib.layer_placements(
-        param_shardings(lm.lm_param_specs(cfg), mesh))
-    axes = batch_axes(mesh) if reduce_axes is None else tuple(reduce_axes)
-    return lambda layer_tree: fsdp_lib.gather_tree(layer_tree, placements,
-                                                   axes)
+        def fn(layer_tree):
+            return layer_tree
+    else:
+        specs = lm.lm_param_specs(cfg)
+        placements = param_shardings(specs, mesh)
+        if ep_on:
+            placements = fsdp_lib.keep_blocks(placements, specs)
+        placements = fsdp_lib.layer_placements(placements)
+        axes = (batch_axes(mesh) if reduce_axes is None
+                else tuple(reduce_axes))
+
+        def fn(layer_tree):
+            return fsdp_lib.gather_tree(layer_tree, placements, axes)
+    fn.expert_parallel = ep_on
+    return fn
 
 
 def train_state_init(key, cfg, tcfg: TrainConfig, *, device=None,
@@ -322,7 +348,8 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
     placements = (param_shardings(lm.lm_param_specs(cfg), mesh)
                   if sharded else None)
     cstp = make_param_constrain(mesh, cfg, fsdp=sharded,
-                                reduce_axes=reduce_axes)
+                                reduce_axes=reduce_axes,
+                                expert_parallel=tp_lib.of(cst) is not None)
     n = max(tcfg.microbatches, 1)
 
     def loss_fn(params, batch, rng):
@@ -422,7 +449,8 @@ def make_eval_step(cfg, mesh=None, *, fsdp: bool = False):
     sharded = fsdp and mesh is not None
     placements = (param_shardings(lm.lm_param_specs(cfg), mesh)
                   if sharded else None)
-    cstp = make_param_constrain(mesh, cfg, fsdp=sharded)
+    cstp = make_param_constrain(mesh, cfg, fsdp=sharded,
+                                expert_parallel=tp_lib.of(cst) is not None)
 
     def eval_step(params, batch):
         device = tree_leaves(params)[0].device
