@@ -4043,9 +4043,10 @@ def _span_totals(tracer, names) -> dict:
 # the collectives of a mesh step, each a span of the tracer
 TM_SPANS = ("train.grad_allreduce", "sc.merge", "train.pod_exchange",
             "train.ef_exchange", "mesh.all_gather", "mesh.reduce_scatter",
-            "fsdp.grad_allreduce", "seq.all_gather", "tp.gather", "tp.sum",
-            "tp.vocab", "ep.gather", "ep.sum", "ep.grad")
-TP_SPANS = ("tp.gather", "tp.sum", "tp.vocab")
+            "fsdp.grad_allreduce", "fsdp.relayout", "seq.all_gather",
+            "tp.gather", "tp.sum", "tp.vocab", "tp.lookup", "tp.relayout",
+            "ep.gather", "ep.sum", "ep.grad")
+TP_SPANS = ("tp.gather", "tp.sum", "tp.vocab", "tp.lookup", "tp.relayout")
 EP_SPANS = ("ep.gather", "ep.sum", "ep.grad")
 
 
@@ -4196,8 +4197,11 @@ def tm_fsdp_plan(cfg, mesh) -> dict:
     specs = lm.lm_param_specs(cfg)
     whole = abstract_params(specs, cfg.param_dtype)
     return dict(
+        # TM-f and TM-s run with the in-layer layout off: every leaf
+        # gathers whole
         collectives=fsdp.collective_plan(cfg, mesh,
-                                         reduce_axes=batch_axes(mesh)),
+                                         reduce_axes=batch_axes(mesh),
+                                         tensor_parallel=False),
         state_bytes=3 * _sharded_bytes(whole, param_shardings(specs, mesh))
         + 4)
 
@@ -4281,7 +4285,8 @@ def tm_seq(mesh, cfg) -> dict:
     return dict(plan=plan["all-gather"], loss=run["loss"],
                 checksums=run["checksums"], step_ms=run["ms"],
                 spans=run["spans"], max_memory_allocated=peak,
-                launches=launches, grads=run["grads"])
+                grad_peak=run["grad_peak"], launches=launches,
+                grads=run["grads"])
 
 
 # Phases TM-t and TM-cp: the in-layer layout (``sharding/tp.py``).  TM-t
@@ -4307,8 +4312,10 @@ TP_GRAD_TOL = 1e-5
 def _tp_run(mesh, cfg, tcfg, tensor_parallel: bool) -> dict:
     """TP_STEPS steps of the FSDP ∘ TP layout from seed 0's weights with
     the in-layer layout on or off: losses, step ms, spans, step-1
-    gradient (host), kernel 5's launches and the peak."""
+    gradient (host), kernel 5's launches, the peak, and the shape of
+    every leaf the gathers handed the layer code."""
     from repro_torch.kernels import cuda_lib
+    from repro_torch.sharding import fsdp
     from repro_torch.train import train_state_init
 
     torch.cuda.empty_cache()
@@ -4316,8 +4323,11 @@ def _tp_run(mesh, cfg, tcfg, tensor_parallel: bool) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    run = tm_steps(mesh, cfg, tcfg, TP_STEPS, state,
-                   tensor_parallel=tensor_parallel, keep_grads=True)
+    with fsdp.record_gathers() as gathered:
+        run = tm_steps(mesh, cfg, tcfg, TP_STEPS, state,
+                       tensor_parallel=tensor_parallel, keep_grads=True)
+    run["gathered"] = [[p, list(sh)] for p, sh in sorted(
+        {("/".join(p), sh) for p, sh in gathered})]
     run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     run["launches"] = dict(cuda_lib.launches)
     del state, run["state"]
@@ -4325,9 +4335,36 @@ def _tp_run(mesh, cfg, tcfg, tensor_parallel: bool) -> dict:
     return run
 
 
+def gathered_want(cfg, mesh, tensor_parallel: bool = True) -> list:
+    """``[path, shape]`` of every leaf an FSDP step's gathers hand the
+    layer code, from the placements alone (``fsdp.keep_blocks``): each
+    kept dimension at its block's size, every other whole."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import _leaves
+    from repro_torch.sharding import fsdp, param_shardings
+
+    specs = lm.lm_param_specs(cfg)
+    placements = param_shardings(specs, mesh)
+    if tensor_parallel:
+        placements = fsdp.keep_blocks(placements, cfg)
+    out = []
+    for (path, pl), (_, spec) in zip(_leaves(placements), _leaves(specs)):
+        shape = list(spec.shape)
+        for i, axes in enumerate(pl.dim_axes(len(shape))):
+            for a in axes:
+                if a in pl.keep:
+                    shape[i] //= mesh.shape[a]
+        if path[0] == "blocks":
+            shape = shape[1:]
+        out.append(["/".join(path), shape])
+    return sorted(out)
+
+
 def _tp_record(mesh, cfg, run, whole) -> dict:
     """TM-t's / TM-cp's record from its run and the whole layout's
-    (``whole``: losses, step-1 gradient, peak, step ms)."""
+    (``whole``: losses, step-1 gradient, peaks, step ms)."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.sharding import fsdp
     from repro_torch.sharding.tp import tp_collective_plan
 
     leaf, gap = _leaf_gap(run["grads"], whole["grads"])
@@ -4341,12 +4378,20 @@ def _tp_record(mesh, cfg, run, whole) -> dict:
         whole_step_ms=whole["ms"][:TP_STEPS],
         max_memory_allocated=run["max_memory_allocated"],
         whole_max_memory_allocated=whole["max_memory_allocated"],
+        grad_peak=run["grad_peak"], whole_grad_peak=whole["grad_peak"],
         launches=run["launches"],
         whole_launches=whole["launches"],
         kernel5_plan=kernel5_plan(cfg, rows, TM_SEQ,
                                   model_parallel=mesh.shape["model"]),
         tp_spans=[{n: sp[n] for n in TP_SPANS} for sp in run["spans"]],
-        tp_plan=tp_collective_plan(cfg, mesh, TM_BATCH, TM_SEQ))
+        tp_plan=tp_collective_plan(cfg, mesh, TM_BATCH, TM_SEQ, fsdp=True),
+        fsdp_spans=[{kind: {k: sp[n][k] for k in ("count", "bytes", "s")}
+                     for kind, n in FSDP_COLLECTIVES.items()
+                     if sp[n]["count"]} for sp in run["spans"]],
+        fsdp_plan=fsdp.collective_plan(cfg, mesh,
+                                       reduce_axes=batch_axes(mesh)),
+        gathered=run["gathered"], gathered_want=gathered_want(cfg, mesh),
+        gathered_whole=gathered_want(cfg, mesh, tensor_parallel=False))
 
 
 def tm_tp(mesh, cfg, tm_s) -> dict:
@@ -4360,7 +4405,7 @@ def tm_tp(mesh, cfg, tm_s) -> dict:
     run = _tp_run(mesh, cfg, tcfg, True)
     whole = dict(loss=tm_s["loss"], grads=tm_s["grads"], ms=tm_s["step_ms"],
                  max_memory_allocated=tm_s["max_memory_allocated"],
-                 launches=tm_s["launches"])
+                 grad_peak=tm_s["grad_peak"], launches=tm_s["launches"])
     return _tp_record(mesh, cfg, run, whole)
 
 
@@ -4435,7 +4480,7 @@ def tm_ep(mesh) -> dict:
                                experts=local),
             "whole": kernel5_plan(cfg, rows, TM_SEQ, model_parallel=mp)},
         fsdp_plan={name: fsdp.collective_plan(
-            cfg, mesh, reduce_axes=batch_axes(mesh), expert_parallel=on)
+            cfg, mesh, reduce_axes=batch_axes(mesh), tensor_parallel=on)
             for name, on in (("ep", True), ("whole", False))})
     for name, r in (("ep", run), ("whole", whole)):
         out[name] = dict(
@@ -4446,6 +4491,24 @@ def tm_ep(mesh) -> dict:
                         "s": sp[n]["s"]} for n in TM_SPANS if sp[n]["count"]}
                    for sp in r["spans"]])
     return out
+
+
+def all_to_all_probe(mesh) -> dict:
+    """``launch/mesh.py:all_to_all`` (gloo's ``all_to_all_single`` on
+    CUDA tensors, what the relayouts run) over the ``model`` group:
+    float32 pieces of uneven sizes, each received piece against what
+    its sender filled it with."""
+    from repro_torch.launch.mesh import all_to_all
+
+    m, me = mesh.shape["model"], mesh.coords["model"]
+    pieces = [torch.full((c + 1 + me,), 100.0 * me + c, device=mesh.device)
+              for c in range(m)]
+    got = all_to_all(pieces, mesh, "model",
+                     [(me + 1 + j,) for j in range(m)])
+    ok = all(torch.equal(g.cpu(), torch.full((me + 1 + j,), 100.0 * j + me))
+             for j, g in enumerate(got))
+    return dict(backend=mesh.backend, device=str(mesh.device), ranks=m,
+                dtype="float32", uneven=True, ok=ok)
 
 
 def tm_rank(outdir: str, layers: int) -> int:
@@ -4470,7 +4533,8 @@ def tm_rank(outdir: str, layers: int) -> int:
     tcfg = TrainConfig(optimizer=AdamWConfig(**TM_ADAM))
     mesh = make_local_mesh(TM_MODEL_PARALLEL)
     rec = dict(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
-               mesh=mesh.shape, coords=mesh.coords)
+               mesh=mesh.shape, coords=mesh.coords,
+               all_to_all=all_to_all_probe(mesh))
     t_init = time.perf_counter()
     state = train_state_init(0, cfg, tcfg, device=mesh.device)
     torch.cuda.synchronize()
@@ -4564,6 +4628,10 @@ def train_mesh_phase(layers: int, card: str, t_losses: dict, ranks: list,
                      seconds: float) -> dict:
     """Phase TM: training on a device mesh (``ranks``: what each rank
     wrote in :func:`mesh_ranks`' launch); see the module doc."""
+    probe = [r["all_to_all"] for r in ranks]
+    emit("mesh_all_to_all_probe", card=card, ranks=probe)
+    if not all(p["ok"] for p in probe):
+        raise AssertionError(f"all_to_all over gloo on the card: {probe}")
     world_one = tm_world_one(layers, t_losses)
     cfg = _tm_cfg(layers)
     plan = kernel5_plan(cfg, TM_BATCH // (TM_RANKS // TM_MODEL_PARALLEL),
@@ -4651,9 +4719,16 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
     TP_LOSS2_TOL, every step-1 gradient leaf within TP_GRAD_TOL of its
     max |g|, kernel 5's launches a step ``kernel5_plan``'s (and
     the whole layout's), the in-layer collectives a step (spans
-    ``tp.gather`` / ``tp.sum`` / ``tp.vocab``: count and bytes) equal to
-    ``sharding.tp.tp_collective_plan``; the step ms and the peak beside
-    the whole layout's."""
+    ``tp.gather`` / ``tp.sum`` / ``tp.vocab`` / ``tp.lookup`` /
+    ``tp.relayout``: count and bytes) equal to
+    ``sharding.tp.tp_collective_plan(..., fsdp=True)``, the FSDP
+    collectives a step (``mesh.all_gather``, ``mesh.reduce_scatter``,
+    ``fsdp.grad_allreduce``, ``fsdp.relayout``) equal to
+    ``sharding.fsdp.collective_plan``, and every leaf the gathers handed
+    the layer code at the shape the placements keep (``fsdp.keep_blocks``:
+    a kept leaf is its ``model`` block); the step ms and the peaks (the
+    step's, and step 1's forward and backward, ``grad_peak``) beside the
+    whole layout's."""
     name = {"tp": "train_tm_t", "cp": "train_tm_cp"}[tag]
     out = []
     for rec in ranks:
@@ -4662,6 +4737,12 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
         per_step = {k: t["launches"].get(k, 0) / TP_STEPS for k in plan}
         spans = [{n: {"count": sp[n]["count"], "bytes": sp[n]["bytes"]}
                   for n in TP_SPANS if sp[n]["count"]} for sp in t["tp_spans"]]
+        fsdp_steps = [{k: {"count": v["count"], "bytes": v["bytes"]}
+                       for k, v in sp.items()} for sp in t["fsdp_spans"]]
+        fsdp_want = {k: t["fsdp_plan"][k] for k in FSDP_COLLECTIVES
+                     if k in t["fsdp_plan"]}
+        kept = [p for (p, sh), (_, whole) in zip(
+            t["gathered_want"], t["gathered_whole"]) if sh != whole]
         step_s = [ms / 1e3 for ms in t["step_ms"]]
         tp_s = [sum(sp[n]["s"] for n in TP_SPANS) for sp in t["tp_spans"]]
         r = dict(
@@ -4669,7 +4750,10 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
             loss=t["loss"], whole_loss=t["whole_loss"],
             loss_rel=t["loss_rel"], grad_gap=t["grad_gap"],
             grad_gap_leaf=t["grad_gap_leaf"], tp_per_step=spans[0],
-            tp_plan=t["tp_plan"], launches_per_step=per_step,
+            tp_plan=t["tp_plan"], fsdp_per_step=fsdp_steps[0],
+            fsdp_plan=fsdp_want, kept_leaves=len(kept),
+            gathered_as_planned=t["gathered"] == t["gathered_want"],
+            launches_per_step=per_step,
             kernel5_plan=plan, step_ms=t["step_ms"],
             whole_step_ms=t["whole_step_ms"],
             median_step_ms=float(np.median(t["step_ms"])),
@@ -4677,7 +4761,11 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
             tp_share=float(np.median([a / b for a, b in zip(tp_s,
                                                             step_s)])),
             max_memory_allocated=t["max_memory_allocated"],
-            whole_max_memory_allocated=t["whole_max_memory_allocated"])
+            whole_max_memory_allocated=t["whole_max_memory_allocated"],
+            grad_peak=t["grad_peak"], whole_grad_peak=t["whole_grad_peak"],
+            peak_drop=t["whole_grad_peak"] - t["grad_peak"],
+            fsdp_s=[sum(v["s"] for v in sp.values())
+                    for sp in t["fsdp_spans"]])
         emit(f"{name}_rank", **r)
         for ok, what in (
             (all(math.isfinite(v) for v in t["loss"]), "a loss is not "
@@ -4690,6 +4778,11 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
              "whole layout's"),
             (all(sp == t["tp_plan"] for sp in spans),
              f"in-layer collectives a step {spans}, planned {t['tp_plan']}"),
+            (all(sp == fsdp_want for sp in fsdp_steps),
+             f"FSDP collectives a step {fsdp_steps}, planned {fsdp_want}"),
+            (r["gathered_as_planned"] and kept,
+             f"gathered leaves {t['gathered']}, planned "
+             f"{t['gathered_want']}"),
             (per_step == plan and set(t["launches"]) <= set(plan)
              and t["launches"] == t["whole_launches"],
              f"kernel-5 launches a step {per_step}, planned {plan}, the "
@@ -4707,13 +4800,18 @@ def train_tp_phase(ranks: list, tag: str, card: str) -> dict:
                   for i in range(TP_STEPS)],
         grad_gap=max(r["grad_gap"] for r in out),
         tp_per_step=out[0]["tp_per_step"],
+        fsdp_per_step=out[0]["fsdp_per_step"],
+        kept_leaves=out[0]["kept_leaves"],
         launches_per_step=out[0]["launches_per_step"],
         median_step_ms=[r["median_step_ms"] for r in out],
         whole_median_step_ms=[r["whole_median_step_ms"] for r in out],
         tp_share=[r["tp_share"] for r in out],
         max_memory_allocated=[r["max_memory_allocated"] for r in out],
         whole_max_memory_allocated=[r["whole_max_memory_allocated"]
-                                    for r in out])
+                                    for r in out],
+        grad_peak=[r["grad_peak"] for r in out],
+        whole_grad_peak=[r["whole_grad_peak"] for r in out],
+        peak_drop=[r["peak_drop"] for r in out])
     emit(name, **summary)
     return summary
 
@@ -4895,7 +4993,8 @@ def train_seq_phase(ranks: list, plan: dict, card: str) -> dict:
 
 FSDP_COLLECTIVES = {"all-gather": "mesh.all_gather",
                     "reduce-scatter": "mesh.reduce_scatter",
-                    "all-reduce": "fsdp.grad_allreduce"}
+                    "all-reduce": "fsdp.grad_allreduce",
+                    "all-to-all": "fsdp.relayout"}
 
 
 def train_fsdp_phase(ranks: list, plan: dict, card: str) -> dict:

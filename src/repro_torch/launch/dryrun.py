@@ -16,12 +16,16 @@ allocated, nothing runs), as rank 0 of a
   residual stream's sequence over ``model`` between layers
   (``sharding/seq.py``) and, inside each layer, its block of the heads
   (or of the query sequence), the MLP hidden, the loss's vocabulary and
-  the SSM's ``d_inner`` / heads (``sharding/tp.py``);
+  the SSM's ``d_inner`` / heads (``sharding/tp.py``), each weight the
+  layer runs on such a block gathered over ``data`` only, as that block
+  (``sharding/fsdp.py:keep_blocks``);
 * ``prefill`` is ``lm.prefill`` and ``decode`` ``lm.decode_step`` on the
   rank's rows of the batch over ``pod`` x ``data`` (the whole batch
   where it does not divide: ``long_500k``'s batch of 1), the rank's
   parameter shards, gathered as the train step gathers them (the leaves
-  outside the layer stack once, each layer as it runs), and the rank's
+  outside the layer stack once, each layer as it runs; the expert
+  leaves alone keep their ``model`` block: prefill and decode run every
+  dense weight whole), and the rank's
   block of the KV cache's sequence laid out as the reference's
   ``cache_shardings`` lays it (``make_constrain``'s
   ``lay_out_cache``): prefill writes the block, decode combines the
@@ -30,8 +34,9 @@ allocated, nothing runs), as rank 0 of a
   cache laid out by its sequence keeps the heads whole).
 
 The gathers, reduce-scatters, the sequence's gathers and the in-layer
-layout's gathers and sums (sites ``tp.gather``, ``tp.sum``,
-``tp.vocab``) enter the account's collectives through the
+layout's collectives (sites ``tp.gather``, ``tp.sum``, ``tp.vocab``,
+``tp.lookup``, ``tp.relayout``, ``fsdp.relayout``) enter the account's
+collectives through the
 ``RecordingMesh``.
 ``memory.reference_layout_gb`` is the same rank's arguments under the
 reference's layout (``launch/specs.py``).  A cell that does not fit a
@@ -115,7 +120,7 @@ def cell_step(cfg, shape, mesh, tcfg: TrainConfig | None = None):
     serve_kw = {}
     if step_mesh is not None:
         serve_kw["constrain_params"] = make_param_constrain(
-            step_mesh, cfg, fsdp=True)
+            step_mesh, cfg, fsdp=True, train=False)
         if shape.kind != "train":
             serve_kw["constrain"] = make_constrain(step_mesh)
             serve_kw["constrain"].lay_out_cache(b, s)

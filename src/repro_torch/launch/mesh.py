@@ -15,9 +15,9 @@ as ``jax.sharding.AbstractMesh``: what the pure sharding functions
 :func:`make_production_mesh` gives the reference's production sizes.
 :class:`RecordingMesh` is an abstract mesh that stands as rank 0 and
 records the collectives of a traced step instead of running them;
-:func:`all_reduce` (SUM or MAX), :func:`all_gather` and
-:func:`reduce_scatter` are the entry points every collective of the port
-goes through.
+:func:`all_reduce` (SUM or MAX), :func:`all_gather`,
+:func:`all_to_all` and :func:`reduce_scatter` are the entry points every
+collective of the port goes through.
 
 The process group is made once per process by :func:`init_world`:
 ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -29,9 +29,9 @@ The backend is NCCL when every rank of the host owns a card of its own,
 gloo on the CPU and when ranks share a card (NCCL refuses two ranks on
 one GPU); the choice is reported in ``mesh.backend``, never made
 silently.  gloo runs every collective here on CUDA tensors (the
-all-reduce, SUM and MAX, the all-gather and the reduce-scatter: torch
-2.11's on the H100 machine, staging through the host inside
-ProcessGroupGloo) as on the CPU's.
+all-reduce, SUM and MAX, the all-gather, the all-to-all and the
+reduce-scatter: torch 2.11's on the H100 machine, staging through the
+host inside ProcessGroupGloo) as on the CPU's.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke \\
         --mesh --model-parallel 2 --device cpu
@@ -112,8 +112,9 @@ class RecordingMesh(AbstractMesh):
     """An abstract mesh that stands as rank 0 (``coords`` all zero) and
     records the collectives run on it: each collective appends ``(kind,
     axis, operand bytes)`` to ``records`` (``kind`` "all-reduce",
-    "all-gather" or "reduce-scatter") and its site to ``sites`` (an
-    all-gather's span name, else the kind), and returns a tensor of the
+    "all-gather", "all-to-all" or "reduce-scatter") and its site to
+    ``sites`` (an all-gather's or all-to-all's span name, else the
+    kind), and returns a tensor of the
     shape it would give, its values not the collective's.  What the
     dry-run (``launch/dryrun.py``) traces one rank of a production mesh
     on."""
@@ -167,6 +168,29 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0, *,
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=mesh.group(axis))
         return torch.cat(parts, dim)
+
+
+def all_to_all(pieces: list, mesh, axis: str, recv_shapes: list, *,
+               span: str = "mesh.all_to_all") -> list:
+    """``pieces[i]`` to the rank at coordinate ``i`` along ``axis``; the
+    pieces every rank sent this one, in coordinate order, shaped as
+    ``recv_shapes`` (bits copied exactly: the bytes move as they are),
+    timed as the tracer span ``span``.  Records ``("all-to-all", axis,
+    bytes of every piece sent)`` on a :class:`RecordingMesh`, whose
+    received pieces are zeros."""
+    send = torch.cat([p.reshape(-1) for p in pieces])
+    if isinstance(mesh, RecordingMesh):
+        mesh.record("all-to-all", axis, _nbytes(send), span)
+        return [send.new_zeros(s) for s in recv_shapes]
+    esize = send.element_size()
+    ins = [p.numel() * esize for p in pieces]
+    outs = [math.prod(s) * esize for s in recv_shapes]
+    with collective_span(span, send, axis=axis, bytes=_nbytes(send)):
+        recv = torch.empty(sum(outs), dtype=torch.uint8, device=send.device)
+        dist.all_to_all_single(recv, send.view(torch.uint8), outs, ins,
+                               group=mesh.group(axis))
+    return [r.view(send.dtype).view(s)
+            for r, s in zip(recv.split(outs), recv_shapes)]
 
 
 def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0

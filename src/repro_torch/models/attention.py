@@ -259,11 +259,17 @@ def _pick_kv(t, cfg, hb):
     if kb is not None:
         return kb.slice(t, 2)
     t = tp_lib.enter(t, hb)
+    lo, hi = h0 // g, (h0 + hq - 1) // g + 1
+    run = t.narrow(2, lo, hi - lo)
     if (h0 % g == 0 and hq % g == 0) or (g % hq == 0):
-        lo, hi = h0 // g, (h0 + hq - 1) // g + 1
-        return t.narrow(2, lo, hi - lo)
-    idx = (h0 + torch.arange(hq, device=t.device)) // g
-    return t.index_select(2, idx)
+        return run
+    # kv head (h0 + i) // g for query head i: the run's kv heads each
+    # repeated g times (an expand, whose gradient is a sum over the
+    # repeats, the same bits from run to run; ``index_select``'s is an
+    # ``index_add_``, whose CUDA atomics vary its order), then narrowed
+    rep = run.unsqueeze(3).expand(*run.shape[:3], g, run.shape[3])
+    return rep.reshape(*run.shape[:2], -1, run.shape[3]).narrow(
+        2, h0 - lo * g, hq)
 
 
 def _heads_block(x, p, cfg, positions, key, tp, *, cache=None,

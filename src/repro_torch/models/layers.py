@@ -21,6 +21,7 @@ from repro_torch import sc
 from repro_torch.models.params import ParamSpec
 from repro_torch.sc import ctr_rng
 from repro_torch.sharding import tp as tp_lib
+from repro_torch.sharding.rules import col_block
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -99,7 +100,7 @@ def _sc_config(cfg):
 
 
 def dense(x, w, cfg, key=None, bias=None, site: str = "dense", *,
-          cols=None, rows=None):
+          cols=None, rows=None, w_rows=None):
     """x @ w with the configured multiplication substrate.
 
     Stochastic backends REQUIRE a key (raw ``(2,)``, or per-row keys whose
@@ -113,10 +114,15 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense", *,
     column-parallel and returns this rank's block of the output; with
     ``rows`` (a block of w's rows) ``x`` holds this rank's block of the
     contraction and the call is row-parallel, returning the whole
-    output.  See :func:`_dense_cols` and :func:`_dense_contract`.
+    output.  Either way ``w`` (and ``bias``) is the whole leaf or the
+    rank's block of that dimension (``sharding.tp.is_block``: the FSDP
+    step gathers it so); any other size raises.  ``w_rows``: the K
+    block of a block ``w``, relaid already (``sharding.tp.cols_to_rows``:
+    the loss relays the unembed's once for all its chunks).  See
+    :func:`_dense_cols` and :func:`_dense_contract`.
     """
     if cols is not None:
-        return _dense_cols(x, w, cfg, key, bias, site, cols)
+        return _dense_cols(x, w, cfg, key, bias, site, cols, w_rows)
     if rows is not None:
         return _dense_contract(x, w, cfg, key, bias, site, rows)
     if cfg.sc_backend == "exact":
@@ -145,18 +151,88 @@ def dense(x, w, cfg, key=None, bias=None, site: str = "dense", *,
     return y
 
 
-def _dense_cols(x, w, cfg, key, bias, site, cols):
+class _ScCols(torch.autograd.Function):
+    """The SC substrate's column-parallel call on the rank's block ``w``
+    ``(K, width)`` of the columns: the forward relays it to its K block
+    with every column (``sharding.tp.cols_to_rows``, ``tp.relayout``)
+    and runs the whole layout's sharded call on it (``w_local``: the
+    same K block, key folds and merge, so the product's bits are the
+    whole layout's), keeping the output's block in ``dtype``.  The
+    backward is the whole layout's straight-through jacobian, each rank
+    computing its part from the same operands: the output's gradient
+    gathered whole over ``model`` (``tp.gather``, as the whole weight's
+    slice gathers it), the input's gradient the K block ``g·w_Kᵀ`` of
+    it, gathered (``tp.gather``), and the weight's the block ``xᵀ·g``
+    of the columns, which needs no collective."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, sc_cfg, cols, dtype, wk):
+        mesh, rules = sc.active_mesh()
+        if wk is None:
+            wk = tp_lib.cols_to_rows(w, cols).to(torch.float32)
+        ctx.save_for_backward(x, wk)
+        ctx.cols, ctx.w_dtype = cols, w.dtype
+        y = sc.sc_dot_sharded(
+            key, x, wk, sc_cfg, mesh=mesh,
+            rules=dataclasses.replace(rules, w_local=True))
+        return tp_lib._block(y, cols, -1).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wk = ctx.saved_tensors
+        cols = ctx.cols
+        gb = g.to(torch.float32)
+        whole = tp_lib._gather_dim(g, cols, -1).to(torch.float32)
+        gx = (whole @ wk.T).to(g.dtype)
+        kb = col_block(cols.mesh, cols.axes, x.shape[-1])
+        gx = tp_lib._gather_dim(gx, kb, -1).to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        gw = (x2.T @ gb.reshape(-1, gb.shape[-1])).to(ctx.w_dtype)
+        return gx, gw, None, None, None, None, None
+
+
+def _sc_cols_ok(key, k: int, cols) -> bool:
+    """Whether an SC column-parallel call can run on its weight's block:
+    one key inside ``sc.use_mesh`` whose K split resolves to exactly
+    ``cols``' axes."""
+    scope = sc.active_mesh()
+    if key is None or key.dim() != 1 or scope is None:
+        return False
+    mesh, rules = scope
+    return tuple(sc.resolve_rules(mesh, 1, k, rules).contract) == \
+        tuple(cols.axes)
+
+
+def _dense_cols(x, w, cfg, key, bias, site, cols, w_rows=None):
     """Column-parallel: this rank's block of ``x @ w``'s columns.  On
     ``exact`` only the block is computed (``x`` entered: its gradient is
-    the ranks' partials summed).  On the SC substrate the product is the
+    the ranks' partials summed), on ``w``'s block as it arrives or
+    sliced from the whole leaf.  On the SC substrate the product is the
     whole layout's (every one-key call's K split merged over ``model``
-    already), and the block is a slice of it, so no bit changes."""
+    already), so no bit changes: a whole ``w`` runs the whole call and
+    the block is a slice of it; a block of ``w`` runs it on its K block
+    (:class:`_ScCols`, whose gradients are the whole call's too), which
+    needs a one-key call whose K split is ``cols``' (per-row keys are
+    never split: such a block raises)."""
     if cfg.sc_backend == "exact":
-        y = tp_lib.enter(x, cols) @ cols.slice(w, 1).to(x.dtype)
-        if bias is not None:
-            y = y + cols.slice(bias, 0).to(y.dtype)
-        return y
-    return cols.slice(dense(x, w, cfg, key, bias, site), -1)
+        y = tp_lib.enter(x, cols) @ tp_lib.local(w, cols, 1).to(x.dtype)
+    elif not tp_lib.is_block(w, cols, 1):
+        return cols.slice(dense(x, w, cfg, key, bias, site), -1)
+    elif key is None:
+        raise ValueError(
+            f"layers.dense at site {site!r}: sc_backend="
+            f"{cfg.sc_backend!r} is stochastic but key=None")
+    elif not _sc_cols_ok(key, x.shape[-1], cols):
+        raise ValueError(
+            f"layers.dense at site {site!r}: a block of the weight's "
+            "columns needs a one-key call inside sc.use_mesh whose K "
+            f"split is {cols.axes}")
+    else:
+        y = _ScCols.apply(x.to(torch.float32), w, key, _sc_config(cfg),
+                          cols, x.dtype, w_rows)
+    if bias is not None:
+        y = y + tp_lib.local(bias, cols, 0).to(y.dtype)
+    return y
 
 
 def contract_local_ok(cfg, key, rows) -> bool:
@@ -184,8 +260,13 @@ def _dense_contract(x, w, cfg, key, bias, site, rows):
     ``sc_dot_sharded`` takes the block as its K block
     (``ScShardRules.contract_local``)."""
     if not contract_local_ok(cfg, key, rows):
+        if tp_lib.is_block(w, rows, 0):
+            raise ValueError(
+                f"layers.dense at site {site!r}: a block of the weight's "
+                "rows, but the call cannot run on the block of its "
+                "contraction")
         return dense(rows.gather(x, -1), w, cfg, key, bias, site)
-    ws = rows.slice(w, 0)
+    ws = tp_lib.local(w, rows, 0)
     if cfg.sc_backend == "exact":
         y = tp_lib.row_sum(x @ ws.to(x.dtype), rows)
     else:
@@ -267,12 +348,20 @@ def embed_specs(cfg):
     return {"table": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"))}
 
 
-def embed(tokens, p):
-    return p["table"][tokens.long()]
+def embed(tokens, p, vocab=None):
+    """The table's rows of ``tokens``; with ``vocab`` (a rank's block of
+    the vocabulary) the table may be that block: the vocabulary-parallel
+    lookup (``sharding.tp.lookup``)."""
+    return tp_lib.lookup(p["table"], tokens, vocab)
 
 
-def unembed(x, p, cfg, key=None, cols=None):
-    return dense(x, p["table"].T, cfg, key, site="unembed", cols=cols)
+def unembed(x, p, cfg, key=None, cols=None, w_rows=None):
+    table = p["table"]
+    if cols is None and table.shape[0] != cfg.vocab:
+        raise ValueError(f"an embedding table of {table.shape[0]} rows: "
+                         f"the whole vocabulary is {cfg.vocab}")
+    return dense(x, table.T, cfg, key, site="unembed", cols=cols,
+                 w_rows=w_rows)
 
 
 # ----------------------------- Expert matmul --------------------------------

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sc
 from repro_torch.models import attention, frontend, layers, moe, ssm
 from repro_torch.models.params import ParamSpec, tree_map_specs
 from repro_torch.sharding import tp as tp_lib
@@ -116,18 +116,39 @@ def lm_param_specs(cfg):
     return sp
 
 
-def _logits(x, params, cfg, key=None, cols=None):
+def _logits(x, params, cfg, key=None, cols=None, w_rows=None):
     """Output projection (site ``unembed``): ``key`` is the caller's rng
     root — raw (2,) or per-row (..., 2) — folded here with the site's
     salt.  With ``cols`` (a block of the vocabulary) this rank's block
-    of the logits (``layers.dense``'s column-parallel call)."""
+    of the logits (``layers.dense``'s column-parallel call; ``w_rows``
+    its block weight's K block, :func:`_unembed_rows`)."""
     key = layers.site_key(key, "unembed")
     if cfg.tie_embeddings:
-        y = layers.unembed(x, params["embed"], cfg, key, cols=cols)
+        y = layers.unembed(x, params["embed"], cfg, key, cols=cols,
+                           w_rows=w_rows)
     else:
         w = params["unembed"]
-        y = layers.dense(x, w, cfg, key, site="unembed", cols=cols)
+        if cols is None and w.shape[-1] != cfg.vocab:
+            raise ValueError(f"an unembed of {w.shape[-1]} columns: the "
+                             f"whole vocabulary is {cfg.vocab}")
+        y = layers.dense(x, w, cfg, key, site="unembed", cols=cols,
+                         w_rows=w_rows)
     return y.to(torch.float32)
+
+
+def _unembed_rows(params, cfg, vb):
+    """Where the unembed's weight arrives as this rank's vocabulary block
+    ``vb`` and runs on the SC substrate inside ``sc.use_mesh``: its K
+    block (``sharding.tp.cols_to_rows``), relaid once for every loss
+    chunk and the chunks' recompute; else None."""
+    if vb is None or cfg.sc_backend == "exact" or sc.active_mesh() is None:
+        return None
+    w = (params["embed"]["table"].T if cfg.tie_embeddings
+         else params["unembed"])
+    if not tp_lib.is_block(w, vb, 1):
+        return None
+    with torch.no_grad():
+        return tp_lib.cols_to_rows(w, vb).to(torch.float32)
 
 
 def _layer(tree, idx: int):
@@ -248,13 +269,13 @@ def _state_block(constrain, cfg):
 
 
 def _check_layouts(constrain, constrain_params):
-    """The weights' expert layout (``make_param_constrain``'s
-    ``expert_parallel``) must be the activations' (``constrain.tp``):
+    """The weights' in-layer layout (``make_param_constrain``'s
+    ``tensor_parallel``) must be the activations' (``constrain.tp``):
     the two cannot silently disagree."""
-    want = getattr(constrain_params, "expert_parallel", None)
+    want = getattr(constrain_params, "tensor_parallel", None)
     if want is not None and want != (tp_lib.of(constrain) is not None):
         raise ValueError(
-            f"the parameter constraint lays the experts out "
+            f"the parameter constraint lays the in-layer weights out "
             f"{'over model' if want else 'whole'}, the activation "
             f"constraint {'whole' if want else 'over model'}")
 
@@ -267,16 +288,18 @@ def _part(x, blk):
     return x if blk is None else blk.slice(x)
 
 
-def _embed_inputs(params, inputs, cfg, rng=None):
-    """Tokens (b, s) through the embedding table, or, under
-    ``frontend="embeddings"``, (b, s, d) embeddings through the
-    frontend's projection (site ``frontend_proj`` of the root ``rng``)."""
+def _embed_inputs(params, inputs, cfg, rng=None, vocab=None):
+    """Tokens (b, s) through the embedding table (with ``vocab``, a
+    rank's block of the vocabulary, the table may be that block:
+    ``layers.embed``), or, under ``frontend="embeddings"``, (b, s, d)
+    embeddings through the frontend's projection (site
+    ``frontend_proj`` of the root ``rng``)."""
     if cfg.frontend == "embeddings" and inputs.dim() == 3:
         x = inputs.to(cfg.act_dtype)
         if "frontend" in params:
             x = frontend.project_embeddings(x, params["frontend"], cfg, rng)
         return x
-    return layers.embed(inputs, params["embed"]).to(cfg.act_dtype)
+    return layers.embed(inputs, params["embed"], vocab).to(cfg.act_dtype)
 
 
 def encode(params, inputs, cfg, *, rng=None, constrain=None,
@@ -309,12 +332,17 @@ def encode(params, inputs, cfg, *, rng=None, constrain=None,
     the SSM's ``d_inner`` / heads and the MoE FFN's experts out over
     ``model`` (``sharding/tp.py``, ``sharding/ep.py``;
     ``make_constrain(..., tensor_parallel=False)`` keeps them whole).
-    ``constrain_params``' expert layout must be ``constrain``'s: a
-    mismatch raises."""
+    ``constrain_params``' in-layer layout must be ``constrain``'s: a
+    mismatch raises.  Under it a weight may arrive as the rank's block
+    (the FSDP step keeps it, ``sharding/fsdp.py:keep_blocks``), the
+    embedding table as its vocabulary block (a vocabulary-parallel
+    lookup, ``sharding.tp.lookup``)."""
     _check_layouts(constrain, constrain_params)
     cst = constrain or (lambda v, *a: v)
     cstp = constrain_params or (lambda t: t)
-    x = _embed_inputs(params, inputs, cfg, rng)
+    tp = tp_lib.of(constrain)
+    x = _embed_inputs(params, inputs, cfg, rng,
+                      None if tp is None else tp.block(cfg.vocab))
     b, s = x.shape[:2]
     x = cst(x, "batch", "resid_seq", None)
     blk = _seq_block(constrain, s)
@@ -358,12 +386,13 @@ def forward(params, inputs, cfg, *, rng=None, constrain=None,
 LOSS_SEQ_CHUNK = 1024
 
 
-def _chunk_nll(xi, li, params, cfg, key, vb=None):
+def _chunk_nll(xi, li, params, cfg, key, vb=None, w_rows=None):
     """One chunk's summed NLL; with ``vb`` (a vocabulary block) from this
     rank's block of the logits, the log-softmax reduced over ``model``
     (``sharding.tp.vocab_nll``)."""
     if vb is not None:
-        logits = _logits(xi, params, cfg, key, cols=vb)  # (b, c, V/m) f32
+        logits = _logits(xi, params, cfg, key, cols=vb,
+                         w_rows=w_rows)  # (b, c, V/m) f32
         return tp_lib.vocab_nll(logits, li, vb).sum()
     logits = _logits(xi, params, cfg, key)  # (b, c, vocab) f32
     logp = torch.log_softmax(logits, dim=-1)
@@ -384,12 +413,14 @@ def lm_loss(params, batch, cfg, *, rng=None, constrain=None,
     each chunk's logits are this rank's vocabulary block (the reference's
     ``"vocab"`` over ``model``; a vocabulary that does not divide stays
     whole): ``_chunk_nll``'s log-softmax reduces over ``model``, and the
-    unembed's backward gathers its gradient's blocks.
+    unembed's backward gathers its gradient's blocks, or, where the
+    weight arrives as its block (the FSDP step), keeps the block's.
     """
     x = encode(params, batch["inputs"], cfg, rng=rng, constrain=constrain,
                constrain_params=constrain_params)
     tp = tp_lib.of(constrain)
     vb = None if tp is None else tp.block(cfg.vocab)
+    w_rows = _unembed_rows(params, cfg, vb)
     labels = batch["labels"]
     b, s, _ = x.shape
     c = min(LOSS_SEQ_CHUNK, s)
@@ -407,6 +438,7 @@ def lm_loss(params, batch, cfg, *, rng=None, constrain=None,
             cfg,
             key,
             vb,
+            w_rows,
             use_reentrant=False,
         )
         total = total + nll

@@ -21,6 +21,13 @@ what is done about each:
   expert-sorted order).  Here each token's contributions are gathered in
   that order and added one by one, which is deterministic; CUDA's
   ``index_add_`` is not (its atomics reorder bf16 sums from run to run).
+* **Dispatch's gradient.**  A token sits in up to k capacity slots, so
+  the dispatch's backward sums up to k slot gradients a token.
+  ``torch.gather``'s own backward (``scatter_add_``) sums them with
+  CUDA atomics, in an order that changes from run to run, and a
+  training step's gradient with it.  Here the backward gathers each
+  token's slots and adds them one by one in slot order
+  (:class:`_TakeRows`), the order the CPU's serial scatter adds them in.
 
 Under a mesh's in-layer layout (``constrain.tp``) the experts are laid
 out over ``model`` (expert parallelism, ``sharding/ep.py``): the routing
@@ -81,16 +88,48 @@ def _slot_sources(n_rows: int, slot, token):
     return src[:, :n_rows]
 
 
-def _take_rows(t, src):
+class _TakeRows(torch.autograd.Function):
     """``t`` (b, s, ...) gathered at the slots' sources ``src`` (b, n),
-    zero where a slot is empty."""
-    b, n = src.shape
-    tail = tuple(t.shape[2:])
-    idx = src.clamp_min(0).reshape(b, n, *([1] * len(tail)))
-    rows = torch.gather(t, 1, idx.expand(b, n, *tail))
-    full = (src >= 0).reshape(b, n, *([1] * len(tail)))
-    return torch.where(full, rows, torch.zeros((), dtype=t.dtype,
-                                               device=t.device))
+    zero where a slot is empty; a source token fills at most ``most``
+    slots, and the backward sums a token's slot gradients in slot order
+    by gathers."""
+
+    @staticmethod
+    def forward(ctx, t, src, most):
+        b, n = src.shape
+        tail = tuple(t.shape[2:])
+        idx = src.clamp_min(0).reshape(b, n, *([1] * len(tail)))
+        rows = torch.gather(t, 1, idx.expand(b, n, *tail))
+        full = (src >= 0).reshape(b, n, *([1] * len(tail)))
+        ctx.save_for_backward(src)
+        ctx.s, ctx.most = t.shape[1], most
+        return torch.where(full, rows, torch.zeros((), dtype=t.dtype,
+                                                   device=t.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (src,) = ctx.saved_tensors
+        b, n = src.shape
+        tail = tuple(g.shape[2:])
+        ones = [1] * len(tail)
+        # a token's slots side by side, in slot order (empty slots first)
+        order = torch.argsort(src, dim=1, stable=True)
+        ssrc = torch.gather(src, 1, order).contiguous()
+        tok = torch.arange(ctx.s, device=src.device).expand(b, ctx.s)
+        first = torch.searchsorted(ssrc, tok.contiguous())
+        count = torch.searchsorted(ssrc, tok.contiguous(), right=True) - first
+        out = g.new_zeros((b, ctx.s, *tail))
+        for j in range(ctx.most):
+            at = torch.gather(order, 1, (first + j).clamp_max(n - 1))
+            rows = torch.gather(g, 1, at.reshape(b, ctx.s, *ones)
+                                .expand(b, ctx.s, *tail))
+            has = (count > j).reshape(b, ctx.s, *ones)
+            out = out + torch.where(has, rows, torch.zeros(
+                (), dtype=g.dtype, device=g.device))
+        return out, None, None
+
+
+_take_rows = _TakeRows.apply
 
 
 def moe_ffn(x, p, cfg, key=None, constrain=None):
@@ -146,13 +185,13 @@ def moe_ffn(x, p, cfg, key=None, constrain=None):
         mine = (slot >= lo) & (slot < lo + n * cap)
         lslot = torch.where(mine, slot - lo, n * cap)
     src = _slot_sources(n * cap, lslot, token)  # (b, n·cap)
-    buf = _take_rows(xin, src).reshape(b, n, cap, d)
+    buf = _take_rows(xin, src, k).reshape(b, n, cap, d)
 
     ekey = key
     if key is not None and key.dim() == 3:
         # empty slots keep zero keys; their x rows are zero, so their
         # outputs are zero whatever they draw
-        kbuf = _take_rows(key.to(torch.int64), src)
+        kbuf = _take_rows(key.to(torch.int64), src, k)
         ekey = kbuf.reshape(b, n, cap, 2).to(torch.uint32)
 
     # --- expert FFN (SwiGLU) on the substrate, per-expert keys --------

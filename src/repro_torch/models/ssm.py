@@ -91,7 +91,7 @@ def _project(x, p, cfg, key=None, hb=None, ib=None):
                             site=site, cols=cols)
 
     z, xin, B, C = proj("wz", ib), proj("wx", ib), proj("wB"), proj("wC")
-    bias = p["dt_bias"] if hb is None else hb.slice(p["dt_bias"], 0)
+    bias = tp_lib.local(p["dt_bias"], hb, 0)
     dt = _softplus(proj("wdt", hb).to(torch.float32)
                    + bias.to(torch.float32))
     return z, xin, B, C, dt
@@ -191,6 +191,9 @@ def _gated_norm(y, gate, p, cfg, key, ib):
     yg = y * gate
     if ib is None or not layers.contract_local_ok(cfg, okey, ib):
         if ib is not None:
+            if tp_lib.is_block(p["norm"], ib, 0):
+                raise ValueError("ssm: a block of the gated norm's weight, "
+                                 "but ``out`` cannot run row-parallel")
             yg = ib.gather(yg, -1)
         yn = layers.rms_norm(yg, p["norm"])
         return layers.dense(yn, p["out"], cfg, okey, site="ssm_out")
@@ -198,7 +201,8 @@ def _gated_norm(y, gate, p, cfg, key, ib):
     xf = yg.to(torch.float32)
     var = tp_lib.all_sum((xf * xf).sum(dim=-1, keepdim=True),
                          ib) / ib.length
-    yn = (xf * torch.rsqrt(var + 1e-6)).to(dt) * ib.slice(p["norm"], 0)
+    yn = (xf * torch.rsqrt(var + 1e-6)).to(dt) * tp_lib.local(p["norm"], ib,
+                                                              0)
     return layers.dense(yn, p["out"], cfg, okey, site="ssm_out", rows=ib)
 
 
@@ -219,6 +223,9 @@ def ssm_block(x, p, cfg, key=None, *, cache=None, constrain=None):
     run on the rank's ``d_inner`` block, dt, A, D and the SSD on its
     heads block, and B and C stay whole (entered: each rank's heads use
     them); the decode cache's ``conv_x`` and ``state`` are the blocks.
+    The small leaves (``dt_bias``, ``A_log``, ``D``, ``conv_x``,
+    ``norm``) are sliced from the whole leaf or taken as they arrive as
+    the block (the FSDP step, ``sharding.tp.local``).
     """
     b, s, _ = x.shape
     hb, ib = _blocks(cfg, constrain, cache)
@@ -234,8 +241,8 @@ def ssm_block(x, p, cfg, key=None, *, cache=None, constrain=None):
     z, xin, B, C, dt = _project(x, p, cfg, key, hb, ib)
     a_log, d_skip, conv_x = p["A_log"], p["D"], p["conv_x"]
     if hb is not None:
-        a_log, d_skip = hb.slice(a_log, 0), hb.slice(d_skip, 0)
-        conv_x = ib.slice(conv_x, 1)
+        a_log, d_skip = tp_lib.local(a_log, hb, 0), tp_lib.local(d_skip, hb, 0)
+        conv_x = tp_lib.local(conv_x, ib, 1)
     A = -torch.exp(a_log.to(torch.float32))  # (h,) negative
     D = d_skip.to(torch.float32)[None, None, :, None]
 

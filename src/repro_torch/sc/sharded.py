@@ -84,12 +84,19 @@ class ScShardRules:
     the contraction over the contract axes (a row-parallel layer of the
     in-layer layout, ``sharding/tp.py``): the call takes them as its K
     block as they are, which is the block it would cut from the whole.
+
+    ``w_local``: ``w`` alone holds this rank's K block (every column) and
+    ``x`` the whole contraction (a column-parallel layer whose weight
+    arrives as its block of the columns, relaid to its rows by
+    ``sharding.tp.cols_to_rows``); the call cuts ``x``'s K block as
+    usual.  Forward only: the caller takes the gradient itself.
     """
 
     batch: tuple = ("pod", "data")
     contract: tuple = ("model",)
     local_rows: bool = False
     contract_local: bool = False
+    w_local: bool = False
 
 
 DEFAULT_RULES = ScShardRules()
@@ -116,7 +123,8 @@ def resolve_rules(mesh, m: int, k: int,
     return ScShardRules(batch=live(tuple(rules.batch), m),
                         contract=live(tuple(rules.contract), k),
                         local_rows=rules.local_rows,
-                        contract_local=rules.contract_local)
+                        contract_local=rules.contract_local,
+                        w_local=rules.w_local)
 
 
 def _axis_span(mesh, axes) -> int:
@@ -181,7 +189,7 @@ def _sharded_dispatch(key, x2, w, cfg, *, mesh, rules):
     else:
         rows, b = m // _axis_span(mesh, rules.batch), _coord(mesh, rules.batch)
     xs = x2[b * rows:(b + 1) * rows, c * cols:(c + 1) * cols]
-    ws = w[c * cols:(c + 1) * cols]
+    ws = w if rules.w_local else w[c * cols:(c + 1) * cols]
     for ax in rules.batch + rules.contract:
         key = ctr_rng.fold_in(key, mesh.coords[ax])
     y = _dispatch(key, xs, ws, cfg)
@@ -244,6 +252,16 @@ def sc_dot_sharded(key, x, w, cfg: ScConfig = ScConfig(), *, mesh,
             f"sc_dot_sharded: x holds a contraction block of {k_dim} over "
             f"{rules.contract}, but the rules split K {k_whole} over "
             f"{r.contract}")
+    if rules.w_local:
+        if w.shape[0] * _axis_span(mesh, r.contract) != k_whole or \
+                not r.contract:
+            raise ValueError(
+                f"sc_dot_sharded: w holds a contraction block of "
+                f"{w.shape[0]}, but the rules split K {k_whole} over "
+                f"{r.contract}")
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise ValueError("sc_dot_sharded: w_local has no gradient; "
+                             "the caller takes the block's")
     if not r.batch and not r.contract:
         return sc_dot(key, x, w, cfg)
     n_shards = _axis_span(mesh, r.batch) * _axis_span(mesh, r.contract)

@@ -24,14 +24,19 @@ does for the SC contraction:
   over (``pod``, which never splits a parameter, and ``data`` for a leaf
   whose dimensions do not divide it), then the division by the batch
   span;
-* with the expert-parallel layout on (the step's default), the expert
-  leaves (``ffn/wi``, ``ffn/wo``, whose leading layer-less dimension is
-  ``"experts"``) gather over ``data`` only and keep their ``model``
-  block (:func:`keep_blocks`, ``Placement.keep``): ``models/moe.py``
-  runs the rank's experts on it, its gradient is the block's, and the
-  reduce-scatter over ``data`` runs at the block's size with no
-  ``model`` slice, so no rank holds a whole expert leaf or its whole
-  gradient;
+* with the in-layer layout on (the step's default), every leaf the
+  layer code runs on a rank's ``model`` block (``sharding.tp.
+  weight_blocks``: the heads / kv heads, the MLP hidden, the
+  vocabulary, the SSM's ``d_inner`` and heads, the experts) gathers
+  over ``data`` only and keeps that block (:func:`keep_blocks`,
+  ``Placement.keep``): the layer uses it as it comes, its gradient is
+  the block's, and the reduce-scatter over ``data`` runs at the block's
+  size with no ``model`` slice, so no rank holds such a leaf whole or
+  its whole gradient.  SwiGLU's ``wi``, whose contiguous shard holds
+  the gate's columns apart from the up's, is relaid into the layer's
+  ``parts=2`` block by one all-to-all over ``model`` after the gather
+  (``Placement.parts``, span ``fsdp.relayout``), its gradient back
+  before the reduction;
 * :func:`gather_params` gathers the leaves outside the layer stack (the
   embedding and tied unembed, ``final_norm``, the frontend, zamba2's
   shared block) once a step; ``train/step.py:make_param_constrain``
@@ -47,6 +52,7 @@ does for the SC contraction:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -58,8 +64,14 @@ from repro_torch.launch.mesh import (
     reduce_scatter,
 )
 from repro_torch.models import lm
-from repro_torch.models.params import _leaves, tree_map
-from repro_torch.sharding.rules import Placement, param_shardings, spec_axes
+from repro_torch.models.params import _leaves, _set, tree_map
+from repro_torch.sharding import tp as tp_lib
+from repro_torch.sharding.rules import (
+    ColBlock,
+    Placement,
+    param_shardings,
+    spec_axes,
+)
 
 
 def _live_dims(placement: Placement, ndim: int) -> list:
@@ -115,41 +127,82 @@ def reduce_grad(g: torch.Tensor, placement: Placement, reduce_axes: tuple
     return (g / span).to(dtype)
 
 
+def _parts_block(placement: Placement, t):
+    """The kept dimension of ``t`` and the ``parts`` :class:`ColBlock` it
+    is laid out in (``Placement.parts``)."""
+    dim = placement.kept_dim(t.dim())
+    sizes = placement.mesh.shape
+    axes = tuple(a for a in placement.dim_axes(t.dim())[dim]
+                 if sizes[a] > 1)
+    span = math.prod(sizes[a] for a in axes)
+    return dim, ColBlock(placement.mesh, axes, t.shape[dim] * span,
+                         placement.parts)
+
+
 class GatherParam(torch.autograd.Function):
-    """``shard`` -> the whole leaf (``placement.gather``); the backward
+    """``shard`` -> the whole leaf, or the rank's kept block
+    (``placement.gather``, then the ``parts`` relayout); the backward
     gives the shard's gradient of the mean loss over ``reduce_axes``
-    (:func:`reduce_grad`)."""
+    (the inverse relayout, then :func:`reduce_grad`)."""
 
     @staticmethod
     def forward(ctx, shard, placement, reduce_axes):
         ctx.placement, ctx.reduce_axes = placement, reduce_axes
         whole = placement.gather(shard)
+        if placement.parts > 1:
+            dim, blk = _parts_block(placement, whole)
+            whole = tp_lib.to_parts(whole, blk, dim, "fsdp.relayout")
         return whole.clone() if whole is shard else whole
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_grad(g, ctx.placement, ctx.reduce_axes), None, None
+        pl = ctx.placement
+        if pl.parts > 1:
+            dim, blk = _parts_block(pl, g)
+            g = tp_lib.from_parts(g, blk, dim, "fsdp.relayout")
+        return reduce_grad(g, pl, ctx.reduce_axes), None, None
 
 
-def gather_tree(tree, placements, reduce_axes: tuple = ()):
-    """Every leaf of ``tree`` (shards) through :class:`GatherParam`; a
-    leaf that nothing splits and whose gradient needs no reduction is
-    passed through as it is."""
-    def one(t, pl):
-        sizes = pl.mesh.shape
-        if not pl.live_axes(t.dim()) and all(sizes[a] == 1
-                                             for a in reduce_axes):
-            return t
-        return GatherParam.apply(t, pl, tuple(reduce_axes))
+_GATHERED: list = []
 
-    return tree_map(one, tree, placements)
+
+@contextlib.contextmanager
+def record_gathers():
+    """Within, every leaf :func:`gather_tree` gathers appends ``(path,
+    shape)`` to the list this yields (paths as in
+    ``lm.lm_param_specs``, a layer's under ``"blocks"`` without the
+    layer axis): what a step's gathers hand the layer code."""
+    out: list = []
+    _GATHERED.append(out)
+    try:
+        yield out
+    finally:
+        _GATHERED.remove(out)
+
+
+def gather_tree(tree, placements, reduce_axes: tuple = (), prefix=()):
+    """Every leaf of ``tree`` (shards; at ``prefix`` in the parameter
+    tree) through :class:`GatherParam`; a leaf that nothing splits and
+    whose gradient needs no reduction is passed through as it is."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, placements[k], reduce_axes, prefix + (k,))
+                for k, v in tree.items()}
+    pl, sizes = placements, placements.mesh.shape
+    if not pl.live_axes(tree.dim()) and all(sizes[a] == 1
+                                            for a in reduce_axes):
+        out = tree
+    else:
+        out = GatherParam.apply(tree, pl, tuple(reduce_axes))
+    for rec in _GATHERED:
+        rec.append((prefix, tuple(out.shape)))
+    return out
 
 
 def gather_params(params, placements, reduce_axes: tuple = ()):
     """``params`` with every leaf outside the layer stack (``blocks``)
     gathered: what a step gathers once."""
     return {k: v if k == "blocks" else gather_tree(v, placements[k],
-                                                   reduce_axes)
+                                                   reduce_axes, (k,))
             for k, v in params.items()}
 
 
@@ -160,23 +213,31 @@ def layer_placements(placements):
                     placements["blocks"])
 
 
-# The logical axes whose leaves keep their block under the expert-parallel
-# layout (``train/step.py:make_param_constrain``).
-EXPERT_AXES = ("experts",)
-
-
-def keep_blocks(placements, specs, logical: tuple = EXPERT_AXES):
-    """``placements`` with every leaf that has a dimension of one of the
-    ``logical`` axes keeping its block along the mesh axes that
-    dimension is split over (``Placement.keeping``): gathered over the
-    other axes only.  A dimension that stays whole (an expert count the
-    ``model`` span does not divide) keeps nothing."""
-    def one(pl, spec):
-        axes = [a for ax, entry in zip(spec.axes, pl.spec)
-                if ax in logical for a in spec_axes(entry)]
-        return pl.keeping(axes) if axes else pl
-
-    return tree_map(one, placements, specs)
+def keep_blocks(placements, cfg, *, train: bool = True):
+    """``placements`` (of ``cfg``'s parameters) with every leaf that the
+    layer code runs on this rank's block of a dimension under the mesh's
+    in-layer layout (``sharding.tp.weight_blocks``; ``train=False``: the
+    expert leaves alone) keeping that block along the dimension's mesh
+    axes (``Placement.keeping``): gathered over the other axes only,
+    and relaid into the layer's ``parts`` segments where it has more
+    than one.  A leaf keeps its block only where the placement splits
+    that dimension over the layer block's axes (its block is then the
+    placement's); elsewhere it gathers whole."""
+    mesh = next(pl for _, pl in _leaves(placements)).mesh
+    blocks = tp_lib.weight_blocks(cfg, tp_lib.TensorParallel(mesh),
+                                  train=train)
+    out = tree_map(lambda pl: pl, placements)
+    sizes = mesh.shape
+    for path, (dim, blk) in blocks.items():
+        node = out
+        for k in path:
+            node = node[k]
+        i = dim + (path[0] == "blocks")
+        entry = node.spec[i] if i < len(node.spec) else None
+        axes = tuple(a for a in spec_axes(entry) if sizes[a] > 1)
+        if axes == blk.axes:
+            _set(out, path, node.keeping(axes, blk.parts))
+    return out
 
 
 def state_placements(state, placements):
@@ -212,7 +273,7 @@ def _record(plan, kind, axis, nbytes, times):
 
 def collective_plan(cfg, mesh, *, reduce_axes: tuple,
                     microbatches: int = 1,
-                    expert_parallel: bool = True) -> dict:
+                    tensor_parallel: bool = True) -> dict:
     """The parameter collectives one train step makes on ``mesh`` under
     the FSDP ∘ TP layout, from the placements alone: ``{"all-gather",
     "reduce-scatter", "all-reduce": {"count", "bytes"}, "by_axis":
@@ -222,13 +283,15 @@ def collective_plan(cfg, mesh, *, reduce_axes: tuple,
     leaves once more under ``remat="full"`` (the backward's recompute),
     and reduces each leaf's gradient once.  The loss's all-reduce and
     the optimizer's norm / absmax reductions are not in it.  With
-    ``expert_parallel`` (``make_constrain``'s in-layer layout on) the
-    expert leaves gather over ``data`` only, at their ``model`` block's
-    bytes (:func:`keep_blocks`)."""
+    ``tensor_parallel`` (``make_constrain``'s in-layer layout on) the
+    leaves the layer code runs on a rank's block gather over ``data``
+    only, at their ``model`` block's bytes (:func:`keep_blocks`), and a
+    ``parts`` leaf adds an ``"all-to-all"`` over ``model`` at its
+    block's bytes with each gather and each gradient (the relayout)."""
     specs = lm.lm_param_specs(cfg)
     placements = param_shardings(specs, mesh)
-    if expert_parallel:
-        placements = keep_blocks(placements, specs)
+    if tensor_parallel:
+        placements = keep_blocks(placements, cfg)
     dtype_bytes = torch.empty((), dtype=cfg.param_dtype).element_size()
     sizes = mesh.shape
     plan: dict = {}
@@ -254,6 +317,10 @@ def collective_plan(cfg, mesh, *, reduce_axes: tuple,
                 _record(plan, "all-gather", a, math.prod(cur) * nbytes,
                         gathers)
                 cur[i] *= sizes[a]
+        if pl.parts > 1:
+            kept = dims[pl.kept_dim(len(shape))]
+            _record(plan, "all-to-all", kept[0], math.prod(cur) * nbytes,
+                    gathers + n)
         # the gradient: model slices, data reduce-scatters, all-reduces;
         # the reductions run in float32
         cur = list(shape)

@@ -97,18 +97,33 @@ class Placement:
 
     ``keep`` names mesh axes that :meth:`gather` does not gather over:
     along a dimension split over them the gathered leaf stays the rank's
-    block (the expert leaves of the expert-parallel layout keep their
-    ``model`` block and gather over ``data`` only; :meth:`keeping`)."""
+    block (the leaves the in-layer layout runs on a rank's ``model``
+    block keep it and gather over ``data`` only; :meth:`keeping`).
+    ``parts`` > 1 says that the layer runs that dimension as a
+    :class:`ColBlock` of ``parts`` segments (SwiGLU's ``wi``), which the
+    train step's gather relays the contiguous shard into
+    (``sharding/fsdp.py:GatherParam``)."""
 
     mesh: object
     spec: tuple
     keep: tuple = ()
+    parts: int = 1
 
-    def keeping(self, axes) -> "Placement":
+    def keeping(self, axes, parts: int = 1) -> "Placement":
         """This placement with :meth:`gather` keeping the rank's block
-        along ``axes`` as well."""
+        along ``axes`` as well, laid out in ``parts`` segments."""
         return dataclasses.replace(
-            self, keep=tuple(dict.fromkeys(self.keep + tuple(axes))))
+            self, keep=tuple(dict.fromkeys(self.keep + tuple(axes))),
+            parts=max(self.parts, parts))
+
+    def kept_dim(self, ndim: int):
+        """The dimension whose live axes are all kept, or None."""
+        sizes = dict(self.mesh.shape)
+        for i, axes in enumerate(self.dim_axes(ndim)):
+            live = [a for a in axes if sizes[a] > 1]
+            if live and all(a in self.keep for a in live):
+                return i
+        return None
 
     @property
     def device(self):

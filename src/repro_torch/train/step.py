@@ -49,19 +49,21 @@ Inside each layer the step lays the reference's in-layer axes out over
 of the heads (or, where the heads do not divide, of the query sequence:
 context parallelism), of the MLP hidden, of the loss's vocabulary, of
 the SSM's ``d_inner`` and heads, and of the MoE FFN's experts
-(``sharding/ep.py``: expert parallelism); every parameter's gradient
-stays whole and equal on the ranks of a model group, so the reductions
-below are unchanged.  On the SC substrate every SC call sees the whole
-layout's operands (the forward is the whole layout's bit for bit); on
-``exact`` the row-parallel sums reorder float additions.
+(``sharding/ep.py``: expert parallelism); in the replicated layout every
+parameter's gradient stays whole and equal on the ranks of a model
+group, so the reductions below are unchanged.  On the SC substrate
+every SC call sees the whole layout's operands (the forward is the
+whole layout's bit for bit); on ``exact`` the row-parallel sums reorder
+float additions.
 
 ``TrainConfig(fsdp=True)`` is the reference's FSDP ∘ TP layout
 (``sharding/fsdp.py``): ``params``, ``m`` and ``v`` (and the residual)
 hold only the rank's shard of each leaf (``train_state_init(...,
 mesh=)``); the step gathers the leaves outside the layer stack once and
 each layer's inside its checkpointed function
-(:func:`make_param_constrain`; the expert leaves of the expert-parallel
-layout over ``data`` only, each rank keeping its experts' block); the
+(:func:`make_param_constrain`; with the in-layer layout on, every leaf
+the layer code runs on a rank's ``model`` block over ``data`` only,
+each rank keeping that block, so no rank holds it whole); the
 gradients arrive as the shards' gradients, reduced by the gathers'
 backward (a reduce-scatter over ``data``, an all-reduce over ``pod``),
 so only the loss is all-reduced here; AdamW's norm and its int8 scales
@@ -189,7 +191,8 @@ def make_constrain(mesh, *, seq_parallel: bool = True,
 
 
 def make_param_constrain(mesh, cfg, *, fsdp: bool = False,
-                         reduce_axes=None, expert_parallel=None):
+                         reduce_axes=None, tensor_parallel=None,
+                         train: bool = True):
     """The per-layer weight constraint (None without a mesh), applied to
     each layer's weights inside the layer's checkpointed function.
 
@@ -198,38 +201,50 @@ def make_param_constrain(mesh, cfg, *, fsdp: bool = False,
     from the rank's shard (``sharding.fsdp.GatherParam``), and its
     backward reduces the layer's gradient over ``reduce_axes`` (default:
     the mesh's batch axes): per-layer gather -> use -> discard, gathered
-    again by the backward's recompute under ``remat="full"``.
+    again by the backward's recompute under ``remat="full"``.  Its
+    ``.gather_params(params)`` gathers the leaves outside the layer
+    stack (once a step) with the same placements.
 
-    ``expert_parallel`` (default: on wherever the mesh's ``model`` axis
-    is live) is the expert layout of the activation constraint it runs
+    ``tensor_parallel`` (default: on wherever the mesh's ``model`` axis
+    is live) is the in-layer layout of the activation constraint it runs
     beside (``make_constrain``'s ``cst.tp``; ``make_train_step`` passes
-    it from there): under FSDP the expert leaves then gather over
-    ``data`` only and keep their ``model`` block
-    (``sharding.fsdp.keep_blocks``), else they gather whole.  In the
-    replicated layout the leaves are whole and ``models/moe.py`` slices
-    the rank's block (``sharding.ep.local_experts``, whose backward
-    gathers the block's gradient).  The result carries it as
-    ``.expert_parallel``; ``lm`` raises where it differs from the
+    it from there): under FSDP every leaf the layer code runs on a
+    rank's ``model`` block (``sharding.tp.weight_blocks``: the heads /
+    kv heads, the MLP hidden, the SSM's ``d_inner`` / heads, the
+    experts; ``train=False``, for prefill and decode, the experts alone)
+    then gathers over ``data`` only and keeps that block
+    (``sharding.fsdp.keep_blocks``), else it gathers whole.  In the
+    replicated layout the leaves are whole and the layer code slices the
+    rank's block (``sharding.tp.local``, ``sharding.ep.local_experts``,
+    whose backward gathers the block's gradient).  The result carries it
+    as ``.tensor_parallel``; ``lm`` raises where it differs from the
     constraint's layout."""
     if mesh is None:
         return None
-    ep_on = (bool(tp_lib.TensorParallel(mesh).axes)
-             if expert_parallel is None else bool(expert_parallel))
+    tp_on = (bool(tp_lib.TensorParallel(mesh).axes)
+             if tensor_parallel is None else bool(tensor_parallel))
     if not fsdp:
         def fn(layer_tree):
             return layer_tree
     else:
         specs = lm.lm_param_specs(cfg)
         placements = param_shardings(specs, mesh)
-        if ep_on:
-            placements = fsdp_lib.keep_blocks(placements, specs)
-        placements = fsdp_lib.layer_placements(placements)
+        if tp_on:
+            placements = fsdp_lib.keep_blocks(placements, cfg, train=train)
+        layer = fsdp_lib.layer_placements(placements)
         axes = (batch_axes(mesh) if reduce_axes is None
                 else tuple(reduce_axes))
 
         def fn(layer_tree):
-            return fsdp_lib.gather_tree(layer_tree, placements, axes)
-    fn.expert_parallel = ep_on
+            return fsdp_lib.gather_tree(layer_tree, layer, axes,
+                                        ("blocks",))
+
+        def gather_params(params):
+            return fsdp_lib.gather_params(params, placements, axes)
+
+        # the leaves outside the layer stack, gathered once a step
+        fn.gather_params = gather_params
+    fn.tensor_parallel = tp_on
     return fn
 
 
@@ -349,12 +364,12 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None):
                   if sharded else None)
     cstp = make_param_constrain(mesh, cfg, fsdp=sharded,
                                 reduce_axes=reduce_axes,
-                                expert_parallel=tp_lib.of(cst) is not None)
+                                tensor_parallel=tp_lib.of(cst) is not None)
     n = max(tcfg.microbatches, 1)
 
     def loss_fn(params, batch, rng):
         if sharded:
-            params = fsdp_lib.gather_params(params, placements, reduce_axes)
+            params = cstp.gather_params(params)
         return lm.lm_loss(params, batch, cfg, rng=rng, constrain=cst,
                           constrain_params=cstp)
 
@@ -447,10 +462,8 @@ def make_eval_step(cfg, mesh=None, *, fsdp: bool = False):
     cst = make_constrain(mesh)
     axes = () if mesh is None else batch_axes(mesh)
     sharded = fsdp and mesh is not None
-    placements = (param_shardings(lm.lm_param_specs(cfg), mesh)
-                  if sharded else None)
     cstp = make_param_constrain(mesh, cfg, fsdp=sharded,
-                                expert_parallel=tp_lib.of(cst) is not None)
+                                tensor_parallel=tp_lib.of(cst) is not None)
 
     def eval_step(params, batch):
         device = tree_leaves(params)[0].device
@@ -459,7 +472,7 @@ def make_eval_step(cfg, mesh=None, *, fsdp: bool = False):
             cst.batch = next(iter(batch.values())).shape[0]
         with torch.no_grad():
             if sharded:
-                params = fsdp_lib.gather_params(params, placements)
+                params = cstp.gather_params(params)
             loss = lm.lm_loss(params, _to_device(batch, device), cfg,
                               constrain=cst, constrain_params=cstp)
             return _mean_over(loss, {}, mesh, axes)[0]

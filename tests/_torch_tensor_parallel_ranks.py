@@ -17,9 +17,14 @@ subprocesses.
         (``make_constrain(..., tensor_parallel=False)``), on the
         replicated and FSDP layouts, on ``exact`` and ``pallas_moment``:
         the step-1 loss and gradient, the step-2 loss, the encoder's
-        output (replicated); and each decode case on the rank's heads
-        block (a whole cache) or its SSM state block
-        (``cst.lay_out_cache``).
+        output (``pallas_moment``; under FSDP on the leaves as the step
+        gathers them), the shape of every leaf the FSDP step's gathers
+        hand the layer code (``fsdp.record_gathers``); each decode case
+        on the rank's heads block (a whole cache) or its SSM state block
+        (``cst.lay_out_cache``); and on the 2 x 2 mesh's ``model`` group
+        (2 ranks) the relayouts (``sharding.tp.to_parts`` /
+        ``from_parts`` / ``cols_to_rows``) and the vocabulary-parallel
+        lookup with its gradient.
 
 ``INPUTS`` is an ``.npz`` the test writes: each config's reference
 weights (``<name>/params/<path>``), the token batches, and each decode
@@ -170,9 +175,11 @@ def torch_cfg(name, **kw):
         param_dtype=torch.float32, act_dtype=torch.float32, **over, **kw)
 
 
-def _encode(mesh, cfg, params, batch, tp):
+def _encode(mesh, cfg, params, batch, tp, fsdp=False):
     """The encoder's output of this rank's rows of ``batch`` under the
-    mesh step's constraint and SC scope (the step's rng for step 0)."""
+    mesh step's constraint and SC scope (the step's rng for step 0);
+    with ``fsdp`` ``params`` are the rank's shards, gathered as the FSDP
+    step gathers them."""
     import dataclasses
 
     import torch
@@ -181,16 +188,23 @@ def _encode(mesh, cfg, params, batch, tp):
     from repro_torch.models import lm
     from repro_torch.sc import ctr_rng
     from repro_torch.sharding import sc_shard_rules
-    from repro_torch.train.step import make_constrain, shard_batch
+    from repro_torch.train.step import (
+        make_constrain,
+        make_param_constrain,
+        shard_batch,
+    )
 
     cst = make_constrain(mesh, tensor_parallel=tp)
+    cstp = make_param_constrain(mesh, cfg, fsdp=fsdp, tensor_parallel=tp)
     rows = shard_batch(batch, mesh)
     cst.batch = rows["inputs"].shape[0]
     rng = ctr_rng.fold_in(ctr_rng.prng_key(0), 0)
     rules = dataclasses.replace(sc_shard_rules(mesh), local_rows=True)
     with sc.use_mesh(mesh, rules), torch.no_grad():
+        if fsdp:
+            params = cstp.gather_params(params)
         return lm.encode(params, torch.as_tensor(rows["inputs"]), cfg,
-                         rng=rng, constrain=cst)
+                         rng=rng, constrain=cst, constrain_params=cstp)
 
 
 def port_train(meshes, data, res, meta):
@@ -220,7 +234,8 @@ def port_train(meshes, data, res, meta):
                     with layout(tp):
                         step = make_train_step(cfg, tcfg, mesh)
                     # step 1 in its two parts, to keep its gradient
-                    loss, grads, ef = step.loss_and_grads(state, bs[0])
+                    with fsdp.record_gathers() as gathered:
+                        loss, grads, ef = step.loss_and_grads(state, bs[0])
                     state, _ = step.apply(state, grads, ef)
                     _, m = step(state, bs[1])
                     case = _case(name, mesh_tag, lay, backend, tp)
@@ -229,9 +244,12 @@ def port_train(meshes, data, res, meta):
                     res.update(_flat(grads, f"{case}/grads"))
                     if lay == "replicated":
                         res.update(_flat(state["params"], f"{case}/params1"))
-                        if backend != "exact":
-                            res[f"{case}/encode"] = _encode(
-                                mesh, cfg, whole, bs[0], tp)
+                    else:
+                        meta[f"{case}/gathered"] = sorted(
+                            {("/".join(p), tuple(sh)) for p, sh in gathered})
+                    if backend != "exact":
+                        res[f"{case}/encode"] = _encode(
+                            mesh, cfg, params, bs[0], tp, tcfg.fsdp)
                     meta[f"{case}/seconds"] = time.perf_counter() - t0
 
 
@@ -293,6 +311,48 @@ def port_decode(mesh, data, res, meta):
                 lengths = lengths + 1
 
 
+def port_moves(mesh, res):
+    """On ``mesh``'s ``model`` group: a (6, 16) leaf's contiguous block
+    relaid into its ``parts=2`` block and back, a (8, 12) weight's
+    column block (plain and ``parts=2``) relaid to its K block, and the
+    vocabulary-parallel lookup of a (12, 5) table (a row holding
+    ``-0.0``, repeated tokens) with its gradient; each beside the
+    whole-tensor result it must equal."""
+    import torch
+
+    from repro_torch.sharding import tp
+    from repro_torch.sharding.rules import col_block
+
+    g = torch.Generator().manual_seed(11)
+    c = mesh.coords["model"]
+    leaf = torch.randn((6, 16), generator=g)
+    parts = col_block(mesh, ("model",), 16, parts=2)
+    contig = leaf[:, 8 * c:8 * c + 8]
+    res["moves/to_parts"] = tp.to_parts(contig, parts, 1)
+    res["moves/to_parts_want"] = tp._block(leaf, parts, 1)
+    res["moves/from_parts"] = tp.from_parts(res["moves/to_parts"], parts, 1)
+    res["moves/from_parts_want"] = contig
+    w = torch.randn((8, 12), generator=g)
+    for n in (1, 2):
+        blk = col_block(mesh, ("model",), 12, parts=n)
+        res[f"moves/rows{n}"] = tp.cols_to_rows(tp._block(w, blk, 1), blk)
+        res[f"moves/rows{n}_want"] = w[4 * c:4 * c + 4]
+    table = torch.randn((12, 5), generator=g)
+    table[7] = -0.0
+    tok = torch.tensor([[3, 7, 11, 3], [0, 6, 7, 7]])
+    vb = col_block(mesh, ("model",), 12)
+    up = torch.randn((2, 4, 5), generator=g)
+    whole = table.clone().requires_grad_(True)
+    (whole[tok] * up).sum().backward()
+    block = table[vb.start:vb.stop].clone().requires_grad_(True)
+    out = tp.lookup(block, tok, vb)
+    (out * up).sum().backward()
+    res["moves/lookup"] = out
+    res["moves/lookup_want"] = table[tok]
+    res["moves/lookup_grad"] = block.grad
+    res["moves/lookup_grad_want"] = whole.grad[vb.start:vb.stop]
+
+
 def run_port(inputs, out):
     import torch
     import torch.distributed as dist
@@ -309,6 +369,7 @@ def run_port(inputs, out):
     port_train(meshes, data, res, meta)
     meta["train_s"] = time.perf_counter() - t0
     port_decode(mesh, data, res, meta)
+    port_moves(mesh, res)
     np.savez(f"{out}.rank{mesh.rank}",
              **{k: (v.detach().numpy() if isinstance(v, torch.Tensor)
                     else np.asarray(v)) for k, v in res.items()},

@@ -248,11 +248,16 @@ def test_dryrun_train_cell_on_shards(multi_pod):
     assert cost.coll_by_site["seq.all_gather"] == gathers["bytes"]
     assert cost.coll_by_site["mesh.all_gather"] == plan["all-gather"][
         "bytes"]
-    tpp = tp.tp_collective_plan(cfg, mesh, 64, 64)
+    tpp = tp.tp_collective_plan(cfg, mesh, 64, 64, fsdp=True)
     for site, e in tpp.items():
         assert cost.coll_by_site[site] == e["bytes"], site
+    # the relayouts are all-to-alls, every other in-layer one a gather
+    relaid = tpp.get("tp.relayout", {}).get("bytes", 0)
     assert cost.coll_by_kind["all-gather"] == plan["all-gather"][
-        "bytes"] + gathers["bytes"] + sum(e["bytes"] for e in tpp.values())
+        "bytes"] + gathers["bytes"] + sum(
+            e["bytes"] for e in tpp.values()) - relaid
+    assert cost.coll_by_kind.get("all-to-all", 0) == plan.get(
+        "all-to-all", {}).get("bytes", 0) + relaid
     assert cost.coll_by_kind["reduce-scatter"] == plan["reduce-scatter"][
         "bytes"]
     # the port's step is handed the global batch (it keeps its rows)

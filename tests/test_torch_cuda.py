@@ -575,3 +575,46 @@ def test_drain_on_the_card_restores_warm_on_another_card_engine(cuda):
     assert dst.run_until_drained()[0].generated == want
     assert (dst.metrics.value("serve_prefill_tokens_total") or 0) \
         < len(prompt)
+
+
+def test_moe_training_gradients_are_the_same_bits_run_to_run(cuda):
+    """A MoE model's loss gradient is the same bits run to run on the
+    card: the dispatch's backward (``models/moe.py:_TakeRows``) sums a
+    token's slot gradients in slot order, not in the order of CUDA
+    atomics."""
+    cfg = get_smoke_config("moonshot-v1-16b-a3b").replace(
+        sc_backend="exact")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = params.init_params(lm.lm_param_specs(cfg), gen, cuda)
+    rng = np.random.default_rng(0)
+    # 512 tokens of 32 ids: every id repeats, every expert fills
+    batch = {k: torch.tensor(rng.integers(0, 32, (8, 64)), device=cuda)
+             for k in ("inputs", "labels")}
+    runs = []
+    for _ in range(4):
+        tree = params.tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), p)
+        leaves = dict(params._leaves(tree))
+        lm.lm_loss(tree, batch, cfg).backward()
+        runs.append({k: v.grad.view(torch.int32).cpu()
+                     for k, v in leaves.items()})
+    for run in runs[1:]:
+        for k, g in run.items():
+            assert torch.equal(g, runs[0][k]), k
+
+
+def test_add_rows_is_the_same_bits_run_to_run(cuda):
+    """``sharding.tp.add_rows`` (the vocabulary-parallel lookup's
+    gradient) sums repeated indices in the same order every time on the
+    card."""
+    from repro_torch.sharding.tp import add_rows
+
+    rng = np.random.default_rng(0)
+    idx = torch.tensor(rng.integers(0, 300, 4096), device=cuda)
+    src = torch.tensor(rng.standard_normal((4096, 2048)),
+                       dtype=torch.float32, device=cuda)
+    outs = [add_rows(300, idx, src).view(torch.int32) for _ in range(6)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    want = torch.zeros((300, 2048)).index_add_(0, idx.cpu(), src.cpu())
+    torch.testing.assert_close(outs[0].view(torch.float32).cpu(), want,
+                               rtol=1e-5, atol=1e-5)

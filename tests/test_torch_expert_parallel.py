@@ -278,7 +278,7 @@ def test_collective_plans_count_a_step(name, layout, backend):
         # the expert leaves gather over data only: the plan with the
         # layout off gathers them over model too, at more bytes
         off = fsdp.collective_plan(cfg, rec, reduce_axes=("data",),
-                                   microbatches=2, expert_parallel=False)
+                                   microbatches=2, tensor_parallel=False)
         assert off["all-gather"]["count"] > plan["all-gather"]["count"]
         assert off["reduce-scatter"] == plan["reduce-scatter"]
 
@@ -335,7 +335,7 @@ def test_an_indivisible_expert_count_stays_whole():
     assert ep.expert_block(make_constrain(mesh), ranks.torch_cfg(
         "moonshot")).size == 2
     specs = tlm.lm_param_specs(cfg)
-    kept = fsdp.keep_blocks(param_shardings(specs, mesh), specs)
+    kept = fsdp.keep_blocks(param_shardings(specs, mesh), cfg)
     assert kept["blocks"]["ffn"]["wi"].keep == ()
     _traced_step("moonshot", "exact", "fsdp", mesh, n_experts=6)
     assert not any(s.startswith("ep.") for s in mesh.sites)
@@ -384,13 +384,13 @@ def test_the_layouts_cannot_disagree():
     tok = torch.zeros((2, ranks.SEQ), dtype=torch.int64)
     for on in (True, False):
         cst = make_constrain(mesh, tensor_parallel=on)
-        cstp = make_param_constrain(mesh, cfg, expert_parallel=not on)
-        assert cstp.expert_parallel == (not on)
-        with pytest.raises(ValueError, match="lays the experts out"):
+        cstp = make_param_constrain(mesh, cfg, tensor_parallel=not on)
+        assert cstp.tensor_parallel == (not on)
+        with pytest.raises(ValueError, match="lays the in-layer weights out"):
             tlm.encode(params, tok, cfg, constrain=cst,
                        constrain_params=cstp)
     trivial = RecordingMesh((4, 1), ("data", "model"))
-    assert not make_param_constrain(trivial, cfg).expert_parallel
+    assert not make_param_constrain(trivial, cfg).tensor_parallel
     blk = ep.expert_block(make_constrain(mesh), cfg)
     w = params["blocks"]["ffn"]["wi"][0]
     with pytest.raises(ValueError, match="neither all"):

@@ -397,3 +397,35 @@ def test_sc_fused_is_the_expert_backend():
 
     assert tsc.fast_backend("pallas_bitexact", 1024) == \
         jsc.fast_backend("pallas_bitexact", 1024) == "pallas_fused"
+
+
+@pytest.mark.parametrize("b,s,k,cap", [(2, 16, 2, 8), (3, 64, 6, 16)])
+def test_dispatch_gradient_sums_a_tokens_slots_in_slot_order(b, s, k, cap):
+    """``moe._take_rows``' backward (gathers, the same bits on the card
+    from run to run) is ``torch.gather``'s scatter-add backward bit for
+    bit: each token's slot gradients added in slot order."""
+    rng = np.random.default_rng(s)
+    e, d = 8, 5
+    # every token in k distinct experts' slots, some dropped at capacity
+    eidx = np.stack([rng.permutation(e)[:k] for _ in range(b * s)])
+    slot = np.full((b, e * cap), -1)
+    for r in range(b):
+        fill = np.zeros(e, int)
+        for t in range(s):
+            for x in eidx[r * s + t]:
+                if fill[x] < cap:
+                    slot[r, x * cap + fill[x]] = t
+                    fill[x] += 1
+    src = torch.tensor(slot)
+    x = torch.tensor(rng.standard_normal((b, s, d)), dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((b, e * cap, d)),
+                     dtype=torch.float32)
+    xa = x.clone().requires_grad_(True)
+    (tmoe._take_rows(xa, src, k) * g).sum().backward()
+    xb = x.clone().requires_grad_(True)
+    idx = src.clamp_min(0)[..., None].expand(b, e * cap, d)
+    rows = torch.where((src >= 0)[..., None], torch.gather(xb, 1, idx),
+                       torch.zeros(()))
+    (rows * g).sum().backward()
+    assert torch.equal(tmoe._take_rows(x, src, k), rows.detach())
+    assert torch.equal(xa.grad, xb.grad)

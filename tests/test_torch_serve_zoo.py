@@ -12,7 +12,8 @@ At the two SMOKE configs, float32, on the same numpy weights:
   operand across a grid step);
 * the paged and the fixed-slot engines' greedy tokens equal to the JAX
   engines', request for request, on ``exact`` and ``pallas_bitexact``
-  (nbit 256), and paged tokens equal to fixed-slot tokens;
+  (nbit 256; zamba2-7b at one group of the SMOKE config), and paged
+  tokens equal to fixed-slot tokens;
 * on ``moment`` (the port alone: sampled rows draw Gumbel-max, the
   reference ``jax.random.categorical``) chunk-width invariance, state
   reset on slot reuse (and ``_reset_fresh_state`` against the
@@ -244,8 +245,8 @@ def _serve(build, request_cls, params, cfg, specs, **kw):
 
 # pallas_bitexact at d_model 32 (the port's plain int64 Threefry is most
 # of its time); zamba2-7b's bit-exact cases, whose JAX engines take ~1-2
-# minutes each to compile their interpret-mode kernels, are in
-# test_torch_serve_zoo_hybrid.py so that they run beside this file
+# minutes each to compile their interpret-mode kernels, are
+# test_hybrid_engine_greedy_tokens_match_reference_on_bitexact below
 _ENGINE_CASES = [
     (arch, "exact", paged) for arch in ARCHS for paged in (True, False)
 ] + [("mamba2-370m", "pallas_bitexact", paged) for paged in (True, False)]
@@ -258,6 +259,21 @@ def test_engine_greedy_tokens_match_reference(arch, backend, paged):
     ``pallas_bitexact`` so the fixed-slot JAX engine compiles one
     prefill."""
     assert_engines_match(arch, backend, paged)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_hybrid_engine_greedy_tokens_match_reference_on_bitexact(paged):
+    """zamba2-7b on ``pallas_bitexact`` — kernel 1 for every SSM
+    projection, the shared block and the unembed, with per-token keys on
+    the paged engine and one key a call on the fixed-slot engine: one
+    group of the SMOKE config (two SSM layers and one shared invocation)
+    at d_model 32, nbit 256.  The paged engine feeds one token a tick,
+    so its JAX twin compiles one step width.  These are the file's
+    longest cases; they stay in this file of many tests because
+    ``--dist loadfile`` hands out files with the most tests first, so a
+    file of two long tests would start last and end the run late."""
+    assert_engines_match("zamba2-7b", "pallas_bitexact", paged,
+                         prefill_chunk=1, n_layers=3)
 
 
 def assert_engines_match(arch, backend, paged, prefill_chunk=4, **dims):

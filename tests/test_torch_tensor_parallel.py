@@ -191,6 +191,88 @@ def test_the_moment_encoder_output(runs, name, mesh):
 
 
 @pytest.mark.parametrize("name,mesh", ranks.TRAIN)
+def test_the_moment_forward_on_kept_blocks(runs, name, mesh):
+    """Under FSDP with the layout on every leaf the layer code runs on a
+    rank's block arrives as that block, and the ``pallas_moment``
+    encoder output and step-1 loss are the whole layout's bit for bit:
+    an SC column-parallel call on a block runs on the K block the whole
+    call cuts (``tp.relayout``)."""
+    tpc = ranks._case(name, mesh, "fsdp", "pallas_moment", True)
+    whole = ranks._case(name, mesh, "replicated", "pallas_moment", False)
+    off = ranks._case(name, mesh, "fsdp", "pallas_moment", False)
+    for got in runs["port"]:
+        np.testing.assert_array_equal(got[f"{tpc}/encode"],
+                                      got[f"{whole}/encode"])
+        assert got[f"{tpc}/losses"][0] == got[f"{off}/losses"][0]
+
+
+# the logical axes the in-layer layout splits over ``model``
+KEPT_KINDS = ("heads", "kv_embed", "mlp", "vocab", "ssm_inner")
+
+
+def _whole_over_model(cfg, backend, path, span):
+    """The named cases whose leaves gather whole over ``model``: the
+    context-parallel branch, kv heads that do not divide, and calls with
+    per-row keys (the SSM's projections, ``out`` and ``norm`` on SC)."""
+    leaf = path.split("/")[-1]
+    if "attn" in path and cfg.n_heads % span:
+        return True
+    if leaf in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % span:
+        return True
+    return (backend != "exact" and "ssm" in path
+            and leaf in ("wz", "wx", "wdt", "out", "norm"))
+
+
+@pytest.mark.parametrize("name,mesh,backend", [
+    (name, mesh, backend) for name, mesh in ranks.TRAIN
+    for backend in ranks.BACKENDS])
+def test_fsdp_gathers_hand_the_layer_its_blocks(runs, name, mesh,
+                                                backend):
+    """What the FSDP step's gathers hand the layer code (recorded from
+    ``GatherParam`` on every rank): with the layout on, every heads /
+    kv_embed / mlp / vocab / ssm_inner leaf at its ``model`` block's
+    size (gathered over ``data`` only), but for the named cases; with
+    it off every leaf whole."""
+    from repro_torch.models.params import _leaves
+
+    cfg = ranks.torch_cfg(name, sc_backend=backend)
+    span = ranks.MESHES[mesh][1]
+    specs = {"/".join(p): s for p, s in _leaves(tlm.lm_param_specs(cfg))}
+    kept = 0
+    for tp_on in (True, False):
+        case = ranks._case(name, mesh, "fsdp", backend, tp_on)
+        for meta in runs["meta"]:
+            seen = meta[f"{case}/gathered"]
+            assert {p for p, _ in seen} == set(specs)
+            for path, shape in seen:
+                spec = specs[path]
+                axes, dims = spec.axes, spec.shape
+                if path.startswith("blocks/"):
+                    axes, dims = axes[1:], dims[1:]
+                want = [n // span if tp_on and ax in KEPT_KINDS
+                        and not _whole_over_model(cfg, backend, path, span)
+                        else n for ax, n in zip(axes, dims)]
+                assert list(shape) == want, (case, path, shape, want)
+                kept += want != list(dims)
+    assert kept
+
+
+def test_relayouts_and_the_lookup_move_bits_exactly(runs):
+    """On a 2-rank ``model`` group (gloo): a contiguous block relaid into
+    its ``parts=2`` block and back, a column block (plain and
+    ``parts=2``) relaid to its K block, and the vocabulary-parallel
+    lookup (a ``-0.0`` row stays ``-0.0``: the holder's row is selected,
+    not summed) bit for bit, its gradient the whole table's block."""
+    for got in runs["port"]:
+        for name in ("to_parts", "from_parts", "rows1", "rows2", "lookup",
+                     "lookup_grad"):
+            a, b = got[f"moves/{name}"], got[f"moves/{name}_want"]
+            assert a.shape == b.shape, name
+            np.testing.assert_array_equal(a.view(np.int32),
+                                          b.view(np.int32), err_msg=name)
+
+
+@pytest.mark.parametrize("name,mesh", ranks.TRAIN)
 def test_exact_losses_match_the_reference_mesh_step(runs, name, mesh):
     want = runs["ref"][f"train/{name}/{mesh}/losses"]
     for layout in ranks.LAYOUTS:
@@ -325,8 +407,25 @@ def test_tp_collective_plan_counts_a_step(name, mesh, backend, layout,
             e["count"] += 1
             e["bytes"] += nbytes
     assert got
-    assert tp.tp_collective_plan(cfg, rec, b, ranks.SEQ,
-                                 microbatches=2) == got
+    assert tp.tp_collective_plan(cfg, rec, b, ranks.SEQ, microbatches=2,
+                                 fsdp=tcfg.fsdp) == got
+    if tcfg.fsdp:  # the FSDP gathers, reductions and relayouts
+        plan = fsdp.collective_plan(cfg, rec, reduce_axes=("data",),
+                                    microbatches=2)
+        kinds: dict = {}
+        for (kind, _, nbytes), site in zip(rec.records, rec.sites):
+            if site in ("mesh.all_gather", "reduce-scatter",
+                        "fsdp.relayout"):
+                e = kinds.setdefault(kind, {"count": 0, "bytes": 0})
+                e["count"] += 1
+                e["bytes"] += nbytes
+        assert kinds == {k: plan[k] for k in kinds}
+        # SwiGLU's wi is relaid into its parts; no leaf gathers whole
+        # over model but for the CP branch and the per-row-key calls
+        assert ("all-to-all" in kinds) == (cfg.family != "ssm")
+        assert ("all-gather:model" in plan["by_axis"]) == (
+            name == "dense_cp" or (backend != "exact"
+                                   and cfg.family in ("ssm", "hybrid")))
 
 
 @pytest.mark.parametrize("name", ["ssm", "hybrid", "dense"])
@@ -362,3 +461,20 @@ def test_the_decode_cache_is_cache_shardings_block(name):
         state = ("ssm", "state")
         assert got[state].shape[2] == cfg.ssm_heads // 4
         assert old[state].shape[2] == cfg.ssm_heads
+
+
+def test_add_rows_sums_repeated_rows_in_index_order():
+    """``tp.add_rows`` (the vocabulary-parallel lookup's gradient) is
+    ``index_add_`` bit for bit on the CPU, a repeated index's rows added
+    in index order, also past the size where an accumulating
+    ``index_put_`` goes parallel; the card's route is
+    ``tests/test_torch_cuda.py``'s."""
+    rng = np.random.default_rng(0)
+    for rows, n, d in ((40, 7, 3), (4096, 300, 64)):
+        idx = torch.tensor(rng.integers(0, n, rows))
+        src = torch.tensor(rng.standard_normal((rows, d)),
+                           dtype=torch.float32)
+        want = torch.zeros((n, d))
+        for i in range(rows):
+            want[idx[i]] += src[i]
+        assert torch.equal(tp.add_rows(n, idx, src), want)

@@ -356,12 +356,17 @@ def test_recompute_gathers_every_layer_again(remat):
     assert got["all-reduce"]["count"] == plan["all-reduce"]["count"] + 3
     assert got["all-reduce"]["bytes"] == plan["all-reduce"]["bytes"] + 12
     specs = tlm.lm_param_specs(cfg)
-    pl = param_shardings(specs, mesh)
+    # the leaves the in-layer layout runs on their model block keep it
+    pl = fsdp.keep_blocks(param_shardings(specs, mesh), cfg)
+
+    def gathered(p, ndim):
+        return len([a for a in p.live_axes(ndim) if a not in p.keep])
+
     layer_gathers = sum(
-        len(p.live_axes(len(s.shape) - 1)) for (_, p), (_, s) in zip(
+        gathered(p, len(s.shape) - 1) for (_, p), (_, s) in zip(
             params_lib._leaves(fsdp.layer_placements(pl)),
             params_lib._leaves(specs["blocks"])))
-    outside = sum(len(p.live_axes(len(s.shape))) for (path, p), (_, s) in
+    outside = sum(gathered(p, len(s.shape)) for (path, p), (_, s) in
                   zip(params_lib._leaves(pl), params_lib._leaves(specs))
                   if path[0] != "blocks")
     per_layer = 2 if remat == "full" else 1
@@ -403,3 +408,28 @@ def test_world_of_one_fsdp_is_the_single_device_step_bit_for_bit():
     assert out[0][0] == out[1][0]
     for k, v in out[0][1].items():
         np.testing.assert_array_equal(out[1][1][k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["exact", "pallas_moment"])
+def test_the_dense_leaves_keep_their_model_block(backend):
+    """qwen2-0.5b at full width, 2 layers, float32 on data 2 x model 2
+    (chip_smoke's TM-t): with the in-layer layout on, every dense leaf
+    gathers over ``data`` only, so a step's plan gathers nothing over
+    ``model``: 34 gathers of 195,788,544 bytes against 71 of 587,342,592
+    gathered whole; the reductions run at the same block sizes, and
+    SwiGLU's ``wi`` adds its relayout both ways."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-0.5b").replace(
+        n_layers=2, sc_backend=backend, param_dtype=torch.float32,
+        act_dtype=torch.float32)
+    mesh = mesh_lib.AbstractMesh((2, 2), ("data", "model"))
+    on = fsdp.collective_plan(cfg, mesh, reduce_axes=("data",))
+    off = fsdp.collective_plan(cfg, mesh, reduce_axes=("data",),
+                               tensor_parallel=False)
+    assert off["all-gather"] == {"count": 71, "bytes": 587_342_592}
+    assert on["all-gather"] == {"count": 34, "bytes": 195_788_544}
+    assert "all-gather:model" not in on["by_axis"]
+    assert on["reduce-scatter"] == off["reduce-scatter"]
+    wi = 896 * 9728 // 2 * 4  # a rank's block of one layer's wi
+    assert on["all-to-all"] == {"count": 2 * (2 + 1), "bytes": 6 * wi}
